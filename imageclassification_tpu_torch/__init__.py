@@ -7,9 +7,10 @@ package runs on a path that is ported here is a CUDA kernel written by hand
 (sources under csrc/, built at first use by ops/_build.py). Entry points run
 on `cuda` unless the caller passes `device="cpu"`.
 
-Ported so far: folder inference (`python -m imageclassification_tpu_torch.val`)
-for the ViT family, with `--flash_attn` checkpoints running the
-flash-attention forward kernel.
+Ported so far, for the ViT family: folder inference
+(`python -m imageclassification_tpu_torch.val`) and training
+(`python -m imageclassification_tpu_torch.train`), with `--flash_attn`
+running the flash-attention forward and backward kernels.
 """
 
 __version__ = "0.1.0"

@@ -1,1 +1,2 @@
-"""Reading the JAX package's checkpoints into the port's modules."""
+"""Checkpoints in the JAX package's format, read and written, and the weight
+carry between the two packages' layouts."""

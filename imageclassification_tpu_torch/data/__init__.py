@@ -1,2 +1,2 @@
-"""Host data path: folder index, eval batch index math, PIL decode, and the
-on-device eval pixel pipeline."""
+"""Data path: folder index and split, epoch and eval index math, PIL decode
+and the batch loader, the device pixel pipelines (train and eval), mixup."""

@@ -108,3 +108,21 @@ def write_class_indices(class_to_idx: Dict[str, int], output_dir: str) -> None:
     json_str = json.dumps({v: k for k, v in class_to_idx.items()}, indent=4)
     with open(Path(output_dir) / "class_indices.json", "w") as f:
         f.write(json_str)
+
+
+def build_dataset(args) -> Tuple[ImageFolderIndex, ImageFolderIndex, int]:
+    """(train, val, num_classes): `train/` and `val/` folders when
+    train_split_rato == 0, else the seeded auto-split of data_path; writes
+    class_indices.json into output_dir."""
+    if args.train_split_rato == 0:
+        train_ds = scan_folder(os.path.join(args.data_path, "train"))
+        val_ds = scan_folder(os.path.join(args.data_path, "val"))
+        class_to_idx = train_ds.class_to_idx
+    else:
+        train_ds, val_ds, class_to_idx = split_dataset(
+            args.data_path, args.train_split_rato, seed=args.seed
+        )
+    write_class_indices(class_to_idx, args.output_dir)
+    num_classes = len(class_to_idx)
+    print("Number of the class = %d" % num_classes)
+    return train_ds, val_ds, num_classes

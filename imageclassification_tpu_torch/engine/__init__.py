@@ -1,1 +1,1 @@
-"""Eval step (the train step comes with the training slice)."""
+"""Train state, train and eval steps, and the epoch loops."""

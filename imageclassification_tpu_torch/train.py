@@ -1,0 +1,271 @@
+"""Training / evaluation CLI (port of the root train.py):
+
+    python -m imageclassification_tpu_torch.train --data_path <ImageFolder> \\
+        --model vit_base_patch16 [--flash_attn true] [--device cuda|cpu] ...
+
+The JAX train.py's flags, artifacts and epoch flow: `class_indices.json`
+and `checkpoint-{N,best,best-ema}.pth` under --output_dir (JAX layout, so
+either package resumes them and either val.py reads them), JSON lines in
+log.txt beside it, TensorBoard scalars under --log_dir, auto-resume,
+--eval, --pretrained_path with a repo checkpoint, and a checkpoint on
+SIGTERM/SIGUSR1 before a clean exit. One process on one device; only the
+ViT family is built (other names raise NotImplementedError), and the flags of
+features not ported yet raise (config.check_ported).
+"""
+
+from __future__ import annotations
+
+import datetime
+import json
+import os
+import signal
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .checkpoint import io as ckpt_io
+from .config import TrainConfig, check_ported, parse_args
+from .data.folder import build_dataset
+from .data.loader import BatchLoader
+from .data.mixup import build_mixup
+from .data.sampler import epoch_batch_indices, eval_batches, ra_epoch_batch_indices
+from .device import resolve_device
+from .engine.loop import evaluate, train_one_epoch
+from .engine.state import create_train_state, num_params
+from .engine.step import build_eval_step, build_train_step
+from .models import create_model, model_kwargs_for
+from .optim.ema import init_ema
+from .optim.factory import create_optimizer
+from .optim.schedules import build_schedules
+from .utils.loggers import TensorboardLogger
+
+
+class _EmaWeights:
+    """Context manager: the model runs with the EMA weights inside, its own
+    weights are restored on exit."""
+
+    def __init__(self, model, ema):
+        self.model, self.ema = model, ema
+
+    def __enter__(self):
+        if self.ema is not None:
+            params = dict(self.model.named_parameters())
+            self.saved = {k: p.detach().clone() for k, p in params.items()}
+            with torch.no_grad():
+                for k, v in self.ema.items():
+                    params[k].copy_(v)
+        return self.model
+
+    def __exit__(self, *exc):
+        if self.ema is not None:
+            with torch.no_grad():
+                for k, p in self.model.named_parameters():
+                    p.copy_(self.saved[k])
+
+
+def _load_pretrained(args, state) -> None:
+    """--pretrained_path: the "model" weights of a repo checkpoint, pruned by
+    name and shape; the EMA restarts from them."""
+    ck = ckpt_io.load_checkpoint(args.pretrained_path)
+    if not (isinstance(ck, dict) and isinstance(ck.get("model"), dict)):
+        raise NotImplementedError(
+            "--pretrained_path takes a checkpoint of this project here; converting a "
+            "torch/timm state_dict is not ported yet (ROADMAP A7)")
+    pos = ck["model"].get("pos_embed")
+    if pos is not None and tuple(pos.shape) != tuple(state.model.pos_embed.shape):
+        raise NotImplementedError(
+            f"pos_embed {tuple(pos.shape)} differs from the model's "
+            f"{tuple(state.model.pos_embed.shape)}: resampling it to another --input_size "
+            "is not ported yet (ROADMAP A12)")
+    ckpt_io.load_params_with_pruning(state.model, ck["model"])
+    if state.ema is not None:
+        state.ema = init_ema(state.model)
+    print(f"Loaded pretrained weights from {args.pretrained_path}")
+
+
+def main(args: TrainConfig):
+    check_ported(args)
+    device = resolve_device(args.device)
+    print(args)
+    seed = args.seed
+
+    dataset_train, dataset_val, num_classes = build_dataset(args)
+    os.makedirs(args.log_dir, exist_ok=True)
+    log_writer = TensorboardLogger(log_dir=args.log_dir)
+
+    total_batch_size = args.batch_size * args.update_freq
+    num_training_steps_per_epoch = len(dataset_train) // total_batch_size
+    if num_training_steps_per_epoch == 0:
+        raise ValueError(
+            f"dataset ({len(dataset_train)}) smaller than one global batch "
+            f"({total_batch_size}); lower --batch_size"
+        )
+    input_shape = [1, args.input_size, args.input_size, 3]  # NHWC
+
+    mixup_cfg = build_mixup(args, num_classes)
+    if mixup_cfg is not None:
+        print("Mixup is activated!")
+
+    model_kwargs = model_kwargs_for(args, num_classes)
+    model = create_model(
+        args.model, half_precision=(args.use_amp or args.half_precision),
+        img_size=args.input_size, generator=torch.Generator().manual_seed(seed),
+        **model_kwargs,
+    ).to(device)
+    model_spec = {"name": args.model,
+                  "kwargs": {k: v for k, v in model_kwargs.items() if k != "pretrained"}}
+
+    print("LR = %.8f" % args.lr)
+    print("Batch size = %d" % total_batch_size)
+    print("Update frequent = %d" % args.update_freq)
+    print("Number of training examples = %d" % len(dataset_train))
+    print("Number of training steps per epoch = %d" % num_training_steps_per_epoch)
+
+    optimizer = create_optimizer(args.opt, model.parameters(), lr=args.lr,
+                                 weight_decay=args.weight_decay, opt_eps=args.opt_eps,
+                                 opt_betas=args.opt_betas, clip_grad=args.clip_grad)
+    state = create_train_state(model, optimizer, use_ema=args.model_ema,
+                               update_freq=args.update_freq)
+    print("number of params:", num_params(state))
+
+    print("Use Cosine LR scheduler")
+    lr_schedule_values, wd_schedule_values = build_schedules(args, num_training_steps_per_epoch)
+    print("Max WD = %.7f, Min WD = %.7f" % (max(wd_schedule_values), min(wd_schedule_values)))
+
+    if args.pretrained and args.pretrained_path:
+        _load_pretrained(args, state)
+    elif (args.pretrained and not args.resume
+          and not (args.auto_resume and ckpt_io.find_latest_checkpoint(args.output_dir))):
+        print(
+            "WARNING: --pretrained true but no local weights available "
+            "(no network egress) — TRAINING FROM SCRATCH. "
+            "Pass --pretrained_path (a repo checkpoint) to fine-tune from "
+            "pretrained weights.",
+            flush=True,
+        )
+
+    state, _ = ckpt_io.auto_load_model(args, state)
+
+    train_step = build_train_step(model, args, num_classes, mixup_cfg, lr_schedule_values,
+                                  wd_schedule_values, ema_decay=args.model_ema_decay,
+                                  seed=seed)
+    eval_step = build_eval_step(model, num_classes)
+    eval_bs = int(1.5 * args.batch_size)
+
+    def make_val_loader():
+        idx = np.stack(eval_batches(len(dataset_val), eval_bs))
+        return BatchLoader(dataset_val, idx, args.input_size, train=False, device=device,
+                           seed=seed, num_workers=args.num_workers)
+
+    if args.eval:
+        print("Eval only mode")
+        with _EmaWeights(model, state.ema if args.model_ema else None):
+            test_stats = evaluate(eval_step, make_val_loader(), num_classes)
+        print(f"Accuracy of the network on {len(dataset_val)} test images: "
+              f"{test_stats['acc1']:.5f}%")
+        return
+
+    # SLURM's grace signal: checkpoint and stop after this epoch
+    preempted = {"flag": False}
+
+    def _on_preempt(signum, frame):
+        print(f"Received signal {signum}: checkpoint + stop after this epoch")
+        preempted["flag"] = True
+
+    previous = {}
+    for sig in (signal.SIGTERM, signal.SIGUSR1):
+        try:
+            previous[sig] = signal.signal(sig, _on_preempt)
+        except ValueError:
+            pass  # not the main thread
+    try:
+        return _train(args, state, train_step, eval_step, make_val_loader, log_writer,
+                      dataset_train, dataset_val, num_classes, num_training_steps_per_epoch,
+                      input_shape, model_spec, preempted)
+    finally:
+        for sig, handler in previous.items():
+            signal.signal(sig, handler)
+
+
+def _train(args, state, train_step, eval_step, make_val_loader, log_writer, dataset_train,
+           dataset_val, num_classes, num_training_steps_per_epoch, input_shape, model_spec,
+           preempted):
+    """The epoch loop of `main`."""
+    model, device, seed = state.model, next(state.model.parameters()).device, args.seed
+    max_accuracy = 0.0
+    max_accuracy_ema = 0.0
+    print("Start training for %d epochs" % args.epochs)
+    start_time = time.time()
+    for epoch in range(args.start_epoch, args.epochs):
+        sampler = ra_epoch_batch_indices if args.RASampler else epoch_batch_indices
+        idx = sampler(len(dataset_train), args.batch_size, epoch, seed)
+        idx = idx[: num_training_steps_per_epoch * args.update_freq]  # drop_last
+        train_loader = BatchLoader(dataset_train, idx, args.input_size, train=True,
+                                   device=device, seed=seed + epoch,
+                                   num_workers=args.num_workers)
+        log_writer.set_step(epoch * num_training_steps_per_epoch * args.update_freq)
+        state, train_stats = train_one_epoch(
+            train_step, state, train_loader, num_classes, num_training_steps_per_epoch,
+            update_freq=args.update_freq, log_writer=log_writer,
+        )
+
+        saved_this_epoch = False
+        if args.save_ckpt and ((epoch + 1) % args.save_ckpt_freq == 0
+                               or epoch + 1 == args.epochs):
+            ckpt_io.save_model(args, input_shape, epoch, state, num_classes, model_spec)
+            saved_this_epoch = True
+
+        test_stats = evaluate(eval_step, make_val_loader(), num_classes)
+        print(f"Accuracy of the model on the {len(dataset_val)} test images: "
+              f"{test_stats['acc1']:.3f}%")
+        if max_accuracy < test_stats["acc1"]:
+            max_accuracy = test_stats["acc1"]
+            if args.save_ckpt:
+                ckpt_io.save_model(args, input_shape, "best", state, num_classes, model_spec)
+        print(f"Max accuracy: {max_accuracy:.3f}%")
+        log_writer.update(test_acc1=test_stats["acc1"], head="perf", step=epoch)
+        log_writer.update(test_loss=test_stats["loss"], head="perf", step=epoch)
+
+        log_stats = {
+            "current_time": datetime.datetime.now().strftime("%Y-%m-%d %H:%M:%S"),
+            **{f"train_{k}": v for k, v in train_stats.items()},
+            **{f"test_{k}": v for k, v in test_stats.items()},
+            "epoch": epoch,
+            "n_parameters": f"{num_params(state) / 1e6:.2f}M",
+        }
+        if args.model_ema:
+            with _EmaWeights(model, state.ema):
+                test_stats_ema = evaluate(eval_step, make_val_loader(), num_classes)
+            print(f"Accuracy of the model EMA on {len(dataset_val)} test images: "
+                  f"{test_stats_ema['acc1']:.1f}%")
+            if max_accuracy_ema < test_stats_ema["acc1"]:
+                max_accuracy_ema = test_stats_ema["acc1"]
+                if args.save_ckpt:
+                    ckpt_io.save_model(args, input_shape, "best-ema", state, num_classes,
+                                       model_spec)
+                print(f"Max EMA accuracy: {max_accuracy_ema:.2f}%")
+            log_writer.update(test_acc1_ema=test_stats_ema["acc1"], head="perf", step=epoch)
+            log_stats.update({f"test_{k}_ema": v for k, v in test_stats_ema.items()})
+
+        log_writer.flush()
+        with open(Path(args.output_dir).parent / "log.txt", mode="a", encoding="utf-8") as f:
+            f.write(json.dumps(log_stats) + "\n")
+
+        if preempted["flag"]:
+            if args.save_ckpt and not saved_this_epoch:
+                ckpt_io.save_model(args, input_shape, epoch, state, num_classes, model_spec)
+            print(f"Preemption checkpoint at epoch {epoch}; exiting cleanly for requeue "
+                  f"(auto_resume continues at epoch {epoch + 1})")
+            break
+
+    total_time = time.time() - start_time
+    print("Training time {}".format(str(datetime.timedelta(seconds=int(total_time)))))
+    return state
+
+
+if __name__ == "__main__":
+    cli_args = parse_args()
+    Path(cli_args.output_dir).mkdir(parents=True, exist_ok=True)
+    main(cli_args)

@@ -1,1 +1,1 @@
-"""Metric helpers."""
+"""Metric meters and the TensorBoard sink."""

@@ -117,11 +117,15 @@ def test_per_class_precision_recall_matches():
 
 
 def test_port_imports_no_jax_in_subprocess(tmp_path):
-    # importing the port's val module pulls in the whole slice; jax must stay out
+    # importing the port's entry points (val, train) pulls in every module of
+    # the slices; jax must stay out
     import subprocess
     import sys
 
-    code = ("import sys, imageclassification_tpu_torch.val, imageclassification_tpu_torch.engine.step;"
+    code = ("import sys, imageclassification_tpu_torch.val, imageclassification_tpu_torch.train, "
+            "imageclassification_tpu_torch.engine.step, imageclassification_tpu_torch.engine.loop, "
+            "imageclassification_tpu_torch.checkpoint.to_jax, "
+            "imageclassification_tpu_torch.utils.loggers, imageclassification_tpu_torch.optim.ema;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('imageclassification_tpu.') or m == 'imageclassification_tpu'];"
             "print(bad); sys.exit(1 if bad else 0)")
