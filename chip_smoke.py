@@ -16,6 +16,10 @@ exit before the last line:
    median, host cost of each call included) beside the least time the card
    could take (the bound): 3a the forward, 3b the backward (dK/dV and dQ
    kernels, and the forward's lse), each kernel's device time from a trace;
+   3c the LayerNorm kernels (forward, backward) at ConvNeXt-T's four stage
+   shapes, the head's and a ragged ViT row count, and on constant rows; 3d
+   the depthwise-conv kernels (forward, dx, dw) at ConvNeXt-T's four stage
+   shapes;
 4. the serving path: a seeded JAX-format ViT-B/16 checkpoint trained with
    --flash_attn (random weights) and a seeded 5-class image folder go through
    `val_precision` and `val_move` on cuda at batch 64, with every kernel's
@@ -33,7 +37,19 @@ exit before the last line:
    one fixed batch), a torch.profiler trace of train steps with flash on and
    off, and the flash path's gradients of one step held against the plain
    attention path and fp32 on the same weights, batch and draws;
-6. one JSON line with every kernel's numbers, then the result line
+6. the ConvNeXt-T training path: `train.main --model convnext_tiny` at
+   224x224, batch 64, the default training flags, 2 epochs of 10 steps on the
+   folder of phase 5; losses finite, no kernel launched (the model runs
+   F.conv2d and its fp32 LayerNorm, as the JAX model runs lax.conv and
+   nn.LayerNorm), checkpoint-1.pth in the JAX layout, reloaded exactly and
+   served by val_precision; ms per step, img/s and a trace of train steps;
+   6b. one train step on the trained weights with every LayerNorm (23) and
+   depthwise conv (18) captured, and each captured tensor run through the
+   kernels (the launches of the new kernels' rows), held against the
+   model's own outputs and gradients and against the plain versions;
+7. one JSON line with every kernel's numbers (at ConvNeXt-T's stage-0 shape
+   for the LayerNorm and depthwise-conv kernels; the other shapes are in the
+   lines of phases 3c and 3d), then the result line
    {"ok": true, "device": {...}}.
 
 It exits non-zero without the result line when no CUDA device is visible.
@@ -55,10 +71,12 @@ import time
 
 import numpy as np
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and bf16
-# tensor-core flop/s, the denominators of `bound_ms`
+# H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16
+# tensor-core flop/s and fp32 flop/s on the CUDA cores (FMA counted as two),
+# the denominators of `bound_ms`
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+FP32_FLOPS_PER_S = 66.9e12
 
 ATTN_SHAPES = [(64, 197, 12, 64), (16, 577, 12, 64), (2, 4097, 12, 64)]
 MAIN_SHAPE = ATTN_SHAPES[0]  # ViT-B/16 at 224x224, batch 64
@@ -88,12 +106,38 @@ PROBS_ATOL = 5e-2
 # flash vs plain on the H100 after 20 steps; 1e-2 leaves a margin of 5x
 GRAD_RTOL = 1e-2
 
+# LayerNorm and depthwise-conv kernels (bf16 outputs) against their plain
+# versions (fp32 math on the same bf16 inputs): the kernel rounds its fp32
+# result to bf16 once (2^-8 of the largest value) and sums in another order;
+# 2^-7 of max|reference|
+OP_RTOL = 2.0 ** -7
+# fp32 sums over every row (LayerNorm dgamma, dbeta) against the plain
+# version's: only the order of up to 200,704 terms differs; 1e-4 of
+# max|reference|
+SUM_RTOL = 1e-4
+# the kernels against the ConvNeXt-T train step's own results on the same
+# tensors (F.layer_norm in fp32 rounded to bf16; cuDNN's bf16 depthwise conv
+# and its gradients): each side rounds an fp32 result to bf16 once (2^-8 of
+# the largest value each) and the model's conv output also its bf16 bias add;
+# 2^-6 covers three roundings. dgamma and dbeta are fp32 on both sides, but
+# F.layer_norm takes its statistics by another algorithm than E[x^2] - E[x]^2
+# and sums in another order: 1e-3 of max|reference|
+MODEL_RTOL = 2.0 ** -6
+MODEL_SUM_RTOL = 1e-3
+# ConvNeXt-T at batch 64, 224x224: (rows, C) of the LayerNorms at the four
+# stages and the head, and ViT-B/16's token LayerNorm at batch 64 (64 * 197
+# rows: no Pallas row block divides it)
+LN_SHAPES = [(200704, 96), (50176, 192), (12544, 384), (3136, 768), (64, 768), (64 * 197, 768)]
+DW_SHAPES = [(64, 56, 56, 96), (64, 28, 28, 192), (64, 14, 14, 384), (64, 7, 7, 768)]
+
 # the training path: ViT-B/16, 224x224, batch 64, 2 epochs of 10 steps on a
 # 5-class folder of 150 images per class (the default 0.9 split keeps 135 per
 # class for training: 675 // 64 = 10 steps)
 TRAIN = dict(img=224, batch=64, epochs=2, num_classes=5, per_class=150)
 
 VIT_B16 = dict(name="vit_base_patch16", dim=768, depth=12, heads=12, patch=16)
+# timm convnext_tiny: dims 96/192/384/768, depths 3/3/9/3
+CONVNEXT_T = dict(name="convnext_tiny", depths=(3, 3, 9, 3), dims=(96, 192, 384, 768))
 
 
 def log(msg: str) -> None:
@@ -478,29 +522,17 @@ def _launch_counts():
             "bwd_dq": f.launches_dq}
 
 
-def run_training(work: str, device: str, model: dict, img: int, num_classes: int,
-                 per_class: int, batch: int, epochs: int, seed: int = 0):
-    """The training path through the port's train.main on `device`, on a
-    seeded image folder, with the default training flags. Every step's
-    metrics and kernel launches are recorded by wrapping the step that main
-    builds. Returns a dict: the trained state, the args, the per-step records,
-    the launch totals of the run, the checkpoint checks and timings."""
-    import torch
-
+def _train_main(work: str, images: str, flags: list, counts):
+    """train.main on the folder `images` with `flags`, every step's metrics
+    and the launch counts `counts()` around it recorded by wrapping the step
+    that main builds (the counts are set to 0 first by the caller). Returns
+    (state, args, records, wall seconds)."""
     from imageclassification_tpu_torch import train as port_train
-    from imageclassification_tpu_torch import val
-    from imageclassification_tpu_torch.ops.flash_attention import reset_launches
 
-    rng = np.random.default_rng(seed)
-    images = os.path.join(work, "train_images")
-    write_image_folder(images, rng, num_classes, per_class)
-    out = os.path.join(work, "train_cls", "output")
     args = port_train.parse_args([
-        "--data_path", images, "--model", model["name"], "--flash_attn", "true",
-        "--input_size", str(img), "--batch_size", str(batch), "--epochs", str(epochs),
-        "--warmup_epochs", "1", "--pretrained", "false", "--device", device,
-        "--output_dir", out, "--log_dir", os.path.join(work, "train_cls", "log_dir"),
-        "--num_workers", "8",
+        "--data_path", images, *flags, "--pretrained", "false",
+        "--output_dir", os.path.join(work, "train_cls", "output"),
+        "--log_dir", os.path.join(work, "train_cls", "log_dir"), "--num_workers", "8",
     ])
     records = []
     build = port_train.build_train_step
@@ -509,9 +541,9 @@ def run_training(work: str, device: str, model: dict, img: int, num_classes: int
         step = build(*a, **kw)
 
         def recorded(state, batch, draws=None):
-            before = _launch_counts()
+            before = counts()
             m = step(state, batch, draws)
-            after = _launch_counts()
+            after = counts()
             records.append({"loss": float(m["loss"]), "skipped": m["skipped"],
                             "launches": {k: after[k] - before[k] for k in after}})
             return m
@@ -521,18 +553,45 @@ def run_training(work: str, device: str, model: dict, img: int, num_classes: int
 
     port_train.build_train_step = recording_build
     try:
-        reset_launches()
         t0 = time.perf_counter()
         state = port_train.main(args)
         wall_s = time.perf_counter() - t0
-        totals = _launch_counts()
     finally:
         port_train.build_train_step = build
-
     losses = [r["loss"] for r in records]
     if not (losses and all(math.isfinite(x) for x in losses)
             and not any(r["skipped"] for r in records)):
         raise AssertionError(f"training losses not all finite: {losses}")
+    return state, args, records, wall_s
+
+
+def _train_images(work: str, num_classes: int, per_class: int, seed: int) -> str:
+    images = os.path.join(work, "train_images")
+    if not os.path.isdir(images):
+        write_image_folder(images, np.random.default_rng(seed), num_classes, per_class)
+    return images
+
+
+def run_training(work: str, device: str, model: dict, img: int, num_classes: int,
+                 per_class: int, batch: int, epochs: int, seed: int = 0,
+                 images: str = None):
+    """The training path through the port's train.main on `device`, on a
+    seeded image folder (`images`, written when not given), with the default
+    training flags and --flash_attn. Every step's metrics and kernel launches
+    are recorded. Returns a dict: the trained state, the args, the per-step
+    records, the launch totals of the run, the checkpoint checks and
+    timings."""
+    from imageclassification_tpu_torch import val
+    from imageclassification_tpu_torch.ops.flash_attention import reset_launches
+
+    images = images or _train_images(work, num_classes, per_class, seed)
+    reset_launches()
+    state, args, records, wall_s = _train_main(
+        work, images, ["--model", model["name"], "--flash_attn", "true", "--input_size",
+                       str(img), "--batch_size", str(batch), "--epochs", str(epochs),
+                       "--warmup_epochs", "1", "--device", device], _launch_counts)
+    totals = _launch_counts()
+    out = args.output_dir
     # per optimizer step: the forward with lse and the exact-mode accuracy
     # forward without, one backward; on the CPU the plain versions, no kernel
     depth = model["depth"] if device == "cuda" else 0
@@ -631,6 +690,411 @@ def train_step_checks(run: dict, model: dict, device: str, timed: bool = True):
     return res
 
 
+def _op_launch_counts():
+    from imageclassification_tpu_torch.ops.dwconv import depthwise_conv7x7 as d
+    from imageclassification_tpu_torch.ops.layernorm import fused_layer_norm as f
+
+    return {"ln_fwd": f.launches, "ln_bwd": f.launches_bwd, "dw_fwd": d.launches,
+            "dw_dx": d.launches_dx, "dw_dw": d.launches_dw}
+
+
+def _reset_op_launches() -> None:
+    from imageclassification_tpu_torch.ops import dwconv, layernorm
+
+    layernorm.reset_launches()
+    dwconv.reset_launches()
+
+
+def layernorm_bound(rows: int, C: int, part: str = "fwd", itemsize: int = 2):
+    """(bound_ms, bound_by) of the LayerNorm over [rows, C]. 'fwd': x read
+    and y written (gamma, beta fp32 read), 8 flops per element; 'bwd': x and
+    dy read, dx written (gamma read, dgamma, dbeta written, fp32), 16 flops per
+    element (the Pallas kernels' CostEstimate), on the fp32 CUDA cores."""
+    tensors, params, flops = {"fwd": (2, 2, 8), "bwd": (3, 3, 16)}[part]
+    t_bytes = (tensors * rows * C * itemsize + params * C * 4) / HBM_BYTES_PER_S
+    t_flops = flops * rows * C / FP32_FLOPS_PER_S
+    return max(t_bytes, t_flops) * 1e3, ("bytes" if t_bytes >= t_flops else "operations")
+
+
+def dwconv_bound(B: int, H: int, W: int, C: int, itemsize: int = 2):
+    """(bound_ms, bound_by) of the 7x7 depthwise conv over [B, H, W, C], the
+    same for the forward, dx and dw: two tensors of that shape read or
+    written and the 7x7xC weights (or dw), 2 * 49 flops per element on the
+    fp32 CUDA cores (a depthwise conv has no tensor-core form)."""
+    n = B * H * W * C
+    t_bytes = (2 * n + 49 * C) * itemsize / HBM_BYTES_PER_S
+    t_flops = 2 * 49 * n / FP32_FLOPS_PER_S
+    return max(t_bytes, t_flops) * 1e3, ("bytes" if t_bytes >= t_flops else "operations")
+
+
+def _hold(name: str, got, want, rtol: float) -> tuple:
+    """(max_abs_err, tol) of `got` against `want` with a tolerance of rtol *
+    max|want|; raises when it is not within it."""
+    tol = rtol * want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    if not (math.isfinite(err) and err <= tol):
+        raise AssertionError(f"{name}: max|d| {err} > {tol}")
+    return err, tol
+
+
+def _device_ms(fn, *names: str) -> float:
+    """Device ms per call of fn() summed over the kernels whose names hold any
+    of `names`, from the second of two traces (the first trace of a kernel
+    new to the profiler missed some of its launches on the H100)."""
+    trace(fn)
+    _, _, kernels = trace(fn)
+    return sum(ms for k, (ms, _) in kernels.items() if any(n in k for n in names))
+
+
+def check_layernorm(rows: int, C: int, device, constant: bool = False, timed: bool = True):
+    """The LayerNorm kernels (forward, and backward with its partial-sum
+    pass) against their plain versions on seeded bf16 x and dy, fp32 gamma
+    and beta, at [rows, C]; with `constant`, every other row holds one value
+    (var = 0: those rows must give beta). When `timed`: kernel, plain and
+    library (F.layer_norm in bf16, and its autograd backward) ms by CUDA
+    events, device ms per call from a trace, and the bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from imageclassification_tpu_torch.ops import layernorm as ln
+
+    g = torch.Generator(device=device).manual_seed(rows + C)
+    x = torch.randn((rows, C), generator=g, device=device) * 2 + 0.5
+    if constant:
+        x[::2] = 0.75
+    x = x.bfloat16()
+    gamma = 1 + 0.2 * torch.randn(C, generator=g, device=device)
+    beta = 0.2 * torch.randn(C, generator=g, device=device)
+    dy = torch.randn((rows, C), generator=g, device=device).bfloat16()
+    y = ln.fused_layer_norm(x, gamma, beta)
+    dx, dg, db = ln.layer_norm_bwd(x, gamma, dy)
+    torch.cuda.synchronize()
+    want_dx, want_dg, want_db = ln.layer_norm_bwd_ref(x.float(), gamma, dy.float())
+    errs = {"y": _hold(f"layer_norm_fwd {rows}x{C}", y, ln.layer_norm_ref(x.float(), gamma, beta),
+                       OP_RTOL),
+            "dx": _hold(f"layer_norm_bwd dx {rows}x{C}", dx, want_dx, OP_RTOL),
+            "dgamma": _hold(f"layer_norm_bwd dgamma {rows}x{C}", dg, want_dg, SUM_RTOL),
+            "dbeta": _hold(f"layer_norm_bwd dbeta {rows}x{C}", db, want_db, SUM_RTOL)}
+    if constant and not torch.equal(y[::2], beta.bfloat16().expand(y[::2].shape)):
+        raise AssertionError("layer_norm_fwd: constant rows do not give beta")
+    row = dict(shape=[rows, C], errs=errs, constant=constant)
+    if timed:
+        iters = max(10, min(200, int(2e9 // (rows * C))))
+        slow = max(3, iters // 10)
+        row["ms_fwd"] = time_ms(lambda: ln.fused_layer_norm(x, gamma, beta), iters)
+        row["ms_bwd"] = time_ms(lambda: ln.layer_norm_bwd(x, gamma, dy), iters)
+        row["plain_ms_fwd"] = time_ms(lambda: ln.layer_norm_ref(x, gamma, beta), slow)
+        row["plain_ms_bwd"] = time_ms(lambda: ln.layer_norm_bwd_ref(x, gamma, dy), slow)
+        xl = x.detach().requires_grad_()
+        gl, bl = (t.bfloat16().requires_grad_() for t in (gamma, beta))
+        lib_fwd = time_ms(lambda: F.layer_norm(xl, (C,), gl, bl, 1e-6), iters)
+        lib_all = time_ms(lambda: torch.autograd.grad(
+            F.layer_norm(xl, (C,), gl, bl, 1e-6), (xl, gl, bl), dy), iters)
+        row["library_ms_fwd"], row["library_ms_bwd"] = lib_fwd, lib_all - lib_fwd
+        row["device_ms_fwd"] = _device_ms(lambda: ln.fused_layer_norm(x, gamma, beta),
+                                          "layer_norm_fwd_kernel")
+        row["device_ms_bwd"] = _device_ms(lambda: ln.layer_norm_bwd(x, gamma, dy),
+                                          "layer_norm_bwd_kernel", "sum_partials")
+        row["bound_fwd"] = layernorm_bound(rows, C, "fwd")
+        row["bound_bwd"] = layernorm_bound(rows, C, "bwd")
+        log(f"layer_norm {rows}x{C} bf16: fwd kernel {row['ms_fwd']:.4f} ms (device "
+            f"{row['device_ms_fwd']:.4f}), plain {row['plain_ms_fwd']:.4f}, F.layer_norm "
+            f"{lib_fwd:.4f}, bound {row['bound_fwd'][0]:.4f} ({row['bound_fwd'][1]}); bwd kernel "
+            f"{row['ms_bwd']:.4f} ms (device {row['device_ms_bwd']:.4f}), plain "
+            f"{row['plain_ms_bwd']:.4f}, F.layer_norm backward {row['library_ms_bwd']:.4f}, "
+            f"bound {row['bound_bwd'][0]:.4f} ({row['bound_bwd'][1]})")
+    log(f"layer_norm {rows}x{C}{' (constant rows)' if constant else ''}: max|d| vs plain "
+        + ", ".join(f"{k} {e:.3e} (tol {t:.3e})" for k, (e, t) in errs.items()))
+    return row
+
+
+def check_dwconv(shape, device, timed: bool = True):
+    """The depthwise-conv kernels (forward, dx = the forward kernel on dy
+    with the flipped weights, dw with its partial-sum pass) against their
+    plain versions on seeded bf16 x, w and dy of `shape`; when `timed`,
+    kernel, plain and library (cuDNN F.conv2d(groups=C) in channels_last bf16,
+    and aten.convolution_backward for dx and for dw) ms by CUDA events, device
+    ms per call from a trace, and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from imageclassification_tpu_torch.ops import dwconv as dw
+
+    B, H, W, C = shape
+    g = torch.Generator(device=device).manual_seed(sum(shape))
+    x = torch.randn(shape, generator=g, device=device).bfloat16()
+    w = (0.2 * torch.randn((7, 7, C), generator=g, device=device)).bfloat16()
+    dy = torch.randn(shape, generator=g, device=device).bfloat16()
+    y = dw.depthwise_conv7x7(x, w)
+    dx, dwg = dw.dwconv7x7_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    errs = {"y": _hold(f"dwconv7x7_fwd {shape}", y, dw.dwconv7x7_ref(x.float(), w.float()),
+                       OP_RTOL),
+            "dx": _hold(f"dwconv7x7 dx {shape}", dx,
+                        dw.dwconv7x7_ref(dy.float(), w.float(), flip=True), OP_RTOL),
+            "dw": _hold(f"dwconv7x7_dw {shape}", dwg,
+                        dw.dwconv7x7_dw_ref(x, dy, torch.float32), OP_RTOL)}
+    row = dict(shape=list(shape), errs=errs)
+    if timed:
+        iters = max(10, min(200, int(2e9 // (B * H * W * C))))
+        slow = 3
+        row["ms"] = {"fwd": time_ms(lambda: dw.depthwise_conv7x7(x, w), iters),
+                     "dx": time_ms(lambda: dw._launch_fwd(dy, w, flip=True), iters),
+                     "dw": time_ms(lambda: dw._launch_dw(x, dy, w.dtype), iters)}
+        row["plain_ms"] = {"fwd": time_ms(lambda: dw.dwconv7x7_ref(x, w), slow, reps=3),
+                           "dw": time_ms(lambda: dw.dwconv7x7_dw_ref(x, dy, w.dtype), slow,
+                                         reps=3)}
+        row["plain_ms"]["dx"] = row["plain_ms"]["fwd"]  # the same function on dy
+        xc, dyc = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)  # channels_last views
+        wc = w.permute(2, 0, 1).unsqueeze(1).contiguous()
+        conv_bwd = torch.ops.aten.convolution_backward
+        row["library_ms"] = {
+            "fwd": time_ms(lambda: F.conv2d(xc, wc, padding=3, groups=C), iters),
+            "dx": time_ms(lambda: conv_bwd(dyc, xc, wc, None, [1, 1], [3, 3], [1, 1], False,
+                                           [0, 0], C, [True, False, False]), iters),
+            "dw": time_ms(lambda: conv_bwd(dyc, xc, wc, None, [1, 1], [3, 3], [1, 1], False,
+                                           [0, 0], C, [False, True, False]), iters)}
+        row["device_ms"] = {
+            "fwd": _device_ms(lambda: dw.depthwise_conv7x7(x, w), "dwconv7x7_fwd_kernel"),
+            "dw": _device_ms(lambda: dw._launch_dw(x, dy, w.dtype), "dwconv7x7_dw_kernel",
+                             "sum_partials")}
+        row["bound"] = dwconv_bound(B, H, W, C)
+        log(f"dwconv7x7 {shape} bf16: kernel ms fwd {row['ms']['fwd']:.4f} (device "
+            f"{row['device_ms']['fwd']:.4f}), dx {row['ms']['dx']:.4f}, dw {row['ms']['dw']:.4f} "
+            f"(device {row['device_ms']['dw']:.4f}); plain fwd {row['plain_ms']['fwd']:.4f}, dw "
+            f"{row['plain_ms']['dw']:.4f}; cuDNN fwd {row['library_ms']['fwd']:.4f}, dx "
+            f"{row['library_ms']['dx']:.4f}, dw {row['library_ms']['dw']:.4f}; bound "
+            f"{row['bound'][0]:.4f} ms ({row['bound'][1]})")
+    log(f"dwconv7x7 {shape}: max|d| vs plain "
+        + ", ".join(f"{k} {e:.3e} (tol {t:.3e})" for k, (e, t) in errs.items()))
+    return row
+
+
+def jax_convnext_shapes(depths, dims, num_classes: int) -> dict:
+    """The JAX ConvNeXt's flat parameter names and shapes (flax tree paths
+    joined by "/", `imageclassification_tpu/models/convnext.py`), written out
+    here: the layout a checkpoint of the port must have."""
+    shapes = {"stem_conv/kernel": (4, 4, 3, dims[0]), "stem_conv/bias": (dims[0],),
+              "head_norm/scale": (dims[-1],), "head_norm/bias": (dims[-1],),
+              "head/kernel": (dims[-1], num_classes), "head/bias": (num_classes,)}
+    for leaf in ("scale", "bias"):
+        shapes[f"stem_norm/{leaf}"] = (dims[0],)
+    for i, (depth, d) in enumerate(zip(depths, dims)):
+        if i:
+            shapes[f"downsample_norm{i}/scale"] = shapes[f"downsample_norm{i}/bias"] = (dims[i - 1],)
+            shapes[f"downsample_conv{i}/kernel"] = (2, 2, dims[i - 1], d)
+            shapes[f"downsample_conv{i}/bias"] = (d,)
+        for j in range(depth):
+            b = f"stage{i}_block{j}"
+            shapes.update({f"{b}/Conv_0/kernel": (7, 7, 1, d), f"{b}/Conv_0/bias": (d,),
+                           f"{b}/LayerNorm_0/scale": (d,), f"{b}/LayerNorm_0/bias": (d,),
+                           f"{b}/Dense_0/kernel": (d, 4 * d), f"{b}/Dense_0/bias": (4 * d,),
+                           f"{b}/Dense_1/kernel": (4 * d, d), f"{b}/Dense_1/bias": (d,),
+                           f"{b}/gamma": (d,)})
+    return shapes
+
+
+def run_convnext_training(work: str, device: str, model: dict, img: int, num_classes: int,
+                          per_class: int, batch: int, epochs: int, seed: int = 0,
+                          images: str = None):
+    """The ConvNeXt training path through the port's train.main on `device`
+    with the default training flags (drop_path, AdamW, mixup, exact-mode
+    accuracy), on a seeded image folder. The model runs F.conv2d and its
+    fp32 LayerNorm helper, no kernel of the port: every launch count must
+    stay 0. Checks the checkpoint's JAX layout, its exact reload by the
+    port's val.initialize_model, and val_precision on it."""
+    from imageclassification_tpu_torch import val
+    from imageclassification_tpu_torch.ops.flash_attention import reset_launches
+
+    images = images or _train_images(work, num_classes, per_class, seed)
+    reset_launches()
+    _reset_op_launches()
+
+    def counts():
+        return {**_launch_counts(), **_op_launch_counts()}
+
+    state, args, records, wall_s = _train_main(
+        work, images, ["--model", model["name"], "--input_size", str(img), "--batch_size",
+                       str(batch), "--epochs", str(epochs), "--warmup_epochs", "1",
+                       "--device", device], counts)
+    if any(counts().values()):
+        raise AssertionError(f"the ConvNeXt training path launched a kernel: {counts()}")
+    path = os.path.join(args.output_dir, f"checkpoint-{epochs - 1}.pth")
+    with open(path, "rb") as f:
+        ck = pickle.load(f)
+    want = jax_convnext_shapes(model["depths"], model["dims"], num_classes)
+    if {k: v.shape for k, v in ck["model"].items()} != want:
+        raise AssertionError(f"{path}: parameters not in the JAX layout")
+    mu = {k[len("inner_state/0/mu/"):]: v.shape for k, v in ck["optimizer"].items()
+          if k.startswith("inner_state/0/mu/")}
+    if mu != want or int(ck["optimizer"]["count"]) != len(records):
+        raise AssertionError(f"{path}: optimizer state not in the JAX adamw layout")
+    loaded, _ = val.initialize_model(path, model_ema=False, device=device)
+    carried = max((loaded.state_dict()[k] - v).abs().max().item()
+                  for k, v in state.model.state_dict().items())
+    if carried != 0.0:
+        raise AssertionError(f"{path}: reloaded weights differ from the run's by {carried}")
+    n_images = num_classes * per_class
+    tp, fp, fn = val.val_precision(images, path, img, model_ema=True, batch_size=batch,
+                                   device=device)
+    if not (tp.sum() + fp.sum() == n_images and tp.sum() + fn.sum() == n_images):
+        raise AssertionError(f"val_precision counts do not cover {n_images} images")
+    return {"state": state, "args": args, "records": records, "wall_s": wall_s,
+            "checkpoint": path, "images": images, "steps_per_epoch": len(records) // epochs,
+            "val_top1": float(tp.sum() / n_images)}
+
+
+def _fixed_batch(run: dict, device: str):
+    from imageclassification_tpu_torch.data.folder import scan_folder
+    from imageclassification_tpu_torch.data.loader import BatchLoader
+
+    args = run["args"]
+    idx = np.arange(args.batch_size)[None]
+    return next(iter(BatchLoader(scan_folder(run["images"]), idx, args.input_size, train=True,
+                                 device=device, seed=args.seed, num_workers=8)))
+
+
+def convnext_step_timing(run: dict, device: str):
+    """ms per train step (CUDA events) on one fixed batch and a torch.profiler
+    trace of train steps, on the trained ConvNeXt state of `run` (the steps
+    go on updating it)."""
+    from imageclassification_tpu_torch.data.mixup import build_mixup
+    from imageclassification_tpu_torch.engine.step import build_train_step
+
+    args, state = run["args"], run["state"]
+    num_classes = state.model.head.fc.out_features
+    batch = _fixed_batch(run, device)
+    step = build_train_step(state.model, args, num_classes, build_mixup(args, num_classes),
+                            [args.lr], [args.weight_decay], seed=args.seed)
+    return {"ms_per_step": time_ms(lambda: step(state, batch), iters=10, reps=3),
+            "trace": trace(lambda: step(state, batch), steps=5)}
+
+
+def _capture_convnext_ops(model):
+    """Wrap the ConvNeXt module's LayerNorm and conv helpers so that a
+    forward and backward records, for every LayerNorm (stem, downsamples,
+    blocks, head) and every depthwise conv: its input, parameters (as the
+    model uses them), output, the gradient of its output and the model's own
+    gradient of its input. Returns (records, undo)."""
+    from imageclassification_tpu_torch.models import convnext as port_convnext
+
+    records = {"ln": [], "dw": []}
+    orig_ln, orig_conv = port_convnext.layer_norm, port_convnext.conv2d_nhwc
+
+    def keep(rec, y, xin):
+        rec["y"] = y.detach()
+        y.register_hook(lambda g: rec.__setitem__("dy", g.detach()))
+        xin.register_hook(lambda g: rec.__setitem__("dx", g.detach()))
+
+    def layer_norm(x, ln, dtype):
+        xin = x.view_as(x)  # its own autograd node: the gradient of this use only
+        y = orig_ln(xin, ln, dtype)
+        rec = {"x": x.detach(), "module": ln}
+        records["ln"].append(rec)
+        keep(rec, y, xin)
+        return y
+
+    def conv2d_nhwc(x, conv, dtype):
+        if not isinstance(conv, port_convnext.DepthwiseConv7x7):
+            return orig_conv(x, conv, dtype)
+        xin = x.to(dtype).view_as(x)
+        y = orig_conv(xin, conv, dtype)
+        rec = {"x": xin.detach(), "module": conv, "dtype": dtype}
+        records["dw"].append(rec)
+        keep(rec, y, xin)
+        return y
+
+    port_convnext.layer_norm, port_convnext.conv2d_nhwc = layer_norm, conv2d_nhwc
+
+    def undo():
+        port_convnext.layer_norm, port_convnext.conv2d_nhwc = orig_ln, orig_conv
+
+    return records, undo
+
+
+def replay_convnext_ops(run: dict, device: str):
+    """On the trained weights of `run`: one train step's forward and backward
+    (the step's own `loss_and_grads`, draws included) with every LayerNorm's
+    and depthwise conv's tensors captured; then each captured tensor through
+    the kernels (fused_layer_norm and layer_norm_bwd; depthwise_conv7x7 and
+    dwconv7x7_bwd), with the launch counts set to 0 just before. The results
+    are held against the model's own outputs and gradients (MODEL_RTOL,
+    MODEL_SUM_RTOL) and against the plain versions (OP_RTOL, SUM_RTOL).
+    Returns the counts, the largest errors and the numbers of captured ops."""
+    import torch
+
+    from imageclassification_tpu_torch.data.mixup import build_mixup
+    from imageclassification_tpu_torch.engine.step import build_train_step
+
+    args, model = run["args"], run["state"].model
+    num_classes = model.head.fc.out_features
+    batch = _fixed_batch(run, device)
+    step = build_train_step(model, args, num_classes, build_mixup(args, num_classes),
+                            [args.lr], [args.weight_decay], seed=args.seed)
+    model.train()
+    records, undo = _capture_convnext_ops(model)
+    try:
+        _, _, _, grads = step.loss_and_grads(model, batch,
+                                             step.sample_draws(*batch["image"].shape[:3]))
+    finally:
+        undo()
+    grad_of = {p: g for p, g in zip(model.parameters(), grads)}
+    errs = {}
+
+    def hold(key, got, want, rtol):
+        err, _ = _hold(key, got, want, rtol)
+        errs[key] = max(errs.get(key, 0.0), err)
+
+    _reset_op_launches()
+    with torch.no_grad():
+        _replay(records, grad_of, hold)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return {"launches": _op_launch_counts(), "errs": errs,
+            "n_ln": len(records["ln"]), "n_dw": len(records["dw"]),
+            "ln_shapes": sorted({(r["x"].numel() // r["x"].shape[-1], r["x"].shape[-1])
+                                 for r in records["ln"]}),
+            "dw_shapes": sorted({tuple(r["x"].shape) for r in records["dw"]})}
+
+
+def _replay(records, grad_of, hold) -> None:
+    """The kernels on the captured tensors of `replay_convnext_ops`, each
+    result held by `hold(key, got, want, rtol)`."""
+    import torch
+
+    from imageclassification_tpu_torch.ops import dwconv as dw
+    from imageclassification_tpu_torch.ops import layernorm as ln
+
+    for rec in records["ln"]:
+        m, x, dy = rec["module"], rec["x"], rec["dy"]
+        y = ln.fused_layer_norm(x, m.weight, m.bias, m.eps)
+        dx, dg, db = ln.layer_norm_bwd(x, m.weight, dy, m.eps)
+        hold("layer_norm_fwd vs model", y, rec["y"], MODEL_RTOL)
+        hold("layer_norm_bwd dx vs model", dx, rec["dx"], MODEL_RTOL)
+        hold("layer_norm_bwd dgamma vs model", dg, grad_of[m.weight], MODEL_SUM_RTOL)
+        hold("layer_norm_bwd dbeta vs model", db, grad_of[m.bias], MODEL_SUM_RTOL)
+        want_dx, want_dg, want_db = ln.layer_norm_bwd_ref(x.float(), m.weight, dy.float(), m.eps)
+        hold("layer_norm_fwd vs plain", y, ln.layer_norm_ref(x.float(), m.weight, m.bias, m.eps),
+             OP_RTOL)
+        hold("layer_norm_bwd dx vs plain", dx, want_dx, OP_RTOL)
+        hold("layer_norm_bwd dgamma vs plain", dg, want_dg, SUM_RTOL)
+        hold("layer_norm_bwd dbeta vs plain", db, want_db, SUM_RTOL)
+    for rec in records["dw"]:
+        m, x, dy = rec["module"], rec["x"], rec["dy"]
+        # the model's weights as it uses them: [C, 1, 7, 7] fp32 cast to the
+        # compute dtype, in the kernel's [7, 7, C] layout
+        w = m.weight.to(rec["dtype"])[:, 0].permute(1, 2, 0)
+        y = dw.depthwise_conv7x7(x, w)
+        dx, dwg = dw.dwconv7x7_bwd(x, w, dy)
+        hold("dwconv7x7_fwd vs model", y + m.bias.to(y.dtype), rec["y"], MODEL_RTOL)
+        hold("dwconv7x7 dx vs model", dx, rec["dx"], MODEL_RTOL)
+        hold("dwconv7x7_dw vs model", dwg, grad_of[m.weight][:, 0].permute(1, 2, 0), MODEL_RTOL)
+        hold("dwconv7x7_fwd vs plain", y, dw.dwconv7x7_ref(x.float(), w.float()), OP_RTOL)
+        hold("dwconv7x7 dx vs plain", dx, dw.dwconv7x7_ref(dy.float(), w.float(), flip=True),
+             OP_RTOL)
+        hold("dwconv7x7_dw vs plain", dwg, dw.dwconv7x7_dw_ref(x, dy, torch.float32), OP_RTOL)
+
+
 def main() -> int:
     import torch
 
@@ -640,9 +1104,11 @@ def main() -> int:
         return 1
 
     from imageclassification_tpu_torch.ops import _build
+    from imageclassification_tpu_torch.ops import dwconv as dw
     from imageclassification_tpu_torch.ops import flash_attention as fa
+    from imageclassification_tpu_torch.ops import layernorm as ln
 
-    sources = (fa.KERNEL, fa.KERNEL_BWD)
+    sources = (fa.KERNEL, fa.KERNEL_BWD, ln.KERNEL, dw.KERNEL)
     # 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -672,6 +1138,11 @@ def main() -> int:
     # 3b. the backward kernels (and the forward's lse) against theirs
     bwd_rows = [check_backward(s, "cuda") for s in ATTN_SHAPES]
     bwd_main = bwd_rows[ATTN_SHAPES.index(MAIN_SHAPE)]
+    # 3c. the LayerNorm kernels against theirs (and one input with constant rows)
+    ln_rows = [check_layernorm(r, c, "cuda") for r, c in LN_SHAPES]
+    check_layernorm(4096, 96, "cuda", constant=True, timed=False)
+    # 3d. the depthwise-conv kernels against theirs
+    dw_rows = [check_dwconv(s, "cuda") for s in DW_SHAPES]
 
     # 4. the serving path
     with tempfile.TemporaryDirectory() as work:
@@ -702,8 +1173,10 @@ def main() -> int:
     # 5. the training path
     cfg = TRAIN
     with tempfile.TemporaryDirectory() as work:
-        run = run_training(work, "cuda", VIT_B16, cfg["img"], cfg["num_classes"],
-                           cfg["per_class"], cfg["batch"], cfg["epochs"])
+        images = _train_images(work, cfg["num_classes"], cfg["per_class"], seed=0)
+        run = run_training(os.path.join(work, "vit"), "cuda", VIT_B16, cfg["img"],
+                           cfg["num_classes"], cfg["per_class"], cfg["batch"], cfg["epochs"],
+                           images=images)
         losses = [r["loss"] for r in run["records"]]
         log(f"training path: {len(losses)} steps ({cfg['epochs']} epochs x "
             f"{run['steps_per_epoch']}) of ViT-B/16 --flash_attn 224x224 batch "
@@ -715,16 +1188,51 @@ def main() -> int:
             f"reloaded by val.initialize_model to the run's exact weights")
         # 5b. steady state, traces and gradient agreement on the trained weights
         chk = train_step_checks(run, VIT_B16, "cuda")
-    for name in ("flash", "plain"):
-        ms = chk[f"ms_per_step_{name}"]
-        log(f"train step ViT-B/16 224x224 bf16 batch {cfg['batch']}, {name} attention: "
-            f"{ms:.3f} ms/step, {cfg['batch'] / (ms / 1e3):.1f} img/s (CUDA events, one "
-            f"fixed batch, exact-mode accuracy forward included)")
-        log_trace(f"ViT-B/16 batch {cfg['batch']} bf16 train step, {name} attention",
-                  chk[f"trace_{name}"], "step")
+        for name in ("flash", "plain"):
+            ms = chk[f"ms_per_step_{name}"]
+            log(f"train step ViT-B/16 224x224 bf16 batch {cfg['batch']}, {name} attention: "
+                f"{ms:.3f} ms/step, {cfg['batch'] / (ms / 1e3):.1f} img/s (CUDA events, one "
+                f"fixed batch, exact-mode accuracy forward included)")
+            log_trace(f"ViT-B/16 batch {cfg['batch']} bf16 train step, {name} attention",
+                      chk[f"trace_{name}"], "step")
+        totals = run["totals"]
+        del run, chk
 
-    # 6. results
-    totals = run["totals"]
+        # 6. the ConvNeXt-T training path on the same folder
+        cnx = run_convnext_training(os.path.join(work, "convnext"), "cuda", CONVNEXT_T,
+                                    cfg["img"], cfg["num_classes"], cfg["per_class"],
+                                    cfg["batch"], cfg["epochs"], images=images)
+        losses = [r["loss"] for r in cnx["records"]]
+        log(f"training path: {len(losses)} steps ({cfg['epochs']} epochs x "
+            f"{cnx['steps_per_epoch']}) of ConvNeXt-T 224x224 batch {cfg['batch']} (drop_path "
+            f"{cnx['args'].drop_path}), {cnx['wall_s']:.1f} s for train.main; losses "
+            f"{', '.join(f'{x:.4f}' for x in losses)}; no kernel launched (the model runs "
+            f"F.conv2d and its fp32 LayerNorm, as the JAX model runs lax.conv and "
+            f"nn.LayerNorm); {cnx['checkpoint'].split('/')[-1]} in the JAX layout, reloaded "
+            f"by val.initialize_model to the run's exact weights; val_precision top-1 "
+            f"{cnx['val_top1']:.3f} on the training folder")
+        timing = convnext_step_timing(cnx, "cuda")
+        ms = timing["ms_per_step"]
+        log(f"train step ConvNeXt-T 224x224 bf16 batch {cfg['batch']}: {ms:.3f} ms/step, "
+            f"{cfg['batch'] / (ms / 1e3):.1f} img/s (CUDA events, one fixed batch, exact-mode "
+            f"accuracy forward included)")
+        log_trace(f"ConvNeXt-T batch {cfg['batch']} bf16 train step", timing["trace"], "step")
+        # 6b. the LayerNorm and depthwise-conv kernels on the step's own tensors
+        replay = replay_convnext_ops(cnx, "cuda")
+        del cnx
+    n_ln = 1 + 3 + sum(CONVNEXT_T["depths"]) + 1  # stem, downsamples, blocks, head
+    n_dw = sum(CONVNEXT_T["depths"])
+    want = {"ln_fwd": n_ln, "ln_bwd": n_ln, "dw_fwd": n_dw, "dw_dx": n_dw, "dw_dw": n_dw}
+    if replay["launches"] != want:
+        raise AssertionError(f"replay launches {replay['launches']}, expected {want}")
+    log(f"replay of one ConvNeXt-T train step: {replay['n_ln']} LayerNorms (rows x C "
+        f"{replay['ln_shapes']}) and {replay['n_dw']} depthwise convs ({replay['dw_shapes']}) "
+        f"through the kernels, launches {replay['launches']}; largest max|d| "
+        + ", ".join(f"{k} {e:.3e}" for k, e in replay["errs"].items())
+        + f" (tolerances: vs model 2^-6 of max|ref|, dgamma/dbeta {MODEL_SUM_RTOL}; vs plain "
+        f"2^-7, dgamma/dbeta {SUM_RTOL})")
+
+    # results
     replaces_bwd = ("jax/experimental/pallas/ops/tpu/flash_attention.py:{} (the backward of "
                     "imageclassification_tpu/models/vit.py:25)")
     kernels = [{
@@ -747,9 +1255,47 @@ def main() -> int:
             "bound_ms": bwd_main["bounds"][part][0], "bound_by": bwd_main["bounds"][part][1],
             "library_ms": bwd_main["library_ms"],
         })
+    # the LayerNorm and depthwise-conv rows: the stage-0 shape (the largest),
+    # launches counted over the replay of phase 6b
+    ln0, dw0 = ln_rows[0], dw_rows[0]
+    replay_path = ("replay of one ConvNeXt-T train step's {} (chip_smoke.py phase 6b): the "
+                   "JAX model and the port's run nn.LayerNorm / lax.conv, not these kernels")
+    replaces_ln = "imageclassification_tpu/ops/pallas_layernorm.py:{} (fused_layer_norm)"
+    for part, line in (("fwd", 85), ("bwd", 108)):
+        errs = ("y",) if part == "fwd" else ("dx", "dgamma", "dbeta")
+        kernels.append({
+            "name": f"layer_norm_{part}", "route": "cuda",
+            "source": f"imageclassification_tpu_torch/csrc/{ln.KERNEL}.cu",
+            "replaces": replaces_ln.format(line),
+            "launches": replay["launches"][f"ln_{part}"],
+            "max_abs_err": max(ln0["errs"][e][0] for e in errs),
+            "ms": ln0[f"ms_{part}"], "plain_ms": ln0[f"plain_ms_{part}"],
+            "bound_ms": ln0[f"bound_{part}"][0], "bound_by": ln0[f"bound_{part}"][1],
+            "library_ms": ln0[f"library_ms_{part}"], "shape": ln0["shape"],
+            "path": replay_path.format(f"{n_ln} LayerNorms"),
+        })
+    replaces_dw = "imageclassification_tpu/ops/pallas_dwconv.py:{} (depthwise_conv7x7)"
+    for name, line, part in (("dwconv7x7_fwd", 58, "fwd"), ("dwconv7x7_dw", 111, "dw")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"imageclassification_tpu_torch/csrc/{dw.KERNEL}.cu",
+            "replaces": replaces_dw.format(line),
+            "launches": (replay["launches"]["dw_fwd"] + replay["launches"]["dw_dx"]
+                         if part == "fwd" else replay["launches"]["dw_dw"]),
+            "max_abs_err": max(dw0["errs"][e][0] for e in (("y", "dx") if part == "fwd"
+                                                            else ("dw",))),
+            "ms": dw0["ms"][part], "plain_ms": dw0["plain_ms"][part],
+            "bound_ms": dw0["bound"][0], "bound_by": dw0["bound"][1],
+            "library_ms": dw0["library_ms"][part], "shape": dw0["shape"],
+            "path": replay_path.format(f"{n_dw} depthwise convs"),
+        })
+    kernels[-2].update(launches_fwd=replay["launches"]["dw_fwd"],
+                       launches_dx=replay["launches"]["dw_dx"], ms_dx=dw0["ms"]["dx"],
+                       library_ms_dx=dw0["library_ms"]["dx"])
     for k in kernels:
         if k["launches"] <= 0:
-            raise AssertionError(f"{k['name']} was not launched on the training path")
+            where = "in the replay" if "path" in k else "on the training path"
+            raise AssertionError(f"{k['name']} was not launched {where}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,11 @@
 """The weight carry: JAX flat parameters -> the port's state_dict.
 
 The JAX package stores parameters as a flat {"a/b/c": ndarray} dict (flax
-tree paths joined by "/"). This is the inverse of that package's
-`checkpoint/torch_convert.py::convert_vit`, written here on its own:
+tree paths joined by "/"). The functions here are the inverses of that
+package's `checkpoint/torch_convert.py::convert_vit` and `convert_convnext`,
+written here on their own.
+
+ViT:
 
     JAX flat key                                        port state_dict key
     patch_embed/kernel [p,p,3,E]                        patch_embed.proj.weight [E,3,p,p]
@@ -14,6 +17,20 @@ tree paths joined by "/"). This is the inverse of that package's
     block{i}/Mlp_0/Dense_{0,1}/{kernel,bias}            blocks.{i}.mlp.fc{1,2}.{weight,bias}
     norm/{scale,bias}, head/{kernel,bias}               norm.*, head.*
     cls_token, pos_embed                                unchanged
+
+ConvNeXt (`CONVNEXT_MODULES`; each JAX module's leaves map one to one):
+
+    JAX flat key                                        port state_dict key
+    stem_conv/{kernel [4,4,3,C], bias}                  stem.0.{weight [C,3,4,4], bias}
+    stem_norm/{scale,bias}                              stem.1.{weight,bias}
+    downsample_norm{i}/*, downsample_conv{i}/*          stages.{i}.downsample.{0,1}.*
+    stage{s}_block{b}/Conv_0/kernel [7,7,1,C]           stages.{s}.blocks.{b}.conv_dw.weight [C,1,7,7]
+    stage{s}_block{b}/LayerNorm_0/*                     stages.{s}.blocks.{b}.norm.*
+    stage{s}_block{b}/Dense_{0,1}/kernel [in,out]       stages.{s}.blocks.{b}.mlp.fc{1,2}.weight [out,in]
+    stage{s}_block{b}/GRN_0/{gamma,beta} [4C]           stages.{s}.blocks.{b}.mlp.grn.{weight,bias}
+    stage{s}_block{b}/gamma                             stages.{s}.blocks.{b}.gamma
+    norm{i}/* (features_only)                           norm{i}.*
+    head_norm/*, head/*                                 head.norm.*, head.fc.*
 """
 
 from __future__ import annotations
@@ -108,6 +125,76 @@ def vit_state_dict_with_sources(
             put(f"blocks.{i}.attn.qkv.{torch_leaf}", fused, *keys)
 
     return {k: torch.tensor(v) for k, v in sd.items()}, src, unused
+
+
+# (JAX module, port module, {JAX leaf: (port leaf, kind)}) where kind says
+# how the array is laid out: "conv" HWIO <-> OIHW, "dense" [in, out] <->
+# [out, in], "same" unchanged. "{n}" stands for a stage or block number.
+_CONV = {"kernel": ("weight", "conv"), "bias": ("bias", "same")}
+_LN = {"scale": ("weight", "same"), "bias": ("bias", "same")}
+_DENSE = {"kernel": ("weight", "dense"), "bias": ("bias", "same")}
+_BLOCK = ("stage{n}_block{n}", "stages.{n}.blocks.{n}")
+CONVNEXT_MODULES = [
+    ("stem_conv", "stem.0", _CONV),
+    ("stem_norm", "stem.1", _LN),
+    ("downsample_norm{n}", "stages.{n}.downsample.0", _LN),
+    ("downsample_conv{n}", "stages.{n}.downsample.1", _CONV),
+    (_BLOCK[0] + "/Conv_0", _BLOCK[1] + ".conv_dw", _CONV),
+    (_BLOCK[0] + "/LayerNorm_0", _BLOCK[1] + ".norm", _LN),
+    (_BLOCK[0] + "/Dense_0", _BLOCK[1] + ".mlp.fc1", _DENSE),
+    (_BLOCK[0] + "/Dense_1", _BLOCK[1] + ".mlp.fc2", _DENSE),
+    (_BLOCK[0] + "/GRN_0", _BLOCK[1] + ".mlp.grn",
+     {"gamma": ("weight", "same"), "beta": ("bias", "same")}),
+    (_BLOCK[0], _BLOCK[1], {"gamma": ("gamma", "same")}),
+    ("norm{n}", "norm{n}", _LN),
+    ("head_norm", "head.norm", _LN),
+    ("head", "head.fc", _DENSE),
+]
+
+
+def module_pattern(template: str) -> re.Pattern:
+    """A module-name template of CONVNEXT_MODULES as a regex in which each
+    "{n}" captures a number and everything else is literal."""
+    parts = [re.escape(p) for p in template.split("{n}")]
+    return re.compile(r"(\d+)".join(parts))
+
+
+def fill(template: str, numbers) -> str:
+    for n in numbers:
+        template = template.replace("{n}", n, 1)
+    return template
+
+
+def _to_torch_layout(v, kind: str) -> np.ndarray:
+    v = _f32(v)
+    if kind == "conv":  # flax [kh, kw, in, out] -> torch [out, in, kh, kw]
+        return np.ascontiguousarray(v.transpose(3, 2, 0, 1))
+    if kind == "dense":
+        return _linear_w(v)
+    return v
+
+
+def convnext_state_dict_with_sources(
+    flat: Dict[str, np.ndarray]
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, List[str]], List[str]]:
+    """JAX ConvNeXt flat parameters -> (the port's state_dict (fp32), for
+    every produced key the JAX key it came from, the JAX keys that map to
+    nothing)."""
+    pats = [(module_pattern(j), p, leaves) for j, p, leaves in CONVNEXT_MODULES]
+    sd, src, unused = {}, {}, []
+    for k, v in flat.items():
+        module, _, leaf = k.rpartition("/")
+        for pat, port, leaves in pats:
+            m = pat.fullmatch(module)
+            if m and leaf in leaves:
+                name, kind = leaves[leaf]
+                key = f"{fill(port, m.groups())}.{name}"
+                sd[key] = torch.tensor(_to_torch_layout(v, kind))
+                src[key] = [k]
+                break
+        else:
+            unused.append(k)
+    return sd, src, unused
 
 
 def vit_state_dict_from_jax(flat: Dict[str, np.ndarray], num_heads: int) -> Dict[str, torch.Tensor]:

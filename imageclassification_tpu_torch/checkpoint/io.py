@@ -30,10 +30,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..models.vit import ViT
 from ..optim.ema import init_ema
-from .from_jax import vit_state_dict_with_sources
-from .to_jax import optimizer_from_jax, optimizer_to_jax, vit_flat_from_state_dict
+from .to_jax import carry_for, optimizer_from_jax, optimizer_to_jax
 
 FORMAT_VERSION = 1
 
@@ -69,19 +67,11 @@ def _dequantize_weights(ck: Dict[str, Any]) -> Dict[str, Any]:
     return ck
 
 
-def _require_vit(model: nn.Module) -> None:
-    if not isinstance(model, ViT):
-        raise NotImplementedError(
-            f"weight carry for {type(model).__name__} is not ported yet"
-        )
-
-
 def matching_state_dict(model: nn.Module, ckpt_flat: Dict[str, np.ndarray]
                         ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
     """(the entries of the carried state_dict that match a model parameter by
     name AND shape, the checkpoint keys that do not)."""
-    _require_vit(model)
-    sd, sources, unused = vit_state_dict_with_sources(ckpt_flat, model.num_heads)
+    sd, sources, unused = carry_for(model).to_port(ckpt_flat)
     current = model.state_dict()
     kept = {}
     dropped = list(unused)
@@ -112,7 +102,7 @@ def save_model(args, input_shape, epoch, state, num_classes: int,
     """Write output_dir/checkpoint-{epoch}.pth in the JAX layout; `epoch` is
     an int or "best"/"best-ema". Returns the path."""
     model = state.model
-    _require_vit(model)
+    carry = carry_for(model)
     output_dir = Path(args.output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
     path = output_dir / f"checkpoint-{epoch}.pth"
@@ -124,12 +114,12 @@ def save_model(args, input_shape, epoch, state, num_classes: int,
         "input_shape": list(input_shape),
         "num_classes": num_classes,
         "args": args.to_dict() if hasattr(args, "to_dict") else vars(args),
-        "model": vit_flat_from_state_dict(model.state_dict(), model.num_heads),
+        "model": carry.to_jax(model.state_dict()),
         "batch_stats": {},
-        "optimizer": optimizer_to_jax(state.optimizer, model, model.num_heads),
+        "optimizer": optimizer_to_jax(state.optimizer, model, carry),
     }
     if state.ema is not None:
-        ck["model_ema"] = vit_flat_from_state_dict(state.ema, model.num_heads)
+        ck["model_ema"] = carry.to_jax(state.ema)
     tmp = f"{path}.tmp"
     with open(tmp, "wb") as f:
         pickle.dump(ck, f, protocol=pickle.HIGHEST_PROTOCOL)
@@ -184,7 +174,7 @@ def auto_load_model(args, state):
             state.ema = init_ema(model)
 
     if "optimizer" in checkpoint and "epoch" in checkpoint and missing_nums == 0:
-        optimizer_from_jax(checkpoint["optimizer"], state.optimizer, model, model.num_heads)
+        optimizer_from_jax(checkpoint["optimizer"], state.optimizer, model, carry_for(model))
         if "step" in checkpoint:
             state.step = int(checkpoint["step"])
         if not isinstance(checkpoint["epoch"], str):

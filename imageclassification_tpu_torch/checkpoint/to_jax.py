@@ -5,8 +5,11 @@ checkpoints in the JAX package's layout.
 `vit_flat_from_state_dict` is the inverse of
 `from_jax.vit_state_dict_with_sources`: it splits the fused qkv Linear back
 into the query/key/value projections ([E, H, hd] kernels, [H, hd] biases).
-It maps any dict of tensors shaped like the parameters, so it carries the
-optimizer's moments too.
+`convnext_flat_from_state_dict` is the inverse of
+`from_jax.convnext_state_dict_with_sources`. Each maps any dict of tensors
+shaped like the parameters, so it carries the optimizer's moments too.
+`carry_for(model)` gives a model's pair of carry functions (`Carry`); the
+optimizer functions take it.
 
 The optimizer state is stored as the JAX `create_optimizer(...).init(params)`
 state flattens (`checkpoint/io.py::_flatten` there):
@@ -23,14 +26,18 @@ weight decay), each one more with --clip_grad (after the clip).
 
 from __future__ import annotations
 
+import functools
 import re
-from typing import Dict
+from typing import Callable, Dict, NamedTuple
 
 import numpy as np
 import torch
 
+from ..models.convnext import ConvNeXt
+from ..models.vit import ViT
 from ..optim.factory import Optimizer
-from .from_jax import vit_state_dict_with_sources
+from .from_jax import (CONVNEXT_MODULES, convnext_state_dict_with_sources, fill,
+                       module_pattern, vit_state_dict_with_sources)
 
 _ATTN = "MultiHeadDotProductAttention_0"
 
@@ -83,13 +90,59 @@ def vit_flat_from_state_dict(sd: Dict[str, torch.Tensor], num_heads: int) -> Dic
     return flat
 
 
+def convnext_flat_from_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Map the port's ConvNeXt state_dict (or any dict keyed like it) to the
+    JAX flat parameters, fp32 numpy."""
+    pats = [(module_pattern(p), j, {pl: (jl, kind) for jl, (pl, kind) in leaves.items()})
+            for j, p, leaves in CONVNEXT_MODULES]
+    flat: Dict[str, np.ndarray] = {}
+    for k, t in sd.items():
+        v = t.detach().float().cpu().numpy()
+        module, _, leaf = k.rpartition(".")
+        for pat, jax_module, leaves in pats:
+            m = pat.fullmatch(module)
+            if m and leaf in leaves:
+                name, kind = leaves[leaf]
+                if kind == "conv":  # torch [out, in, kh, kw] -> flax [kh, kw, in, out]
+                    v = np.ascontiguousarray(v.transpose(2, 3, 1, 0))
+                elif kind == "dense":
+                    v = np.ascontiguousarray(v.T)
+                flat[f"{fill(jax_module, m.groups())}/{name}"] = v
+                break
+        else:
+            raise KeyError(f"no JAX name for port key {k!r}")
+    return flat
+
+
+class Carry(NamedTuple):
+    """A model family's weight carry: `to_port(flat)` -> (state_dict, the
+    JAX sources of each key, the unused JAX keys); `to_jax(state_dict)` ->
+    JAX flat parameters."""
+
+    to_port: Callable
+    to_jax: Callable
+
+
+def carry_for(model: torch.nn.Module) -> Carry:
+    """The weight carry of `model`'s family; NotImplementedError for a
+    family whose carry is not ported."""
+    if isinstance(model, ViT):
+        return Carry(functools.partial(vit_state_dict_with_sources, num_heads=model.num_heads),
+                     functools.partial(vit_flat_from_state_dict, num_heads=model.num_heads))
+    if isinstance(model, ConvNeXt):
+        return Carry(convnext_state_dict_with_sources, convnext_flat_from_state_dict)
+    raise NotImplementedError(
+        f"weight carry for {type(model).__name__} is not ported yet (ROADMAP A4, A13-A15)")
+
+
 def _core_index(opt: Optimizer) -> int:
     return (0 if opt.name == "adamw" else 1) + (opt.clip_grad is not None)
 
 
 def optimizer_to_jax(opt: Optimizer, model: torch.nn.Module,
-                     num_heads: int) -> Dict[str, np.ndarray]:
-    """The optimizer's state in the JAX optax layout (module docstring)."""
+                     carry: Carry) -> Dict[str, np.ndarray]:
+    """The optimizer's state in the JAX optax layout (module docstring),
+    mapped by the model's `carry`."""
     named = list(model.named_parameters())
     group = opt.inner.param_groups[0]
     i = _core_index(opt)
@@ -103,16 +156,16 @@ def optimizer_to_jax(opt: Optimizer, model: torch.nn.Module,
     if opt.name == "adamw":
         flat[f"inner_state/{i}/count"] = np.asarray(opt.num_updates, np.int32)
         for field, jax_field in (("exp_avg", "mu"), ("exp_avg_sq", "nu")):
-            for k, v in vit_flat_from_state_dict(moments(field), num_heads).items():
+            for k, v in carry.to_jax(moments(field)).items():
                 flat[f"inner_state/{i}/{jax_field}/{k}"] = v
     else:
-        for k, v in vit_flat_from_state_dict(moments("momentum_buffer"), num_heads).items():
+        for k, v in carry.to_jax(moments("momentum_buffer")).items():
             flat[f"inner_state/{i}/trace/{k}"] = v
     return flat
 
 
 def optimizer_from_jax(flat: Dict[str, np.ndarray], opt: Optimizer,
-                       model: torch.nn.Module, num_heads: int) -> int:
+                       model: torch.nn.Module, carry: Carry) -> int:
     """Load a JAX-layout optimizer state into `opt`, keeping only the leaves
     that match a parameter by name and shape, as the JAX resume does. Returns
     the number of parameters whose state was loaded."""
@@ -125,7 +178,7 @@ def optimizer_from_jax(flat: Dict[str, np.ndarray], opt: Optimizer,
     for jax_field, field in fields.items():
         prefix = f"inner_state/{i}/{jax_field}/"
         sub = {k[len(prefix):]: v for k, v in flat.items() if k.startswith(prefix)}
-        sd = vit_state_dict_with_sources(sub, num_heads)[0]
+        sd = carry.to_port(sub)[0]
         for k, v in sd.items():
             p = named.get(k)
             if p is not None and tuple(v.shape) == tuple(p.shape):

@@ -78,7 +78,7 @@ def build_train_step(model: nn.Module, args, num_classes: int,
     lr_schedule = [float(x) for x in lr_schedule]
     wd_schedule = [float(x) for x in wd_schedule]
     # pixel draws on the device; the few mixup scalars on the host; dropout
-    # (none at ViT's defaults) on the device
+    # and stochastic depth (ConvNeXt's drop_path) on the device
     aug_gen = torch.Generator(device=device).manual_seed(seed)
     mix_gen = torch.Generator().manual_seed(seed + 1)
     drop_gen = torch.Generator(device=device).manual_seed(seed + 2)

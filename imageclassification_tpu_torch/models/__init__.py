@@ -1,6 +1,7 @@
 """Model registry (port of imageclassification_tpu/models/__init__.py).
 
-Holds the ViT family and its timm-style `_224` aliases. The other names of
+Holds the ViT family with its timm-style `_224` aliases, and the ConvNeXt
+and ConvNeXt-V2 families. The other names of
 the JAX registry are known here so that asking for one says it is not ported
 yet, while an unknown name raises ValueError as in the JAX package.
 """
@@ -11,7 +12,7 @@ from typing import Any, Callable, Dict
 
 import torch
 
-from . import vit
+from . import convnext, vit
 
 _REGISTRY: Dict[str, Callable] = {}
 
@@ -19,10 +20,6 @@ _REGISTRY: Dict[str, Callable] = {}
 _NOT_YET_PORTED = frozenset(
     ["resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
      "resnext50_32x4d", "resnext101_32x8d", "wide_resnet50_2", "wide_resnet101_2"]
-    + [f"convnext_{s}" for s in ("atto", "femto", "pico", "nano", "tiny",
-                                 "small", "base", "large", "xlarge")]
-    + [f"convnextv2_{s}" for s in ("atto", "femto", "pico", "nano", "tiny",
-                                   "base", "large", "huge")]
     + [f"efficientvit_m{i}" for i in range(6)]
     + ["mobilenetv3_large_100", "mobilenetv3_small_100",
        "mobilenet_v3_large", "mobilenet_v3_small"]
@@ -45,6 +42,8 @@ for _n in ("vit_tiny_patch16", "vit_small_patch16", "vit_small_patch32",
            "vit_base_patch16", "vit_base_patch32", "vit_large_patch16"):
     register(_n, getattr(vit, _n))
     register(_n + "_224", getattr(vit, _n))
+for _n in convnext.NAMES:
+    register(_n, getattr(convnext, _n))
 
 
 def create_model(

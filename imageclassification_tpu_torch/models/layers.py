@@ -5,6 +5,9 @@ fp32, compute runs in the module's `dtype` (weights cast at use, as flax's
 `dtype` vs `param_dtype`), LayerNorm statistics are taken in fp32 and the
 result cast back to `dtype`.
 
+Convolutions take NHWC activations, as the JAX models do, and run on a
+channels-first view of them (`conv2d_nhwc`).
+
 Randomness (dropout, stochastic depth, init) takes an explicit
 `torch.Generator`; a training-mode forward that needs random draws and has
 no generator raises.
@@ -33,6 +36,23 @@ def trunc_normal_(t: torch.Tensor, std: float = 0.02,
 def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
     """`layer(x)` computed in `dtype` (fp32 params cast at use)."""
     return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+def init_conv_(conv: nn.Conv2d, generator: torch.Generator, std: float = 0.02) -> None:
+    """flax `nn.Conv(kernel_init=truncated_normal_init(std))`: a truncated
+    normal kernel of std `std` (not scaled by fan-in), zero bias."""
+    trunc_normal_(conv.weight, std=std, generator=generator)
+    nn.init.zeros_(conv.bias)
+
+
+def conv2d_nhwc(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
+    """flax `nn.Conv(dtype=dtype)` on NHWC `x` with `conv`'s fp32 parameters
+    cast at use: the convolution runs on a channels-first view of x (which is
+    channels_last in memory, so nothing is copied), and the bias is added in
+    `dtype` after it, as flax adds it. Returns NHWC."""
+    y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), conv.weight.to(dtype), None,
+                 stride=conv.stride, padding=conv.padding, groups=conv.groups)
+    return y.permute(0, 2, 3, 1) + conv.bias.to(dtype)
 
 
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""Build the port's CUDA kernels at first use and load them through ctypes.
+"""Build the port's CUDA kernels at first use and load them through ctypes,
+and the helpers the kernel wrappers share around a launch.
 
 Each source `csrc/<name>.cu` has a plain C interface and is compiled by
 `nvcc -gencode arch=compute_90a,code=sm_90a` into its own shared library
@@ -16,6 +17,8 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -65,3 +68,20 @@ def load(name: str) -> ctypes.CDLL:
     build(name)
     return ctypes.CDLL(str(library_path(name)))
 
+
+def stream(t: torch.Tensor) -> int:
+    """The handle of torch's current stream on t's device, for a launch."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def raise_on(err: int, name: str) -> None:
+    """Raise when a kernel's C entry point returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def aligned(t: torch.Tensor, dtype=None) -> torch.Tensor:
+    """t contiguous (in `dtype` when given) at a 32-byte aligned address, as
+    16-byte vector loads and stores of 8 channels need."""
+    t = t.contiguous() if dtype is None else t.to(dtype).contiguous()
+    return t if t.data_ptr() % 32 == 0 else t.clone()

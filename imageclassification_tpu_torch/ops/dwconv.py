@@ -1,0 +1,194 @@
+"""7x7 depthwise convolution: hand-written Hopper kernels (the forward, which
+also gives the input gradient, and the weight gradient) and their plain
+versions.
+
+Replaces `imageclassification_tpu/ops/pallas_dwconv.py::depthwise_conv7x7`:
+the Pallas TPU kernel `_kernel` behind `_dwconv_pallas` (`pl.pallas_call` at
+:58), run on the padded input for the forward and on the padded output
+gradient with the spatially flipped kernel for dx (`_bwd`, :103-109); dw is
+49 shifted reductions that the JAX package leaves to XLA (:111-120) and the
+port hand-writes too, because a torch expression of it builds 49 full-size
+fp32 temporaries. Same function at the public entry point:
+`depthwise_conv7x7(x, w)` with x [B, H, W, C] (NHWC), w [7, 7, C], stride 1,
+zero padding 3, no bias, fp32 accumulation, the output and dx in x's dtype,
+dw in w's dtype.
+
+What bounds the kernels on an H100 and what the designs do about it: see the
+header of `csrc/dwconv7x7.cu` (operations on the fp32 CUDA cores: input tile
+and halo in shared memory, zero-filled by the copy instead of a padded
+tensor, 8 channels x 4 pixels of fp32 accumulators a thread; dw from per-CTA
+partials summed by a second pass, no atomics).
+
+Like the Pallas kernel this is an op of its own: the JAX ConvNeXt runs
+`lax.conv` and the port's ConvNeXt runs `F.conv2d(groups=C)`, not this op.
+
+`depthwise_conv7x7` takes the plain versions only for tensors on the CPU. For
+a CUDA tensor it launches the kernels or raises; it never falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+KERNEL = "dwconv7x7"
+K, PAD = 7, 3
+# the channel width of a thread: C must be a multiple of it
+CHANNEL_VECTOR = 8
+# CTAs (over every channel tile) of the weight gradient, each writing one
+# fp32 partial row of [49 * C]
+DW_CTAS = 1056
+_TILE, _CHANNEL_TILE = 8, 32
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def dwconv7x7_ref(x: torch.Tensor, w: torch.Tensor, flip: bool = False) -> torch.Tensor:
+    """Plain version of the forward (the Pallas `_kernel`'s math): 49 shifted
+    multiply-adds of the zero-padded x in fp32, result in x's dtype. With
+    `flip`, w is read flipped in both spatial axes (the input gradient when x
+    is the output gradient)."""
+    B, H, W, C = x.shape
+    xp = F.pad(x.float(), (0, 0, PAD, PAD, PAD, PAD))
+    wf = w.float().flip(0, 1) if flip else w.float()
+    acc = torch.zeros((B, H, W, C), dtype=torch.float32, device=x.device)
+    for ky in range(K):
+        for kx in range(K):
+            acc += xp[:, ky:ky + H, kx:kx + W, :] * wf[ky, kx]
+    return acc.to(x.dtype)
+
+
+def dwconv7x7_dw_ref(x: torch.Tensor, dy: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of the weight gradient (the JAX `_bwd`'s dw):
+    dw[ky, kx, c] = sum over b, h, w of x_pad[b, h + ky, w + kx, c] dy[b, h, w, c]
+    in fp32, as [7, 7, C] in `dtype`."""
+    _, H, W, _ = x.shape
+    xp = F.pad(x.float(), (0, 0, PAD, PAD, PAD, PAD))
+    dyf = dy.float()
+    return torch.stack([
+        torch.stack([(xp[:, ky:ky + H, kx:kx + W, :] * dyf).sum((0, 1, 2)) for kx in range(K)])
+        for ky in range(K)]).to(dtype)
+
+
+@functools.cache
+def _kernels():
+    lib = _build.load(KERNEL)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fwd, dw = lib.dwconv7x7_fwd, lib.dwconv7x7_dw
+    fwd.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+    dw.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+    fwd.restype = dw.restype = ctypes.c_int
+    return fwd, dw
+
+
+def check_kernel_inputs(x: torch.Tensor, w_shape, w_dtype: torch.dtype) -> None:
+    """Raise on what the kernels do not take, for x and a weight (or weight
+    gradient) of `w_shape` and `w_dtype`: NotImplementedError for dtypes and
+    channel counts not ported, ValueError for shapes that do not fit."""
+    if x.dtype not in _DTYPES or w_dtype not in _DTYPES:
+        raise NotImplementedError(
+            f"depthwise-conv kernels take float32 or bfloat16, got x {x.dtype}, w {w_dtype}")
+    if x.dim() != 4 or tuple(w_shape) != (K, K, x.shape[-1]):
+        raise ValueError(f"x must be [B, H, W, C] and w [7, 7, C], got {tuple(x.shape)}, "
+                         f"{tuple(w_shape)}")
+    if x.shape[-1] % CHANNEL_VECTOR:
+        raise NotImplementedError(
+            f"depthwise-conv kernels take C a multiple of {CHANNEL_VECTOR}, got {x.shape[-1]}")
+
+
+def _launch_fwd(x: torch.Tensor, w: torch.Tensor, flip: bool = False) -> torch.Tensor:
+    """Forward kernel (with `flip`, the input gradient's): out in x's dtype."""
+    check_kernel_inputs(x, w.shape, w.dtype)
+    if x.device != w.device:
+        raise ValueError("x and w must be on one device")
+    x, w = _build.aligned(x), _build.aligned(w)
+    B, H, W, C = x.shape
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = _kernels()[0](x.data_ptr(), w.data_ptr(), out.data_ptr(), B, H, W, C, int(flip),
+                            _DTYPES[x.dtype], _DTYPES[w.dtype], _build.stream(x))
+    _build.raise_on(err, "dwconv7x7_fwd")
+    if flip:
+        depthwise_conv7x7.launches_dx += 1
+    else:
+        depthwise_conv7x7.launches += 1
+    return out
+
+
+def dw_ctas(B: int, H: int, W: int, C: int) -> int:
+    """The weight-gradient kernel's partial slots per channel tile: at most
+    DW_CTAS CTAs over all channel tiles, and no more slots than (batch,
+    8x8 tile) items."""
+    items = B * math.ceil(H / _TILE) * math.ceil(W / _TILE)
+    return max(1, min(items, DW_CTAS // math.ceil(C / _CHANNEL_TILE)))
+
+
+def _launch_dw(x: torch.Tensor, dy: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Weight-gradient kernel (and its partial-sum pass): dw [7, 7, C] in
+    `dtype`."""
+    check_kernel_inputs(x, (K, K, x.shape[-1]), dtype)
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"dy must match x's shape and dtype, got {tuple(dy.shape)} {dy.dtype}")
+    x, dy = _build.aligned(x), _build.aligned(dy)
+    B, H, W, C = x.shape
+    slots = dw_ctas(B, H, W, C)
+    part = torch.empty((slots, K * K * C), dtype=torch.float32, device=x.device)
+    dw = torch.empty((K, K, C), dtype=dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _kernels()[1](x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(), B, H,
+                            W, C, slots, _DTYPES[x.dtype], _DTYPES[dtype], _build.stream(x))
+    _build.raise_on(err, "dwconv7x7_dw")
+    depthwise_conv7x7.launches_dw += 1
+    return dw
+
+
+def dwconv7x7_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor):
+    """(dx in x's dtype, dw in w's dtype) of `depthwise_conv7x7`: dx is the
+    forward run on dy with the flipped w, dw the 49 shifted reductions; plain
+    versions for CPU tensors, the kernels for CUDA tensors."""
+    dy = dy.to(x.dtype)
+    if x.device.type == "cpu":
+        return dwconv7x7_ref(dy, w, flip=True), dwconv7x7_dw_ref(x, dy, w.dtype)
+    return _launch_fwd(dy, w, flip=True), _launch_dw(x, dy, w.dtype)
+
+
+class _DepthwiseConv7x7(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        if x.device.type == "cpu":
+            return dwconv7x7_ref(x, w)
+        return _launch_fwd(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dwconv7x7_bwd(*ctx.saved_tensors, dy)
+
+
+def depthwise_conv7x7(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """7x7 depthwise conv of NHWC x [B, H, W, C] with w [7, 7, C], stride 1,
+    zero padding 3, no bias; differentiable in x and w.
+
+    CPU tensors take the plain versions (`dwconv7x7_ref`,
+    `dwconv7x7_dw_ref`); CUDA tensors launch the kernels (float32 or
+    bfloat16, C a multiple of 8). Counts, as plain integers on this
+    function: `launches` (forward kernel), `launches_dx` (the same kernel run
+    for dx) and `launches_dw` (weight-gradient kernel)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise NotImplementedError(f"depthwise_conv7x7 runs on cpu or cuda, not {x.device.type}")
+    return _DepthwiseConv7x7.apply(x, w)
+
+
+def reset_launches() -> None:
+    """Set the launch counts of `depthwise_conv7x7` to 0."""
+    depthwise_conv7x7.launches = 0
+    depthwise_conv7x7.launches_dx = 0
+    depthwise_conv7x7.launches_dw = 0
+
+
+reset_launches()

@@ -135,15 +135,6 @@ def _kernel_dq():
     return _fn(KERNEL_BWD, "flash_attention_bwd_dq_bf16", 7, 3, 6)
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-
-
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool = False):
     """Forward kernel: (out, lse), lse None unless `with_lse`."""
     check_kernel_inputs(q, k, v)
@@ -155,9 +146,9 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool = 
         err = _kernel()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if with_lse else None,
-            B, N, H, sb, sn, sh, D ** -0.5, _stream(q),
+            B, N, H, sb, sn, sh, D ** -0.5, _build.stream(q),
         )
-    _raise_on(err, KERNEL)
+    _build.raise_on(err, KERNEL)
     flash_attention.launches += 1
     if with_lse:
         flash_attention.launches_lse += 1
@@ -190,9 +181,9 @@ def _launch_dkv(q, k, v, do, lse, di):
         err = _kernel_dkv()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             di.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, N, H, *q.stride()[:3],
-            *do.stride()[:3], D ** -0.5, _stream(q),
+            *do.stride()[:3], D ** -0.5, _build.stream(q),
         )
-    _raise_on(err, "flash_attention_bwd_dkv")
+    _build.raise_on(err, "flash_attention_bwd_dkv")
     flash_attention.launches_dkv += 1
     return dk, dv
 
@@ -205,9 +196,9 @@ def _launch_dq(q, k, v, do, lse, di):
         err = _kernel_dq()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             di.data_ptr(), dq.data_ptr(), B, N, H, *q.stride()[:3], *do.stride()[:3],
-            D ** -0.5, _stream(q),
+            D ** -0.5, _build.stream(q),
         )
-    _raise_on(err, "flash_attention_bwd_dq")
+    _build.raise_on(err, "flash_attention_bwd_dq")
     flash_attention.launches_dq += 1
     return dq
 

@@ -2,15 +2,18 @@
 
     python -m imageclassification_tpu_torch.train --data_path <ImageFolder> \\
         --model vit_base_patch16 [--flash_attn true] [--device cuda|cpu] ...
+    python -m imageclassification_tpu_torch.train --data_path <ImageFolder> \\
+        --model convnext_tiny [--drop_path 0.1] [--device cuda|cpu] ...
 
 The JAX train.py's flags, artifacts and epoch flow: `class_indices.json`
 and `checkpoint-{N,best,best-ema}.pth` under --output_dir (JAX layout, so
 either package resumes them and either val.py reads them), JSON lines in
 log.txt beside it, TensorBoard scalars under --log_dir, auto-resume,
 --eval, --pretrained_path with a repo checkpoint, and a checkpoint on
-SIGTERM/SIGUSR1 before a clean exit. One process on one device; only the
-ViT family is built (other names raise NotImplementedError), and the flags of
-features not ported yet raise (config.check_ported).
+SIGTERM/SIGUSR1 before a clean exit. One process on one device; the ViT,
+ConvNeXt and ConvNeXt-V2 families are built (other names raise
+NotImplementedError), and the flags of features not ported yet raise
+(config.check_ported).
 """
 
 from __future__ import annotations
@@ -73,11 +76,11 @@ def _load_pretrained(args, state) -> None:
         raise NotImplementedError(
             "--pretrained_path takes a checkpoint of this project here; converting a "
             "torch/timm state_dict is not ported yet (ROADMAP A7)")
-    pos = ck["model"].get("pos_embed")
-    if pos is not None and tuple(pos.shape) != tuple(state.model.pos_embed.shape):
+    pos, own = ck["model"].get("pos_embed"), getattr(state.model, "pos_embed", None)
+    if pos is not None and own is not None and tuple(pos.shape) != tuple(own.shape):
         raise NotImplementedError(
             f"pos_embed {tuple(pos.shape)} differs from the model's "
-            f"{tuple(state.model.pos_embed.shape)}: resampling it to another --input_size "
+            f"{tuple(own.shape)}: resampling it to another --input_size "
             "is not ported yet (ROADMAP A12)")
     ckpt_io.load_params_with_pruning(state.model, ck["model"])
     if state.ema is not None:

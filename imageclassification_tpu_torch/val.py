@@ -13,9 +13,9 @@
   `Empty/` (class 0) or `NonEmpty/` (any other class) directory.
 
 The eval transform is the squash resize (bilinear) on the host, then the
-ImageNet normalisation on the device. A checkpoint written by the JAX
-`train.py` loads and runs unchanged; one trained with --flash_attn runs the
-flash-attention kernel.
+ImageNet normalisation on the device. A ViT or ConvNeXt checkpoint written
+by the JAX `train.py` loads and runs unchanged; a ViT trained with
+--flash_attn runs the flash-attention kernel.
 """
 
 from __future__ import annotations

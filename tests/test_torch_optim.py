@@ -16,7 +16,8 @@ from imageclassification_tpu.checkpoint.io import _flatten
 from imageclassification_tpu.optim import ema as jax_ema
 from imageclassification_tpu.optim import factory as jax_factory
 from imageclassification_tpu.optim import schedules as jax_schedules
-from imageclassification_tpu_torch.checkpoint.to_jax import optimizer_from_jax, optimizer_to_jax
+from imageclassification_tpu_torch.checkpoint.to_jax import (carry_for, optimizer_from_jax,
+                                                             optimizer_to_jax)
 from imageclassification_tpu_torch.models import vit as port_vit
 from imageclassification_tpu_torch.optim import ema, factory, schedules
 
@@ -152,7 +153,7 @@ def test_optimizer_state_layout_and_values_match_jax(opt, clip):
         steps.append(vit_flat_from_state_dict(
             {k: torch.from_numpy(v) for k, v in grads.items()}, SMALL["num_heads"]))
     _, _, want, _ = _jax_tx_state(opt, clip, steps)
-    got = optimizer_to_jax(popt, model, SMALL["num_heads"])
+    got = optimizer_to_jax(popt, model, carry_for(model))
     assert {k: v.shape for k, v in got.items()} == {k: v.shape for k, v in want.items()}
     for k, v in want.items():
         if k.startswith("hyperparams"):
@@ -166,7 +167,7 @@ def test_optimizer_state_layout_and_values_match_jax(opt, clip):
     popt2 = factory.create_optimizer(opt, model2.parameters(), lr=0.01, weight_decay=0.05,
                                      clip_grad=clip)
     n = len(list(model2.parameters()))
-    assert optimizer_from_jax(want, popt2, model2, SMALL["num_heads"]) == n
+    assert optimizer_from_jax(want, popt2, model2, carry_for(model2)) == n
     assert popt2.num_updates == 2
     for m, o in ((model, popt), (model2, popt2)):
         for p in m.parameters():

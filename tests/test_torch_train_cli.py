@@ -2,9 +2,10 @@
 checkpoint/io.py write side and resume) against the JAX package: the same
 flags, checkpoints that resume in either package with their optimizer state,
 an end-to-end CPU run of `python -m imageclassification_tpu_torch.train`
-followed by the port's val.py, and chip_smoke.py's training phase rehearsed
-on the CPU."""
+followed by the port's val.py, and chip_smoke.py's training phases rehearsed
+on the CPU; for ViT and for ConvNeXt."""
 
+import functools
 import json
 import os
 import pickle
@@ -29,7 +30,7 @@ from imageclassification_tpu.models.vit import ViT as JaxViT
 from imageclassification_tpu.optim.factory import create_optimizer as jax_create_optimizer
 from imageclassification_tpu_torch import config, train
 from imageclassification_tpu_torch.checkpoint import io as port_io
-from imageclassification_tpu_torch.checkpoint.to_jax import optimizer_to_jax
+from imageclassification_tpu_torch.checkpoint.to_jax import carry_for, optimizer_to_jax
 from imageclassification_tpu_torch.engine.state import create_train_state
 from imageclassification_tpu_torch.models import create_model
 from imageclassification_tpu_torch.models import vit as port_vit
@@ -202,7 +203,7 @@ def test_checkpoints_resume_across_packages(tmp_path, capsys):
                        _jax_flat(jstate.params), "params")
     _assert_flat_equal(vit_flat_from_state_dict(fresh.ema, 2), _jax_flat(jstate.ema_params),
                        "ema")
-    got_opt = optimizer_to_jax(fresh.optimizer, fresh.model, 2)
+    got_opt = optimizer_to_jax(fresh.optimizer, fresh.model, carry_for(fresh.model))
     want_opt = _jax_flat(jstate.opt_state)
     _assert_flat_equal({k: v for k, v in got_opt.items() if "hyperparams" not in k},
                        {k: v for k, v in want_opt.items() if "hyperparams" not in k},
@@ -290,8 +291,6 @@ def test_cli_trains_on_cpu_then_resumes_and_val_reads_it(toy_dataset, tmp_path, 
 def test_jax_val_reads_a_port_checkpoint(tmp_path, monkeypatch, toy_dataset):
     # the JAX val.py on a port checkpoint: the same probabilities as the
     # port's val.py (fp32, the JAX Pallas flash kernel in interpret mode)
-    import functools
-
     import jax.experimental.pallas as pl
 
     import imageclassification_tpu.data.native_decode as jax_native
@@ -311,7 +310,6 @@ def test_jax_val_reads_a_port_checkpoint(tmp_path, monkeypatch, toy_dataset):
     want = np.asarray(jax_val._predict_fn(jm)(jp, jbs, jnp.asarray(imgs)))
     got = port_val._predict_fn(pm)(torch.from_numpy(imgs)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)  # fp32, summation order
-    del functools
 
 
 def test_chip_smoke_training_rehearsal_on_cpu(tmp_path):
@@ -359,3 +357,165 @@ def test_chip_smoke_backward_check_sees_a_dropped_last_key(n):
     with pytest.raises(AssertionError, match="max"):
         chip_smoke.compare_backward((dq, torch.cat([dk, pad], 1), torch.cat([dv, pad], 1)),
                                     q, k, v, do)
+
+
+# ConvNeXt: convnext_atto (dims 40-320) at 32x32, 3 classes
+CONVNEXT_SPEC = {"name": "convnext_atto", "kwargs": {"num_classes": 3, "drop_path_rate": 0.1}}
+
+
+def _jax_probs(path, imgs, monkeypatch):
+    """The JAX val.py's probabilities on uint8 NHWC `imgs` from checkpoint
+    `path`, fp32 (JPEGs through PIL; no Pallas kernel on this path)."""
+    import imageclassification_tpu.data.native_decode as jax_native
+    import val as jax_val
+
+    monkeypatch.setattr(jax_native, "get_lib", lambda: None)
+    jm, jp, jbs, _ = jax_val.initialize_model(path, False, half_precision=False)
+    return np.asarray(jax_val._predict_fn(jm)(jp, jbs, jnp.asarray(imgs)))
+
+
+def _convnext_jax_state(seed):
+    """A JAX convnext_atto train state (AdamW, EMA) whose parameters and EMA
+    are numpy draws (test_torch_convnext.jax_convnext_flat)."""
+    from test_torch_convnext import _nest as nest_jnp
+    from test_torch_convnext import jax_convnext_flat
+
+    jmodel = jax_create_model("convnext_atto", num_classes=3, drop_path_rate=0.1)
+    tx = jax_create_optimizer("adamw", 0.01, 0.05)
+    jstate = jax_create_state(jmodel, tx, jax.random.key(seed), INPUT_SHAPE, use_ema=True)
+    flat = jax_convnext_flat(jmodel, 32, seed)
+    params = nest_jnp(flat)
+    return jstate.replace(params=params, ema_params=params, opt_state=tx.init(params)), tx, flat
+
+
+def test_convnext_cli_trains_on_cpu_and_jax_val_reads_it(toy_dataset, tmp_path, monkeypatch,
+                                                          capsys):
+    # train.main --model convnext_atto --device cpu (drop_path 0.1, mixup,
+    # EMA): the checkpoint is in the JAX layout, and the JAX val.py reads it
+    # to the port's probabilities (fp32, summation order: 1e-5)
+    out_dir = tmp_path / "train_cls" / "output"
+    args = config.parse_args([
+        "--device", "cpu", "--data_path", toy_dataset, "--model", "convnext_atto",
+        "--input_size", "32", "--batch_size", "4", "--epochs", "1", "--warmup_epochs", "1",
+        "--num_workers", "2", "--model_ema", "true", "--drop_path", "0.1",
+        "--output_dir", str(out_dir), "--log_dir", str(tmp_path / "train_cls" / "log_dir")])
+    state = train.main(args)
+    out = capsys.readouterr().out
+    assert "Mixup is activated!" in out and "Accuracy of the model EMA" in out
+    path = str(out_dir / "checkpoint-0.pth")
+    with open(path, "rb") as f:
+        ck = pickle.load(f)
+    assert ck["model_spec"] == CONVNEXT_SPEC and ck["input_shape"] == INPUT_SHAPE
+    jmodel = jax_create_model("convnext_atto", num_classes=3)
+    shapes = jax.eval_shape(jmodel.init, jax.random.key(0), jnp.zeros(INPUT_SHAPE))
+    want = {"/".join(p.key for p in path): leaf.shape for path, leaf in
+            jax.tree_util.tree_flatten_with_path(shapes["params"])[0]}
+    assert {k: v.shape for k, v in ck["model"].items()} == want
+    assert {k: v.shape for k, v in ck["model_ema"].items()} == want
+    assert int(ck["optimizer"]["count"]) == state.optimizer.num_updates > 0
+
+    imgs = np.random.default_rng(0).integers(0, 256, (4, 32, 32, 3), dtype=np.uint8)
+    pm, _ = port_val.initialize_model(path, False, half_precision=False, device="cpu")
+    got = port_val._predict_fn(pm)(torch.from_numpy(imgs)).numpy()
+    np.testing.assert_allclose(got, _jax_probs(path, imgs, monkeypatch), atol=1e-5, rtol=0)
+
+
+def test_convnext_checkpoints_resume_across_packages(tmp_path, capsys):
+    # JAX -> port: a ConvNeXt checkpoint of the JAX save_model resumes in the
+    # port's auto_load_model with its optimizer, exactly
+    jstate, tx, flat = _convnext_jax_state(seed=2)
+    jsave = jax_config.TrainConfig(output_dir=str(tmp_path / "jax"), model_ema=True)
+    jax_io.save_model(jsave, INPUT_SHAPE, 3, jstate, 3, CONVNEXT_SPEC)
+    jax_io.wait_for_pending_saves()
+    model = create_model("convnext_atto", num_classes=3, drop_path_rate=0.1)
+    state = create_train_state(model, create_optimizer("adamw", model.parameters(), 0.01, 0.05),
+                               use_ema=True)
+    pargs = config.TrainConfig(output_dir=str(tmp_path / "jax"), model_ema=True, device="cpu")
+    state, _ = port_io.auto_load_model(pargs, state)
+    assert "With optim & sched!" in capsys.readouterr().out and pargs.start_epoch == 4
+    carry = carry_for(model)
+    _assert_flat_equal(carry.to_jax(model.state_dict()), flat, "params")
+    _assert_flat_equal(carry.to_jax(state.ema), flat, "ema")
+
+    # port -> JAX: after two updates the port's checkpoint resumes in the JAX
+    # auto_load_model with its parameters, EMA and optimizer state, exactly
+    _updates(state, seed=4, n=2)
+    port_io.save_model(config.TrainConfig(output_dir=str(tmp_path / "port"), device="cpu"),
+                       INPUT_SHAPE, 0, state, 3, CONVNEXT_SPEC)
+    with open(tmp_path / "port" / "checkpoint-0.pth", "rb") as f:
+        ck = pickle.load(f)
+    fresh, _, _ = _convnext_jax_state(seed=5)
+    jargs = jax_config.TrainConfig(output_dir=str(tmp_path / "port"), model_ema=True)
+    fresh, _ = jax_io.auto_load_model(jargs, fresh)
+    assert "With optim & sched!" in capsys.readouterr().out and jargs.start_epoch == 1
+    _assert_flat_equal(_jax_flat(fresh.params), ck["model"], "params")
+    _assert_flat_equal(_jax_flat(fresh.ema_params), ck["model_ema"], "ema")
+    _assert_flat_equal(_jax_flat(fresh.opt_state), ck["optimizer"], "optimizer")
+    assert int(fresh.step) == state.step == 2
+
+
+def test_port_val_serves_a_jax_convnext_checkpoint(toy_dataset, tmp_path, monkeypatch, capsys):
+    # a ConvNeXt checkpoint written by the JAX save_model, served by the
+    # port's val.py: probabilities to 1e-5 (fp32) against the JAX val.py, and
+    # the same per-class counts
+    import val as jax_val
+
+    jstate, _, _ = _convnext_jax_state(seed=6)
+    jsave = jax_config.TrainConfig(output_dir=str(tmp_path), model_ema=False)
+    jax_io.save_model(jsave, INPUT_SHAPE, 0, jstate, 3, CONVNEXT_SPEC)
+    jax_io.wait_for_pending_saves()
+    path = str(tmp_path / "checkpoint-0.pth")
+    imgs = np.random.default_rng(1).integers(0, 256, (6, 32, 32, 3), dtype=np.uint8)
+    want = _jax_probs(path, imgs, monkeypatch)
+    pm, _ = port_val.initialize_model(path, False, half_precision=False, device="cpu")
+    got = port_val._predict_fn(pm)(torch.from_numpy(imgs)).numpy()
+    assert len(set(want.argmax(1).tolist())) > 1  # predictions are not all one class
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+    for fn in (jax_val, port_val):
+        monkeypatch.setattr(fn, "initialize_model",
+                            functools.partial(fn.initialize_model, half_precision=False))
+    counts = [jax_val.val_precision(toy_dataset, path, 32, model_ema=False, batch_size=16),
+              port_val.val_precision(toy_dataset, path, 32, model_ema=False, batch_size=16,
+                                     device="cpu")]
+    for g, w in zip(counts[1], counts[0]):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_chip_smoke_convnext_training_and_replay_rehearsal_on_cpu(tmp_path):
+    # chip_smoke.py's phases 6 and 6b at a tiny size on the CPU (bf16 model,
+    # the ops' plain versions, so no kernel launches): 17 LayerNorms and 12
+    # depthwise convs of convnext_atto captured and held against the model's
+    # own results
+    model = dict(name="convnext_atto", depths=(2, 2, 6, 2), dims=(40, 80, 160, 320))
+    run = chip_smoke.run_convnext_training(str(tmp_path), "cpu", model, img=32, num_classes=3,
+                                           per_class=10, batch=4, epochs=2)
+    assert len(run["records"]) == 2 * run["steps_per_epoch"] == 12
+    rep = chip_smoke.replay_convnext_ops(run, "cpu")
+    assert (rep["n_ln"], rep["n_dw"]) == (1 + 3 + 12 + 1, 12)
+    assert rep["launches"] == {"ln_fwd": 0, "ln_bwd": 0, "dw_fwd": 0, "dw_dx": 0, "dw_dw": 0}
+    assert rep["errs"]["layer_norm_fwd vs model"] > 0 or rep["errs"]["dwconv7x7_fwd vs model"] > 0
+
+
+def test_chip_smoke_convnext_layout_is_the_jax_layout():
+    model = jax_create_model("convnext_tiny", num_classes=5)
+    shapes = jax.eval_shape(model.init, jax.random.key(0), jnp.zeros(INPUT_SHAPE))
+    want = {"/".join(p.key for p in path): tuple(leaf.shape) for path, leaf in
+            jax.tree_util.tree_flatten_with_path(shapes["params"])[0]}
+    assert chip_smoke.jax_convnext_shapes((3, 3, 9, 3), (96, 192, 384, 768), 5) == want
+
+
+def test_layernorm_and_dwconv_bound_numbers():
+    # ConvNeXt-T stage 0 at batch 64, bf16: LayerNorm two passes (forward)
+    # and three (backward) of 200,704 x 96 over 3.35 TB/s; the depthwise conv
+    # 2 * 49 flops per element over 66.9 TFLOP/s of fp32
+    ms, by = chip_smoke.layernorm_bound(200704, 96, "fwd")
+    assert by == "bytes" and ms == pytest.approx(
+        (2 * 200704 * 96 * 2 + 2 * 96 * 4) / 3.35e12 * 1e3, rel=1e-12)
+    assert ms == pytest.approx(0.0230, abs=1e-4)
+    assert chip_smoke.layernorm_bound(200704, 96, "bwd")[0] == pytest.approx(0.0345, abs=1e-4)
+    ms, by = chip_smoke.dwconv_bound(64, 56, 56, 96)
+    assert by == "operations" and ms == pytest.approx(
+        2 * 49 * 64 * 56 * 56 * 96 / 66.9e12 * 1e3, rel=1e-12)
+    assert ms == pytest.approx(0.0282, abs=1e-4)
+    assert chip_smoke.dwconv_bound(64, 7, 7, 768)[0] == pytest.approx(0.0035, abs=1e-4)

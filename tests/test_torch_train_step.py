@@ -2,7 +2,9 @@
 JAX package's `build_train_step` on the same weights, batch and random draws:
 a small ViT (dim 128, 2 heads of 64, depth 2, 32x32 input) with
 flash_attn=True, the JAX side running its Pallas flash kernels (forward and
-backward) in interpret mode, the port its plain versions. fp32 on both sides.
+backward) in interpret mode, the port its plain versions; and a small
+ConvNeXt (depths (1, 1, 1, 1), dims (16, 32, 64, 128), drop_path 0). fp32
+on both sides.
 
 Gradients are compared through post-update parameters under SGD, and under
 AdamW with a large eps (with a small eps, m/sqrt(v) turns a near-zero
@@ -22,18 +24,22 @@ from imageclassification_tpu.data.mixup import build_mixup as jax_build_mixup
 from imageclassification_tpu.engine.state import create_train_state as jax_create_state
 from imageclassification_tpu.engine.step import _global_norm as jax_global_norm
 from imageclassification_tpu.engine.step import build_train_step as jax_build_train_step
+from imageclassification_tpu.models.convnext import ConvNeXt as JaxConvNeXt
 from imageclassification_tpu.models.vit import ViT as JaxViT
 from imageclassification_tpu.optim.factory import create_optimizer as jax_create_optimizer
 from imageclassification_tpu_torch.checkpoint.from_jax import vit_state_dict_from_jax
-from imageclassification_tpu_torch.checkpoint.to_jax import vit_flat_from_state_dict
+from imageclassification_tpu_torch.checkpoint.to_jax import carry_for
 from imageclassification_tpu_torch.config import TrainConfig
 from imageclassification_tpu_torch.data.mixup import build_mixup
 from imageclassification_tpu_torch.engine.state import create_train_state
 from imageclassification_tpu_torch.engine.step import build_train_step, global_norm
+from imageclassification_tpu_torch.models import convnext as port_convnext
 from imageclassification_tpu_torch.models import vit as port_vit
 from imageclassification_tpu_torch.optim.factory import create_optimizer
+from test_torch_convnext import jax_convnext_flat
 
 SMALL = dict(patch_size=16, dim=128, depth=2, num_heads=2, num_classes=5)
+SMALL_CONVNEXT = dict(depths=(1, 1, 1, 1), dims=(16, 32, 64, 128), num_classes=5)
 B = 8
 
 
@@ -85,12 +91,30 @@ def _configs(**kw):
     return JaxConfig(**common), TrainConfig(**{**common, "device": "cpu"})
 
 
+def _family(name):
+    """(JAX model, its flat parameters, the port model carrying them) of a
+    small ViT (flash attention) or ConvNeXt (drop_path 0)."""
+    if name == "vit":
+        jmodel = JaxViT(**SMALL, flash_attn=True, dtype=jnp.float32)
+        pmodel = port_vit.ViT(**SMALL, img_size=32, flash_attn=True)
+        flat = _flat()
+    else:
+        jmodel = JaxConvNeXt(**SMALL_CONVNEXT)
+        pmodel = port_convnext.ConvNeXt(**SMALL_CONVNEXT)
+        flat = jax_convnext_flat(jmodel, 32, seed=0)
+    pmodel.load_state_dict(carry_for(pmodel).to_port(flat)[0])
+    return jmodel, flat, pmodel
+
+
+CONVNEXT = dict(model="convnext_atto", flash_attn=False, drop_path=0.0)
 CASES = {
-    # name: (config overrides, steps)
+    # name: (config overrides, steps); ViT unless the model is a ConvNeXt
     "mixup_off_sgd": (dict(mixup=0.0, opt="sgd"), 2),
     "mixup_on_sgd": (dict(opt="sgd", model_ema_warmup=True), 2),
     "update_freq_2_sgd": (dict(opt="sgd", update_freq=2, clip_grad=0.5), 4),
     "mixup_on_adamw_large_eps": (dict(opt="adamw", opt_eps=1.0, lr=0.01), 2),
+    "convnext_mixup_off_sgd": (dict(CONVNEXT, mixup=0.0, opt="sgd"), 2),
+    "convnext_mixup_on_adamw_large_eps": (dict(CONVNEXT, opt="adamw", opt_eps=1.0, lr=0.01), 2),
 }
 
 
@@ -98,12 +122,11 @@ CASES = {
 def test_train_step_matches_jax(interpret_mode, case):
     kw, steps = CASES[case]
     jargs, pargs = _configs(**kw)
-    flat = _flat()
+    jmodel, flat, pmodel = _family("convnext" if case.startswith("convnext") else "vit")
     images, labels = _batch()
     lr_sched = np.linspace(jargs.lr, jargs.lr / 2, steps)
     wd_sched = np.linspace(jargs.weight_decay, jargs.weight_decay / 2, steps)
 
-    jmodel = JaxViT(**SMALL, flash_attn=True, dtype=jnp.float32)
     tx = jax_create_optimizer(jargs.opt, jargs.lr, jargs.weight_decay, opt_eps=jargs.opt_eps,
                               clip_grad=jargs.clip_grad)
     jstate = jax_create_state(jmodel, tx, jax.random.key(0), (1, 32, 32, 3), use_ema=True,
@@ -114,8 +137,6 @@ def test_train_step_matches_jax(interpret_mode, case):
     jstep = jax.jit(jax_build_train_step(jmodel, tx, jargs, 5, jmix, lr_sched, wd_sched,
                                          ema_decay=jargs.model_ema_decay))
 
-    pmodel = port_vit.ViT(**SMALL, img_size=32, flash_attn=True)
-    pmodel.load_state_dict(vit_state_dict_from_jax(flat, 2))
     popt = create_optimizer(pargs.opt, pmodel.parameters(), lr=pargs.lr,
                             weight_decay=pargs.weight_decay, opt_eps=pargs.opt_eps,
                             clip_grad=pargs.clip_grad)
@@ -149,8 +170,8 @@ def test_train_step_matches_jax(interpret_mode, case):
              jax.tree_util.tree_flatten_with_path(jstate.params)[0]}
     jema = {"/".join(p.key for p in path): np.asarray(v) for path, v in
             jax.tree_util.tree_flatten_with_path(jstate.ema_params)[0]}
-    pflat = vit_flat_from_state_dict(pmodel.state_dict(), 2)
-    pema = vit_flat_from_state_dict(pstate.ema, 2)
+    pflat = carry_for(pmodel).to_jax(pmodel.state_dict())
+    pema = carry_for(pmodel).to_jax(pstate.ema)
     scale = max(np.abs(jflat[k] - flat[k]).max() for k in flat)
     assert scale > 1e-4  # the steps moved the weights
     for k in flat:
