@@ -19,7 +19,9 @@ exit before the last line:
    3c the LayerNorm kernels (forward, backward) at ConvNeXt-T's four stage
    shapes, the head's and a ragged ViT row count, and on constant rows; 3d
    the depthwise-conv kernels (forward, dx, dw) at ConvNeXt-T's four stage
-   shapes;
+   shapes; 3e the fused 1x1 conv + BN statistics kernel at ResNet-50's 1x1
+   shapes (both variants, and the ragged M = 3136 that the Pallas kernel
+   refuses), with cuBLAS `x @ w` and the unfused chain as yardsticks;
 4. the serving path: a seeded JAX-format ViT-B/16 checkpoint trained with
    --flash_attn (random weights) and a seeded 5-class image folder go through
    `val_precision` and `val_move` on cuda at batch 64, with every kernel's
@@ -47,9 +49,24 @@ exit before the last line:
    depthwise conv (18) captured, and each captured tensor run through the
    kernels (the launches of the new kernels' rows), held against the
    model's own outputs and gradients and against the plain versions;
-7. one JSON line with every kernel's numbers (at ConvNeXt-T's stage-0 shape
-   for the LayerNorm and depthwise-conv kernels; the other shapes are in the
-   lines of phases 3c and 3d), then the result line
+7. the ResNet-50 training path: `train.main --model resnet50` at 224x224,
+   batch 64, the default training flags, 2 epochs of 10 steps on the folder
+   of phase 5; losses finite, no kernel launched (the model runs F.conv2d
+   and its BatchNorm, as the JAX model runs lax.conv and nn.BatchNorm),
+   checkpoint-1.pth in the JAX layout with batch_stats, reloaded exactly
+   (weights and statistics) and served by val_precision; ms per step, img/s
+   and a trace of train steps;
+   7b. one train step on the trained weights with every conv captured, and
+   its 36 1x1 convs run through the fused kernel (20 plain: conv1 and the
+   downsamples; 16 with the prologue: conv3 on relu(bn2(conv2 out))), held
+   against the model's own conv outputs and BatchNorm batch statistics and
+   against the plain version;
+   7c. the port bench (`imageclassification_tpu_torch.bench`) at batch 128:
+   its JSON line, and a trace of its step;
+8. one JSON line with every kernel's numbers (at ConvNeXt-T's stage-0 shape
+   for the LayerNorm and depthwise-conv kernels and ResNet-50's stage-1
+   conv3 shape for the fused 1x1 conv; the other shapes are in the lines of
+   phases 3c, 3d and 3e), then the result line
    {"ok": true, "device": {...}}.
 
 It exits non-zero without the result line when no CUDA device is visible.
@@ -138,6 +155,17 @@ TRAIN = dict(img=224, batch=64, epochs=2, num_classes=5, per_class=150)
 VIT_B16 = dict(name="vit_base_patch16", dim=768, depth=12, heads=12, patch=16)
 # timm convnext_tiny: dims 96/192/384/768, depths 3/3/9/3
 CONVNEXT_T = dict(name="convnext_tiny", depths=(3, 3, 9, 3), dims=(96, 192, 384, 768))
+# torchvision resnet50: Bottleneck blocks 3/4/6/3, width 64
+RESNET50 = dict(name="resnet50", stage_sizes=(3, 4, 6, 3), block="Bottleneck", width=64)
+
+# ResNet-50 at batch 64, 224x224: (M, K, N, prologue) of the fused 1x1 conv +
+# BN statistics kernel at each stage, conv3 (its input relu(bn2(conv2 out)):
+# the prologue variant) and conv1 (plain), and the last stage's strided
+# downsample; M = 3136 is not a multiple of 128, which the Pallas kernel
+# refuses
+K2_SHAPES = [(200704, 64, 256, True), (200704, 256, 64, False), (50176, 128, 512, True),
+             (50176, 512, 128, False), (12544, 256, 1024, True), (12544, 1024, 256, False),
+             (3136, 512, 2048, True), (3136, 2048, 512, False), (3136, 1024, 2048, False)]
 
 
 def log(msg: str) -> None:
@@ -737,13 +765,20 @@ def _hold(name: str, got, want, rtol: float) -> tuple:
     return err, tol
 
 
-def _device_ms(fn, *names: str) -> float:
-    """Device ms per call of fn() summed over the kernels whose names hold any
-    of `names`, from the second of two traces (the first trace of a kernel
-    new to the profiler missed some of its launches on the H100)."""
-    trace(fn)
-    _, _, kernels = trace(fn)
-    return sum(ms for k, (ms, _) in kernels.items() if any(n in k for n in names))
+def _device_ms(fn, launches: dict) -> float:
+    """Device ms per call of fn(): each kernel whose name holds a key of
+    `launches` at its mean time per launch in a trace, times the launches it
+    makes per call. On the H100 a trace has kept only some, or none, of a
+    kernel's launches (PERF.md §6, PR 4), so a mean per launch is taken, and
+    a kernel missing from a trace is traced again, up to three traces."""
+    for _ in range(3):
+        _, _, kernels = trace(fn)
+        seen = {name: [(ms, n) for k, (ms, n) in kernels.items() if name in k]
+                for name in launches}
+        if all(sum(n for _, n in got) for got in seen.values()):
+            return sum(sum(ms for ms, _ in got) / sum(n for _, n in got) * launches[name]
+                       for name, got in seen.items())
+    raise AssertionError(f"three traces held no launch of one of {list(launches)}")
 
 
 def check_layernorm(rows: int, C: int, device, constant: bool = False, timed: bool = True):
@@ -792,9 +827,9 @@ def check_layernorm(rows: int, C: int, device, constant: bool = False, timed: bo
             F.layer_norm(xl, (C,), gl, bl, 1e-6), (xl, gl, bl), dy), iters)
         row["library_ms_fwd"], row["library_ms_bwd"] = lib_fwd, lib_all - lib_fwd
         row["device_ms_fwd"] = _device_ms(lambda: ln.fused_layer_norm(x, gamma, beta),
-                                          "layer_norm_fwd_kernel")
+                                          {"layer_norm_fwd_kernel": 1})
         row["device_ms_bwd"] = _device_ms(lambda: ln.layer_norm_bwd(x, gamma, dy),
-                                          "layer_norm_bwd_kernel", "sum_partials")
+                                          {"layer_norm_bwd_kernel": 1, "sum_partials": 2})
         row["bound_fwd"] = layernorm_bound(rows, C, "fwd")
         row["bound_bwd"] = layernorm_bound(rows, C, "bwd")
         log(f"layer_norm {rows}x{C} bf16: fwd kernel {row['ms_fwd']:.4f} ms (device "
@@ -855,9 +890,9 @@ def check_dwconv(shape, device, timed: bool = True):
             "dw": time_ms(lambda: conv_bwd(dyc, xc, wc, None, [1, 1], [3, 3], [1, 1], False,
                                            [0, 0], C, [False, True, False]), iters)}
         row["device_ms"] = {
-            "fwd": _device_ms(lambda: dw.depthwise_conv7x7(x, w), "dwconv7x7_fwd_kernel"),
-            "dw": _device_ms(lambda: dw._launch_dw(x, dy, w.dtype), "dwconv7x7_dw_kernel",
-                             "sum_partials")}
+            "fwd": _device_ms(lambda: dw.depthwise_conv7x7(x, w), {"dwconv7x7_fwd_kernel": 1}),
+            "dw": _device_ms(lambda: dw._launch_dw(x, dy, w.dtype),
+                             {"dwconv7x7_dw_kernel": 1, "sum_partials": 1})}
         row["bound"] = dwconv_bound(B, H, W, C)
         log(f"dwconv7x7 {shape} bf16: kernel ms fwd {row['ms']['fwd']:.4f} (device "
             f"{row['device_ms']['fwd']:.4f}), dx {row['ms']['dx']:.4f}, dw {row['ms']['dw']:.4f} "
@@ -941,7 +976,7 @@ def run_convnext_training(work: str, device: str, model: dict, img: int, num_cla
         raise AssertionError(f"val_precision counts do not cover {n_images} images")
     return {"state": state, "args": args, "records": records, "wall_s": wall_s,
             "checkpoint": path, "images": images, "steps_per_epoch": len(records) // epochs,
-            "val_top1": float(tp.sum() / n_images)}
+            "val_top1": float(tp.sum() / n_images), "num_classes": num_classes}
 
 
 def _fixed_batch(run: dict, device: str):
@@ -954,15 +989,15 @@ def _fixed_batch(run: dict, device: str):
                                  device=device, seed=args.seed, num_workers=8)))
 
 
-def convnext_step_timing(run: dict, device: str):
+def step_timing(run: dict, device: str):
     """ms per train step (CUDA events) on one fixed batch and a torch.profiler
-    trace of train steps, on the trained ConvNeXt state of `run` (the steps
-    go on updating it)."""
+    trace of train steps, on the trained state of `run` (the steps go on
+    updating it)."""
     from imageclassification_tpu_torch.data.mixup import build_mixup
     from imageclassification_tpu_torch.engine.step import build_train_step
 
     args, state = run["args"], run["state"]
-    num_classes = state.model.head.fc.out_features
+    num_classes = run["num_classes"]
     batch = _fixed_batch(run, device)
     step = build_train_step(state.model, args, num_classes, build_mixup(args, num_classes),
                             [args.lr], [args.weight_decay], seed=args.seed)
@@ -1095,6 +1130,325 @@ def _replay(records, grad_of, hold) -> None:
         hold("dwconv7x7_dw vs plain", dwg, dw.dwconv7x7_dw_ref(x, dy, torch.float32), OP_RTOL)
 
 
+def conv1x1_bound(M: int, K: int, N: int, bn_in: bool, itemsize: int = 2):
+    """(bound_ms, bound_by) of the fused 1x1 conv + BN statistics: x [M, K]
+    and w [K, N] read, y [M, N] written in bf16, the fp32 statistics [2, N]
+    written (and the fp32 scale and shift [K] read with the prologue), against
+    2MKN flops on the bf16 tensor cores."""
+    t_bytes = ((M * K + K * N + M * N) * itemsize + 2 * N * 4
+               + (2 * K * 4 if bn_in else 0)) / HBM_BYTES_PER_S
+    t_flops = 2 * M * K * N / BF16_FLOPS_PER_S
+    return max(t_bytes, t_flops) * 1e3, ("bytes" if t_bytes >= t_flops else "operations")
+
+
+def hold_stats(name: str, stats, ref_y, ref_stats, rtol: float) -> tuple:
+    """(max_abs_err of the column sums, of the sums of squares) of `stats`
+    against `ref_stats`, each column's sum within rtol of its sum of |y|
+    (ref_y's) and its sum of squares within rtol of itself; raises otherwise."""
+    import torch
+
+    tol = (rtol * ref_y.float().abs().sum(0), rtol * ref_stats[1])
+    errs = []
+    for r, what in ((0, "sum"), (1, "sum of squares")):
+        d = (stats[r] - ref_stats[r]).abs()
+        if not bool(torch.isfinite(d).all()) or bool((d > tol[r]).any()):
+            worst = int((d - tol[r]).argmax())
+            raise AssertionError(f"{name} column {what}: |d| {d[worst].item()} > "
+                                 f"{tol[r][worst].item()} at column {worst}")
+        errs.append(d.max().item())
+    return tuple(errs)
+
+
+def _k2_inputs(M: int, K: int, N: int, bn_in: bool, device):
+    """Seeded bf16 x [M, K] (post-ReLU values without the prologue, a conv
+    output with it), w [K, N] of std sqrt(2 / K), and with the prologue an
+    fp32 scale and shift [K]."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(M + K + N)
+    x = torch.randn((M, K), generator=g, device=device)
+    x = (x if bn_in else torch.relu(x)).bfloat16()
+    w = (torch.randn((K, N), generator=g, device=device) * (2.0 / K) ** 0.5).bfloat16()
+    if not bn_in:
+        return x, w, None, None
+    scale = 0.5 + torch.rand(K, generator=g, device=device)
+    shift = 0.3 * torch.randn(K, generator=g, device=device)
+    return x, w, scale, shift
+
+
+def check_conv1x1(shape, device, timed: bool = True):
+    """The fused 1x1 conv + BN statistics kernel against its plain version
+    (fp32 product of the same bf16 inputs) at (M, K, N, prologue): y within
+    OP_RTOL of max|ref|, the statistics by `hold_stats`. When `timed`: kernel,
+    plain, cuBLAS `x @ w` alone (the library yardstick) and the unfused chain
+    (prologue, `x @ w`, the two column reductions in torch) ms by CUDA events,
+    the kernel's device ms per call from a trace, and the bound."""
+    import torch
+
+    from imageclassification_tpu_torch.ops import conv1x1_bn as k2
+
+    M, K, N, bn_in = shape
+    x, w, scale, shift = _k2_inputs(M, K, N, bn_in, device)
+    y, stats = k2.conv1x1_bn_stats(x, w, scale, shift)
+    torch.cuda.synchronize()
+    ref_y, ref_stats = k2.conv1x1_bn_ref(x, w, scale, shift)
+    y_err, _ = _hold(f"conv1x1_bn y {shape}", y, ref_y.float(), OP_RTOL)
+    xf = x.float() if not bn_in else torch.relu(x.float() * scale + shift).bfloat16().float()
+    ref_full = xf @ w.float()  # the fp32 product, before y is rounded
+    s_err, q_err = hold_stats(f"conv1x1_bn stats {shape}", stats, ref_full, ref_stats, SUM_RTOL)
+    row = dict(shape=[M, K, N], bn_in=bn_in, errs={"y": y_err, "sum": s_err, "sumsq": q_err})
+    if timed:
+        iters = max(10, min(200, int(4e9 // (M * (K + N)))))
+
+        def chain():
+            xa = torch.relu(x.float() * scale + shift).bfloat16() if bn_in else x
+            ya = (xa @ w).float()
+            return ya.sum(0), (ya * ya).sum(0)
+
+        row["ms"] = time_ms(lambda: k2.conv1x1_bn_stats(x, w, scale, shift), iters)
+        row["plain_ms"] = time_ms(lambda: k2.conv1x1_bn_ref(x, w, scale, shift),
+                                  max(3, iters // 10))
+        row["library_ms"] = time_ms(lambda: x @ w, iters)
+        row["chain_ms"] = time_ms(chain, iters)
+        row["device_ms"] = _device_ms(lambda: k2.conv1x1_bn_stats(x, w, scale, shift),
+                                      {"conv1x1_bn_kernel": 1, "sum_partials": 2})
+        row["bound"] = conv1x1_bound(M, K, N, bn_in)
+        log(f"conv1x1_bn {'bn_in ' if bn_in else ''}M,K,N={M},{K},{N} bf16: kernel "
+            f"{row['ms']:.4f} ms (device {row['device_ms']:.4f}), plain {row['plain_ms']:.4f}, "
+            f"cuBLAS x@w {row['library_ms']:.4f}, unfused chain {row['chain_ms']:.4f}, bound "
+            f"{row['bound'][0]:.4f} ms ({row['bound'][1]}), bound/device "
+            f"{row['bound'][0] / row['device_ms']:.3f}")
+    log(f"conv1x1_bn {shape}: max|d| vs plain y {y_err:.3e} (tol 2^-7 of max|ref|), column sum "
+        f"{s_err:.3e}, sum of squares {q_err:.3e} (tol {SUM_RTOL} of each column's sum of |y|, "
+        f"sum of squares)")
+    return row
+
+
+def jax_resnet_shapes(stage_sizes, block: str, width: int, num_classes: int):
+    """The JAX ResNet's flat parameter and batch-statistics names and shapes
+    (`imageclassification_tpu/models/resnet.py`, plain Bottleneck or
+    BasicBlock), written out here: the layout a checkpoint of the port must
+    have. Returns (params, batch_stats)."""
+    params = {"conv_stem/kernel": (7, 7, 3, width), "bn_stem/scale": (width,),
+              "bn_stem/bias": (width,)}
+    stats = {"bn_stem/mean": (width,), "bn_stem/var": (width,)}
+
+    def bn(name, c):
+        params.update({f"{name}/scale": (c,), f"{name}/bias": (c,)})
+        stats.update({f"{name}/mean": (c,), f"{name}/var": (c,)})
+
+    cin, k = width, 0
+    for i, n_blocks in enumerate(stage_sizes):
+        f = width * 2 ** i
+        for j in range(n_blocks):
+            b = f"{block}_{k}"
+            if block == "Bottleneck":
+                convs = [(1, cin, f), (3, f, f), (1, f, 4 * f)]
+                out = 4 * f
+            else:
+                convs = [(3, cin, f), (3, f, f)]
+                out = f
+            if cin != out or (i > 0 and j == 0):
+                convs.append((1, cin, out))
+            for c, (ks, a, o) in enumerate(convs):
+                params[f"{b}/Conv_{c}/kernel"] = (ks, ks, a, o)
+                bn(f"{b}/BatchNorm_{c}", o)
+            cin, k = out, k + 1
+    params.update({"head/kernel": (cin, num_classes), "head/bias": (num_classes,)})
+    return params, stats
+
+
+def _k2_launch_counts():
+    from imageclassification_tpu_torch.ops.conv1x1_bn import conv1x1_bn_stats as k
+
+    return {"k2": k.launches, "k2_bn_in": k.launches_bn_in}
+
+
+def _all_launch_counts():
+    return {**_launch_counts(), **_op_launch_counts(), **_k2_launch_counts()}
+
+
+def _reset_all_launches() -> None:
+    from imageclassification_tpu_torch.ops import conv1x1_bn, flash_attention
+
+    flash_attention.reset_launches()
+    _reset_op_launches()
+    conv1x1_bn.reset_launches()
+
+
+def run_resnet_training(work: str, device: str, model: dict, img: int, num_classes: int,
+                        per_class: int, batch: int, epochs: int, seed: int = 0,
+                        images: str = None):
+    """The ResNet training path through the port's train.main on `device`
+    with the default training flags (AdamW, mixup, exact-mode accuracy), on
+    a seeded image folder. The model runs F.conv2d and its BatchNorm, no
+    kernel of the port: every launch count must stay 0. Checks the
+    checkpoint's JAX layout (parameters, batch statistics, optimizer), its
+    exact reload (weights and statistics) by the port's val.initialize_model,
+    and val_precision on it."""
+    from imageclassification_tpu_torch import val
+
+    images = images or _train_images(work, num_classes, per_class, seed)
+    _reset_all_launches()
+    state, args, records, wall_s = _train_main(
+        work, images, ["--model", model["name"], "--input_size", str(img), "--batch_size",
+                       str(batch), "--epochs", str(epochs), "--warmup_epochs", "1",
+                       "--device", device], _all_launch_counts)
+    if any(_all_launch_counts().values()):
+        raise AssertionError(f"the ResNet training path launched a kernel: {_all_launch_counts()}")
+    path = os.path.join(args.output_dir, f"checkpoint-{epochs - 1}.pth")
+    with open(path, "rb") as f:
+        ck = pickle.load(f)
+    want, want_stats = jax_resnet_shapes(model["stage_sizes"], model["block"], model["width"],
+                                         num_classes)
+    if {k: v.shape for k, v in ck["model"].items()} != want:
+        raise AssertionError(f"{path}: parameters not in the JAX layout")
+    if {k: v.shape for k, v in ck["batch_stats"].items()} != want_stats:
+        raise AssertionError(f"{path}: batch statistics not in the JAX layout")
+    mu = {k[len("inner_state/0/mu/"):]: v.shape for k, v in ck["optimizer"].items()
+          if k.startswith("inner_state/0/mu/")}
+    if mu != want or int(ck["optimizer"]["count"]) != len(records):
+        raise AssertionError(f"{path}: optimizer state not in the JAX adamw layout")
+    loaded, _ = val.initialize_model(path, model_ema=False, device=device)
+    carried = max((loaded.state_dict()[k] - v).abs().max().item()
+                  for k, v in state.model.state_dict().items())
+    if carried != 0.0:
+        raise AssertionError(f"{path}: reloaded weights or statistics differ from the run's by "
+                             f"{carried}")
+    moved = max((v - (1.0 if k.endswith("running_var") else 0.0)).abs().max().item()
+                for k, v in state.model.named_buffers())
+    if not moved > 0:
+        raise AssertionError("the running statistics never moved from their initial values")
+    n_images = num_classes * per_class
+    tp, fp, fn = val.val_precision(images, path, img, model_ema=True, batch_size=batch,
+                                   device=device)
+    if not (tp.sum() + fp.sum() == n_images and tp.sum() + fn.sum() == n_images):
+        raise AssertionError(f"val_precision counts do not cover {n_images} images")
+    return {"state": state, "args": args, "records": records, "wall_s": wall_s,
+            "checkpoint": path, "images": images, "steps_per_epoch": len(records) // epochs,
+            "val_top1": float(tp.sum() / n_images), "num_classes": num_classes}
+
+
+def _capture_resnet_convs(model):
+    """Wrap the ResNet module's conv helper so that a forward records, for
+    every conv module, its input (in the compute dtype) and its output.
+    Returns (records keyed by the conv module, undo)."""
+    from imageclassification_tpu_torch.models import resnet as port_resnet
+
+    records = {}
+    orig = port_resnet.conv2d_nhwc
+
+    def conv2d_nhwc(x, conv, dtype):
+        y = orig(x, conv, dtype)
+        records[conv] = {"x": x.to(dtype).detach(), "y": y.detach()}
+        return y
+
+    port_resnet.conv2d_nhwc = conv2d_nhwc
+
+    def undo():
+        port_resnet.conv2d_nhwc = orig
+
+    return records, undo
+
+
+def resnet_conv_jobs(model, records):
+    """The 1x1 convs of a train-mode forward of ResNet `model` as kernel
+    jobs: (label, x [M, K], w [K, N] as the model uses it, (scale, shift) of
+    the prologue or None, the model's conv output [M, N], the BatchNorm that
+    follows it). conv1 and the downsample (on the strided input) are plain;
+    conv3 takes conv2's output with bn2's batch statistics folded into the
+    prologue, relu(bn2(.)) being its input."""
+    import torch
+
+    jobs = []
+
+    def job(label, x, conv, prologue, bn, y):
+        w = conv.weight.to(x.dtype)[:, :, 0, 0].t()
+        jobs.append((label, x.reshape(-1, x.shape[-1]), w, prologue, y.reshape(-1, y.shape[-1]),
+                     bn))
+
+    for stage in model.stages():
+        for blk in stage:
+            if hasattr(blk, "conv3"):
+                job("conv1", records[blk.conv1]["x"], blk.conv1, None, blk.bn1,
+                    records[blk.conv1]["y"])
+                mean, var = blk.bn2.batch_stats
+                scale = blk.bn2.weight * torch.rsqrt(var + blk.bn2.eps)
+                job("conv3", records[blk.conv2]["y"], blk.conv3,
+                    (scale, blk.bn2.bias - mean * scale), blk.bn3, records[blk.conv3]["y"])
+            if blk.downsample is not None:
+                ds = blk.downsample[0]
+                s = ds.stride[0]
+                job("downsample", records[ds]["x"][:, ::s, ::s], ds, None, blk.downsample[1],
+                    records[ds]["y"])
+    return jobs
+
+
+def replay_resnet_convs(model, args, batch, num_classes: int):
+    """One train step's forward and backward on ResNet `model` (the step's
+    own `loss_and_grads`, draws included) with every conv's tensors captured;
+    then each 1x1 conv through the fused kernel (`resnet_conv_jobs`), with
+    the launch counts set to 0 just before. The results are held against the
+    model's own conv outputs (MODEL_RTOL of max|ref|) and the batch mean and
+    variance of the BatchNorm that follows (MODEL_RTOL of the largest column
+    mean of |y|, of the largest variance), and against the plain version
+    (OP_RTOL; statistics by `hold_stats`). Returns the counts, the largest
+    errors and the shapes replayed."""
+    import torch
+
+    from imageclassification_tpu_torch.data.mixup import build_mixup
+    from imageclassification_tpu_torch.engine.step import build_train_step
+    from imageclassification_tpu_torch.ops import conv1x1_bn as k2
+
+    step = build_train_step(model, args, num_classes, build_mixup(args, num_classes),
+                            [args.lr], [args.weight_decay], seed=args.seed)
+    model.train()
+    records, undo = _capture_resnet_convs(model)
+    try:
+        step.loss_and_grads(model, batch, step.sample_draws(*batch["image"].shape[:3]))
+    finally:
+        undo()
+    errs = {}
+
+    def hold(key, err):
+        errs[key] = max(errs.get(key, 0.0), err)
+
+    k2.reset_launches()
+    with torch.no_grad():
+        jobs = resnet_conv_jobs(model, records)
+        for label, x, w, pro, y_model, bn in jobs:
+            scale, shift = pro or (None, None)
+            y, stats = k2.conv1x1_bn_stats(x, w, scale, shift)
+            M = x.shape[0]
+            mean = stats[0] / M
+            var = stats[1] / M - mean * mean
+            hold("y vs model", _hold(f"{label} y vs model", y, y_model, MODEL_RTOL)[0])
+            bn_mean, bn_var = bn.batch_stats
+            tol_mean = MODEL_RTOL * y_model.float().abs().mean(0).max().item()
+            d_mean = (mean - bn_mean).abs().max().item()
+            if not d_mean <= tol_mean:
+                raise AssertionError(f"{label} batch mean vs model: {d_mean} > {tol_mean}")
+            hold("batch mean vs model", d_mean)
+            hold("batch var vs model", _hold(f"{label} batch var vs model", var, bn_var,
+                                             MODEL_RTOL)[0])
+            ref_y, ref_stats = k2.conv1x1_bn_ref(x, w, scale, shift)
+            hold("y vs plain", _hold(f"{label} y vs plain", y, ref_y, OP_RTOL)[0])
+            xf = x.float()
+            if pro is not None:
+                xf = torch.relu(xf * scale + shift).to(x.dtype).float()
+            s_err, q_err = hold_stats(f"{label} stats vs plain", stats, xf @ w.float(), ref_stats,
+                                      SUM_RTOL)
+            hold("sum vs plain", s_err)
+            hold("sum of squares vs plain", q_err)
+    if batch["image"].is_cuda:
+        torch.cuda.synchronize()
+    return {"launches": _k2_launch_counts(), "errs": errs,
+            "n": {lab: sum(1 for j in jobs if j[0] == lab) for lab in ("conv1", "conv3",
+                                                                      "downsample")},
+            "shapes": sorted({(j[1].shape[0], j[1].shape[1], j[2].shape[1], j[3] is not None)
+                              for j in jobs})}
+
+
 def main() -> int:
     import torch
 
@@ -1104,11 +1458,12 @@ def main() -> int:
         return 1
 
     from imageclassification_tpu_torch.ops import _build
+    from imageclassification_tpu_torch.ops import conv1x1_bn as k2
     from imageclassification_tpu_torch.ops import dwconv as dw
     from imageclassification_tpu_torch.ops import flash_attention as fa
     from imageclassification_tpu_torch.ops import layernorm as ln
 
-    sources = (fa.KERNEL, fa.KERNEL_BWD, ln.KERNEL, dw.KERNEL)
+    sources = (fa.KERNEL, fa.KERNEL_BWD, ln.KERNEL, dw.KERNEL, k2.KERNEL)
     # 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -1143,6 +1498,8 @@ def main() -> int:
     check_layernorm(4096, 96, "cuda", constant=True, timed=False)
     # 3d. the depthwise-conv kernels against theirs
     dw_rows = [check_dwconv(s, "cuda") for s in DW_SHAPES]
+    # 3e. the fused 1x1 conv + BN statistics kernel against its plain version
+    k2_rows = [check_conv1x1(s, "cuda") for s in K2_SHAPES]
 
     # 4. the serving path
     with tempfile.TemporaryDirectory() as work:
@@ -1211,7 +1568,7 @@ def main() -> int:
             f"nn.LayerNorm); {cnx['checkpoint'].split('/')[-1]} in the JAX layout, reloaded "
             f"by val.initialize_model to the run's exact weights; val_precision top-1 "
             f"{cnx['val_top1']:.3f} on the training folder")
-        timing = convnext_step_timing(cnx, "cuda")
+        timing = step_timing(cnx, "cuda")
         ms = timing["ms_per_step"]
         log(f"train step ConvNeXt-T 224x224 bf16 batch {cfg['batch']}: {ms:.3f} ms/step, "
             f"{cfg['batch'] / (ms / 1e3):.1f} img/s (CUDA events, one fixed batch, exact-mode "
@@ -1220,17 +1577,60 @@ def main() -> int:
         # 6b. the LayerNorm and depthwise-conv kernels on the step's own tensors
         replay = replay_convnext_ops(cnx, "cuda")
         del cnx
-    n_ln = 1 + 3 + sum(CONVNEXT_T["depths"]) + 1  # stem, downsamples, blocks, head
-    n_dw = sum(CONVNEXT_T["depths"])
-    want = {"ln_fwd": n_ln, "ln_bwd": n_ln, "dw_fwd": n_dw, "dw_dx": n_dw, "dw_dw": n_dw}
-    if replay["launches"] != want:
-        raise AssertionError(f"replay launches {replay['launches']}, expected {want}")
-    log(f"replay of one ConvNeXt-T train step: {replay['n_ln']} LayerNorms (rows x C "
-        f"{replay['ln_shapes']}) and {replay['n_dw']} depthwise convs ({replay['dw_shapes']}) "
-        f"through the kernels, launches {replay['launches']}; largest max|d| "
-        + ", ".join(f"{k} {e:.3e}" for k, e in replay["errs"].items())
-        + f" (tolerances: vs model 2^-6 of max|ref|, dgamma/dbeta {MODEL_SUM_RTOL}; vs plain "
-        f"2^-7, dgamma/dbeta {SUM_RTOL})")
+        n_ln = 1 + 3 + sum(CONVNEXT_T["depths"]) + 1  # stem, downsamples, blocks, head
+        n_dw = sum(CONVNEXT_T["depths"])
+        want = {"ln_fwd": n_ln, "ln_bwd": n_ln, "dw_fwd": n_dw, "dw_dx": n_dw, "dw_dw": n_dw}
+        if replay["launches"] != want:
+            raise AssertionError(f"replay launches {replay['launches']}, expected {want}")
+        log(f"replay of one ConvNeXt-T train step: {replay['n_ln']} LayerNorms (rows x C "
+            f"{replay['ln_shapes']}) and {replay['n_dw']} depthwise convs ({replay['dw_shapes']}) "
+            f"through the kernels, launches {replay['launches']}; largest max|d| "
+            + ", ".join(f"{k} {e:.3e}" for k, e in replay["errs"].items())
+            + f" (tolerances: vs model 2^-6 of max|ref|, dgamma/dbeta {MODEL_SUM_RTOL}; vs plain "
+            f"2^-7, dgamma/dbeta {SUM_RTOL})")
+
+        # 7. the ResNet-50 training path on the same folder
+        rn = run_resnet_training(os.path.join(work, "resnet"), "cuda", RESNET50, cfg["img"],
+                                 cfg["num_classes"], cfg["per_class"], cfg["batch"],
+                                 cfg["epochs"], images=images)
+        losses = [r["loss"] for r in rn["records"]]
+        log(f"training path: {len(losses)} steps ({cfg['epochs']} epochs x "
+            f"{rn['steps_per_epoch']}) of ResNet-50 224x224 batch {cfg['batch']}, "
+            f"{rn['wall_s']:.1f} s for train.main; losses {', '.join(f'{x:.4f}' for x in losses)}; "
+            f"no kernel launched (the model runs F.conv2d and its BatchNorm, as the JAX model "
+            f"runs lax.conv and nn.BatchNorm); {rn['checkpoint'].split('/')[-1]} in the JAX "
+            f"layout with batch_stats, reloaded by val.initialize_model to the run's exact "
+            f"weights and statistics; val_precision top-1 {rn['val_top1']:.3f} on the training "
+            f"folder")
+        timing = step_timing(rn, "cuda")
+        rn_ms = timing["ms_per_step"]
+        log(f"train step ResNet-50 224x224 bf16 batch {cfg['batch']}: {rn_ms:.3f} ms/step, "
+            f"{cfg['batch'] / (rn_ms / 1e3):.1f} img/s (CUDA events, one fixed batch, exact-mode "
+            f"accuracy forward included)")
+        log_trace(f"ResNet-50 batch {cfg['batch']} bf16 train step", timing["trace"], "step")
+        # 7b. the fused 1x1 conv + BN statistics kernel on the step's own tensors
+        k2_replay = replay_resnet_convs(rn["state"].model, rn["args"], _fixed_batch(rn, "cuda"),
+                                        rn["num_classes"])
+        del rn, timing
+    n_blocks = sum(RESNET50["stage_sizes"])
+    want = {"k2": n_blocks + len(RESNET50["stage_sizes"]), "k2_bn_in": n_blocks}
+    if k2_replay["launches"] != want:
+        raise AssertionError(f"ResNet-50 replay launches {k2_replay['launches']}, expected {want}")
+    log(f"replay of one ResNet-50 train step: {k2_replay['n']} 1x1 convs (M, K, N, prologue "
+        f"{k2_replay['shapes']}) through the fused kernel, launches {k2_replay['launches']}; "
+        f"largest max|d| " + ", ".join(f"{k} {e:.3e}" for k, e in k2_replay["errs"].items())
+        + f" (tolerances: vs model 2^-6 of max|ref| (batch mean: of the largest column mean of "
+        f"|y|); vs plain 2^-7, column sums {SUM_RTOL})")
+
+    # 7c. the port bench at batch 128, and a trace of its step
+    from imageclassification_tpu_torch import bench
+
+    bench_line = bench.run(batch=128)
+    log(f"port bench (python -m imageclassification_tpu_torch.bench): {json.dumps(bench_line)}")
+    step, state, data = bench.build(128, 224, torch.device("cuda"))
+    bench_trace = trace(lambda: step(state, data), steps=5)
+    del step, state, data
+    log_trace("port bench: ResNet-50 batch 128 bf16 train step", bench_trace, "step")
 
     # results
     replaces_bwd = ("jax/experimental/pallas/ops/tpu/flash_attention.py:{} (the backward of "
@@ -1292,6 +1692,24 @@ def main() -> int:
     kernels[-2].update(launches_fwd=replay["launches"]["dw_fwd"],
                        launches_dx=replay["launches"]["dw_dx"], ms_dx=dw0["ms"]["dx"],
                        library_ms_dx=dw0["library_ms"]["dx"])
+    # the fused 1x1 conv row: ResNet-50's stage-1 conv3 shape (the largest),
+    # launches counted over the replay of phase 7b
+    k2_0 = k2_rows[0]
+    kernels.append({
+        "name": "conv1x1_bn_stats", "route": "cuda",
+        "source": f"imageclassification_tpu_torch/csrc/{k2.KERNEL}.cu",
+        "replaces": "imageclassification_tpu/ops/pallas_conv1x1_bn.py:132 (conv1x1_bn_stats; "
+                    "kernels :85, :95)",
+        "launches": k2_replay["launches"]["k2"] + k2_replay["launches"]["k2_bn_in"],
+        "max_abs_err": k2_0["errs"]["y"], "ms": k2_0["ms"], "plain_ms": k2_0["plain_ms"],
+        "bound_ms": k2_0["bound"][0], "bound_by": k2_0["bound"][1],
+        "library_ms": k2_0["library_ms"], "shape": k2_0["shape"], "bn_in": k2_0["bn_in"],
+        "device_ms": k2_0["device_ms"], "chain_ms": k2_0["chain_ms"],
+        "launches_plain": k2_replay["launches"]["k2"],
+        "launches_bn_in": k2_replay["launches"]["k2_bn_in"],
+        "path": ("replay of one ResNet-50 train step's 36 1x1 convs (chip_smoke.py phase 7b): "
+                 "the JAX model and the port's run lax.conv / F.conv2d, not this kernel"),
+    })
     for k in kernels:
         if k["launches"] <= 0:
             where = "in the replay" if "path" in k else "on the training path"

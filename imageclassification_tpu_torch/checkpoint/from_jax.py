@@ -2,8 +2,8 @@
 
 The JAX package stores parameters as a flat {"a/b/c": ndarray} dict (flax
 tree paths joined by "/"). The functions here are the inverses of that
-package's `checkpoint/torch_convert.py::convert_vit` and `convert_convnext`,
-written here on their own.
+package's `checkpoint/torch_convert.py::convert_vit`, `convert_convnext` and
+`convert_resnet`, written here on their own.
 
 ViT:
 
@@ -31,6 +31,18 @@ ConvNeXt (`CONVNEXT_MODULES`; each JAX module's leaves map one to one):
     stage{s}_block{b}/gamma                             stages.{s}.blocks.{b}.gamma
     norm{i}/* (features_only)                           norm{i}.*
     head_norm/*, head/*                                 head.norm.*, head.fc.*
+
+ResNet (`resnet_modules`; the inverse of `torch_convert.convert_resnet`; the
+batch statistics map with the parameters):
+
+    JAX flat key                                        port state_dict key
+    conv_stem/kernel [7,7,3,C]                          conv1.weight [C,3,7,7]
+    bn_stem/{scale,bias}                                bn1.{weight,bias}
+    batch_stats bn_stem/{mean,var}                      bn1.running_{mean,var}
+    {Block}_{k}/Conv_{c}/kernel                         layer{s}.{b}.conv{c+1}.weight
+    {Block}_{k}/BatchNorm_{c}/*                         layer{s}.{b}.bn{c+1}.*
+    {Block}_{k}/{Conv,BatchNorm}_{n} (downsample)       layer{s}.{b}.downsample.{0,1}.*
+    head/{kernel,bias}                                  fc.{weight,bias}
 """
 
 from __future__ import annotations
@@ -174,27 +186,79 @@ def _to_torch_layout(v, kind: str) -> np.ndarray:
     return v
 
 
-def convnext_state_dict_with_sources(
-    flat: Dict[str, np.ndarray]
+def match_module(module: str, exact: Dict, pats: List) -> Tuple:
+    """(the other side's module name, its leaves) of `module` under a module
+    table split by `split_modules`, or (None, {})."""
+    if module in exact:
+        return exact[module]
+    for pat, other, leaves in pats:
+        m = pat.fullmatch(module)
+        if m:
+            return fill(other, m.groups()), leaves
+    return None, {}
+
+
+def split_modules(modules) -> Tuple[Dict, List]:
+    """A module table [(module, other side's module, leaves)] as ({module:
+    (other, leaves)} for names without "{n}", [(regex, other, leaves)] for
+    the others)."""
+    exact = {a: (b, leaves) for a, b, leaves in modules if "{n}" not in a}
+    pats = [(module_pattern(a), b, leaves) for a, b, leaves in modules if "{n}" in a]
+    return exact, pats
+
+
+def state_dict_with_sources(
+    flat: Dict[str, np.ndarray], modules
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, List[str]], List[str]]:
-    """JAX ConvNeXt flat parameters -> (the port's state_dict (fp32), for
-    every produced key the JAX key it came from, the JAX keys that map to
-    nothing)."""
-    pats = [(module_pattern(j), p, leaves) for j, p, leaves in CONVNEXT_MODULES]
+    """JAX flat parameters (or batch statistics) -> (the port's state_dict
+    (fp32), for every produced key the JAX key it came from, the JAX keys
+    that map to nothing), by a table of (JAX module, port module, leaves)."""
+    exact, pats = split_modules(modules)
     sd, src, unused = {}, {}, []
     for k, v in flat.items():
         module, _, leaf = k.rpartition("/")
-        for pat, port, leaves in pats:
-            m = pat.fullmatch(module)
-            if m and leaf in leaves:
-                name, kind = leaves[leaf]
-                key = f"{fill(port, m.groups())}.{name}"
-                sd[key] = torch.tensor(_to_torch_layout(v, kind))
-                src[key] = [k]
-                break
+        port, leaves = match_module(module, exact, pats)
+        if leaf in leaves:
+            name, kind = leaves[leaf]
+            key = f"{port}.{name}"
+            sd[key] = torch.tensor(_to_torch_layout(v, kind))
+            src[key] = [k]
         else:
             unused.append(k)
     return sd, src, unused
+
+
+def convnext_state_dict_with_sources(flat: Dict[str, np.ndarray]):
+    """JAX ConvNeXt flat parameters -> (the port's state_dict, sources,
+    unused JAX keys), as `state_dict_with_sources`."""
+    return state_dict_with_sources(flat, CONVNEXT_MODULES)
+
+
+_BN = {"scale": ("weight", "same"), "bias": ("bias", "same"),
+       "mean": ("running_mean", "same"), "var": ("running_var", "same")}
+_CONV_KERNEL = {"kernel": ("weight", "conv")}
+
+
+def resnet_modules(stage_sizes, block_name: str):
+    """The module table of a ResNet of `stage_sizes` with blocks
+    `block_name` ("BasicBlock" or "Bottleneck"): flax numbers the blocks
+    across stages ({block}_{k}) and each block's convs and BatchNorms in
+    order of creation, the downsample last (`Conv_{n}`, `BatchNorm_{n}` with
+    n the block's conv count); torchvision numbers layer{s}.{b}."""
+    n_convs = 2 if block_name == "BasicBlock" else 3
+    modules = [("conv_stem", "conv1", _CONV_KERNEL), ("bn_stem", "bn1", _BN),
+               ("head", "fc", _DENSE)]
+    k = 0
+    for s, n_blocks in enumerate(stage_sizes):
+        for b in range(n_blocks):
+            jax_block, port_block = f"{block_name}_{k}", f"layer{s + 1}.{b}"
+            for c in range(n_convs):
+                modules += [(f"{jax_block}/Conv_{c}", f"{port_block}.conv{c + 1}", _CONV_KERNEL),
+                            (f"{jax_block}/BatchNorm_{c}", f"{port_block}.bn{c + 1}", _BN)]
+            modules += [(f"{jax_block}/Conv_{n_convs}", f"{port_block}.downsample.0", _CONV_KERNEL),
+                        (f"{jax_block}/BatchNorm_{n_convs}", f"{port_block}.downsample.1", _BN)]
+            k += 1
+    return modules
 
 
 def vit_state_dict_from_jax(flat: Dict[str, np.ndarray], num_heads: int) -> Dict[str, torch.Tensor]:

@@ -8,7 +8,11 @@ checkpoints written by modelchange.py's quantizer, "quant_scales" and
 "quant_dtype". The port reads that format as it is and writes it: the
 parameters, the EMA and the optimizer state in the JAX layout
 (checkpoint/to_jax.py), so a checkpoint of either package resumes in the
-other and either val.py reads it.
+other and either val.py reads it. A BatchNorm model's running statistics go
+under "batch_stats" and, with an EMA, their EMA under
+"model_ema_batch_stats"; a resume reads them pruned by name and shape
+without a print, and re-seeds the EMA statistics from the model's when the
+EMA restarts.
 
 Kept from the JAX package: `checkpoint-{N,best,best-ema}.pth` under
 output_dir with rolling deletion of epochs older than
@@ -30,7 +34,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..optim.ema import init_ema
+from ..models.layers import batch_norm_stats
+from ..optim.ema import init_ema, init_ema_stats
 from .to_jax import carry_for, optimizer_from_jax, optimizer_to_jax
 
 FORMAT_VERSION = 1
@@ -97,6 +102,17 @@ def load_params_with_pruning(model: nn.Module, ckpt_flat: Dict[str, np.ndarray],
     return len(dropped)
 
 
+def _copy_matching(ema: Dict[str, torch.Tensor], model: nn.Module,
+                   ckpt_flat: Dict[str, np.ndarray]) -> None:
+    """Copy the checkpoint's entries that match a tensor of `model` by name
+    and shape into the EMA dict `ema`."""
+    kept, _ = matching_state_dict(model, ckpt_flat)
+    with torch.no_grad():
+        for k, v in kept.items():
+            if k in ema:
+                ema[k].copy_(v)
+
+
 def save_model(args, input_shape, epoch, state, num_classes: int,
                model_spec: Dict[str, Any]) -> str:
     """Write output_dir/checkpoint-{epoch}.pth in the JAX layout; `epoch` is
@@ -114,12 +130,14 @@ def save_model(args, input_shape, epoch, state, num_classes: int,
         "input_shape": list(input_shape),
         "num_classes": num_classes,
         "args": args.to_dict() if hasattr(args, "to_dict") else vars(args),
-        "model": carry.to_jax(model.state_dict()),
-        "batch_stats": {},
+        "model": carry.to_jax(dict(model.named_parameters())),
+        "batch_stats": carry.to_jax(batch_norm_stats(model)),
         "optimizer": optimizer_to_jax(state.optimizer, model, carry),
     }
     if state.ema is not None:
         ck["model_ema"] = carry.to_jax(state.ema)
+        if state.ema_stats is not None:
+            ck["model_ema_batch_stats"] = carry.to_jax(state.ema_stats)
     tmp = f"{path}.tmp"
     with open(tmp, "wb") as f:
         pickle.dump(ck, f, protocol=pickle.HIGHEST_PROTOCOL)
@@ -162,16 +180,18 @@ def auto_load_model(args, state):
     checkpoint = load_checkpoint(args.resume)
     model = state.model
     missing_nums = load_params_with_pruning(model, checkpoint["model"])
+    if checkpoint.get("batch_stats"):
+        load_params_with_pruning(model, checkpoint["batch_stats"], verbose=False)
     print("Resume checkpoint %s" % args.resume)
 
     if args.model_ema and state.ema is not None:
         if "model_ema" in checkpoint and missing_nums == 0:
-            kept, _ = matching_state_dict(model, checkpoint["model_ema"])
-            with torch.no_grad():
-                for k, v in kept.items():
-                    state.ema[k].copy_(v)
+            _copy_matching(state.ema, model, checkpoint["model_ema"])
+            if state.ema_stats is not None and checkpoint.get("model_ema_batch_stats"):
+                _copy_matching(state.ema_stats, model, checkpoint["model_ema_batch_stats"])
         else:
             state.ema = init_ema(model)
+            state.ema_stats = init_ema_stats(model)
 
     if "optimizer" in checkpoint and "epoch" in checkpoint and missing_nums == 0:
         optimizer_from_jax(checkpoint["optimizer"], state.optimizer, model, carry_for(model))

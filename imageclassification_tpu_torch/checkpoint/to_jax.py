@@ -5,11 +5,13 @@ checkpoints in the JAX package's layout.
 `vit_flat_from_state_dict` is the inverse of
 `from_jax.vit_state_dict_with_sources`: it splits the fused qkv Linear back
 into the query/key/value projections ([E, H, hd] kernels, [H, hd] biases).
-`convnext_flat_from_state_dict` is the inverse of
-`from_jax.convnext_state_dict_with_sources`. Each maps any dict of tensors
-shaped like the parameters, so it carries the optimizer's moments too.
-`carry_for(model)` gives a model's pair of carry functions (`Carry`); the
-optimizer functions take it.
+`flat_from_state_dict` is the inverse of `from_jax.state_dict_with_sources`
+by a module table (ConvNeXt's, a ResNet's). Each maps any dict of tensors
+shaped like the parameters, so it carries the optimizer's moments too, and a
+ResNet's carry maps its BatchNorm buffers to the JAX batch statistics the
+same way: applied to the parameters it gives the JAX "model" tree, applied
+to the buffers the "batch_stats" tree. `carry_for(model)` gives a model's
+pair of carry functions (`Carry`); the optimizer functions take it.
 
 The optimizer state is stored as the JAX `create_optimizer(...).init(params)`
 state flattens (`checkpoint/io.py::_flatten` there):
@@ -34,10 +36,12 @@ import numpy as np
 import torch
 
 from ..models.convnext import ConvNeXt
+from ..models.resnet import ResNet
 from ..models.vit import ViT
 from ..optim.factory import Optimizer
-from .from_jax import (CONVNEXT_MODULES, convnext_state_dict_with_sources, fill,
-                       module_pattern, vit_state_dict_with_sources)
+from .from_jax import (CONVNEXT_MODULES, convnext_state_dict_with_sources, match_module,
+                       resnet_modules, split_modules, state_dict_with_sources,
+                       vit_state_dict_with_sources)
 
 _ATTN = "MultiHeadDotProductAttention_0"
 
@@ -90,28 +94,33 @@ def vit_flat_from_state_dict(sd: Dict[str, torch.Tensor], num_heads: int) -> Dic
     return flat
 
 
-def convnext_flat_from_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    """Map the port's ConvNeXt state_dict (or any dict keyed like it) to the
-    JAX flat parameters, fp32 numpy."""
-    pats = [(module_pattern(p), j, {pl: (jl, kind) for jl, (pl, kind) in leaves.items()})
-            for j, p, leaves in CONVNEXT_MODULES]
+def flat_from_state_dict(sd: Dict[str, torch.Tensor], modules) -> Dict[str, np.ndarray]:
+    """Map a port state_dict (or any dict keyed like it) to the JAX flat
+    parameters, fp32 numpy, by a table of (JAX module, port module, leaves)
+    (the inverse of `from_jax.state_dict_with_sources`)."""
+    exact, pats = split_modules(
+        [(p, j, {pl: (jl, kind) for jl, (pl, kind) in leaves.items()})
+         for j, p, leaves in modules])
     flat: Dict[str, np.ndarray] = {}
     for k, t in sd.items():
         v = t.detach().float().cpu().numpy()
         module, _, leaf = k.rpartition(".")
-        for pat, jax_module, leaves in pats:
-            m = pat.fullmatch(module)
-            if m and leaf in leaves:
-                name, kind = leaves[leaf]
-                if kind == "conv":  # torch [out, in, kh, kw] -> flax [kh, kw, in, out]
-                    v = np.ascontiguousarray(v.transpose(2, 3, 1, 0))
-                elif kind == "dense":
-                    v = np.ascontiguousarray(v.T)
-                flat[f"{fill(jax_module, m.groups())}/{name}"] = v
-                break
-        else:
+        jax_module, leaves = match_module(module, exact, pats)
+        if leaf not in leaves:
             raise KeyError(f"no JAX name for port key {k!r}")
+        name, kind = leaves[leaf]
+        if kind == "conv":  # torch [out, in, kh, kw] -> flax [kh, kw, in, out]
+            v = np.ascontiguousarray(v.transpose(2, 3, 1, 0))
+        elif kind == "dense":
+            v = np.ascontiguousarray(v.T)
+        flat[f"{jax_module}/{name}"] = v
     return flat
+
+
+def convnext_flat_from_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Map the port's ConvNeXt state_dict (or any dict keyed like it) to the
+    JAX flat parameters, fp32 numpy."""
+    return flat_from_state_dict(sd, CONVNEXT_MODULES)
 
 
 class Carry(NamedTuple):
@@ -131,8 +140,12 @@ def carry_for(model: torch.nn.Module) -> Carry:
                      functools.partial(vit_flat_from_state_dict, num_heads=model.num_heads))
     if isinstance(model, ConvNeXt):
         return Carry(convnext_state_dict_with_sources, convnext_flat_from_state_dict)
+    if isinstance(model, ResNet):
+        modules = resnet_modules(model.stage_sizes, model.block_name)
+        return Carry(functools.partial(state_dict_with_sources, modules=modules),
+                     functools.partial(flat_from_state_dict, modules=modules))
     raise NotImplementedError(
-        f"weight carry for {type(model).__name__} is not ported yet (ROADMAP A4, A13-A15)")
+        f"weight carry for {type(model).__name__} is not ported yet (ROADMAP A13-A15)")
 
 
 def _core_index(opt: Optimizer) -> int:

@@ -1,8 +1,11 @@
 // Helpers shared by the flash-attention kernels (flash_attention_fwd.cu,
 // flash_attention_bwd.cu): 64 x 64 bf16 tiles in shared memory with a
 // 128-byte-row XOR swizzle, cp.async loads that zero-fill rows past the end,
-// ldmatrix fragment loads and the m16n8k16 bf16 tensor-core product.
+// and the tile products built on the ldmatrix / m16n8k16 helpers of
+// mma_common.cuh.
 #pragma once
+
+#include "mma_common.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -12,6 +15,10 @@
 namespace flash {
 
 typedef __nv_bfloat16 bf16;
+using mma::ldmatrix_x4;
+using mma::ldmatrix_x4_trans;
+using mma::mma_16816;
+using mma::pack_bf16;
 
 constexpr int kHeadDim = 64;
 constexpr int kBlock = 64;  // rows of a tile (queries or keys)
@@ -42,36 +49,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* smem) {
-  unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const bf16* smem) {
-  unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// d += a(16x16, row) * b(16x8, col), bf16 inputs, fp32 accumulators.
-__device__ __forceinline__ void mma_16816(float (&d)[4], const unsigned (&a)[4],
-                                          unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats to a bf16 pair; `lo` lands in the low 16 bits (lower column).
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
 }
 
 // Copy rows [n0, n0 + 64) of one (batch, head) slice into a swizzled tile;

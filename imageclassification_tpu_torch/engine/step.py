@@ -14,6 +14,12 @@ synchronisation per step. With update_freq > 1 a non-finite micro-gradient
 never enters the accumulator, and a window whose boundary step is non-finite
 is discarded.
 
+BatchNorm (models with `layers.BatchNorm`): the forward's batch statistics
+advance the running statistics on every finite micro-step, at that step's
+finiteness read (`commit_batch_stats`), and the EMA of the statistics moves
+toward the new statistics at each real update; the exact-mode accuracy
+forward normalises with its own batch statistics and throws them away.
+
 Distillation, prune masks and AdaHessian are not ported yet (ROADMAP A16,
 A17) and raise.
 """
@@ -29,6 +35,7 @@ from torch import nn
 
 from ..data.augment import AugmentPipeline, eval_preprocess
 from ..data.mixup import MixupConfig, mixup_cutmix, one_hot_smooth, sample_mixup
+from ..models.layers import clear_batch_stats, commit_batch_stats
 from ..optim.ema import ema_update, warmup_decay
 from .state import TrainState
 
@@ -115,6 +122,10 @@ def build_train_step(model: nn.Module, args, num_classes: int,
         loss, logits, images, grads = loss_and_grads(model, batch, draws)
         labels = batch["label"]
         finite = bool(torch.isfinite(loss))  # the step's one host synchronisation
+        if finite:
+            commit_batch_stats(model)
+        else:
+            clear_batch_stats(model)
 
         if update_freq > 1:
             if finite:
@@ -139,6 +150,8 @@ def build_train_step(model: nn.Module, args, num_classes: int,
             if use_ema:
                 d = warmup_decay(ema_decay, step // update_freq) if ema_warmup else ema_decay
                 ema_update(state.ema, model, d)
+                if state.ema_stats is not None:
+                    ema_update(state.ema_stats, model, d)
         if update_freq > 1 and boundary:
             # every window ends at its boundary, applied or discarded
             torch._foreach_zero_(state.grad_accum)
@@ -146,6 +159,7 @@ def build_train_step(model: nn.Module, args, num_classes: int,
         if mixup_cfg is not None and exact_acc:
             with torch.no_grad():
                 acc_logits = model(images, generator=drop_gen).float()
+            clear_batch_stats(model)
         else:
             acc_logits = logits
         preds = acc_logits.argmax(-1)

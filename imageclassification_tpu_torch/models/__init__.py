@@ -1,7 +1,8 @@
 """Model registry (port of imageclassification_tpu/models/__init__.py).
 
-Holds the ViT family with its timm-style `_224` aliases, and the ConvNeXt
-and ConvNeXt-V2 families. The other names of
+Holds the ViT family with its timm-style `_224` aliases, the ConvNeXt
+and ConvNeXt-V2 families, and the ResNet family (ResNet, ResNeXt, wide
+ResNet). The other names of
 the JAX registry are known here so that asking for one says it is not ported
 yet, while an unknown name raises ValueError as in the JAX package.
 """
@@ -12,15 +13,13 @@ from typing import Any, Callable, Dict
 
 import torch
 
-from . import convnext, vit
+from . import convnext, resnet, vit
 
 _REGISTRY: Dict[str, Callable] = {}
 
 # names the JAX registry has and the port does not have yet
 _NOT_YET_PORTED = frozenset(
-    ["resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
-     "resnext50_32x4d", "resnext101_32x8d", "wide_resnet50_2", "wide_resnet101_2"]
-    + [f"efficientvit_m{i}" for i in range(6)]
+    [f"efficientvit_m{i}" for i in range(6)]
     + ["mobilenetv3_large_100", "mobilenetv3_small_100",
        "mobilenet_v3_large", "mobilenet_v3_small"]
     + [f"efficientnet_b{i}" for i in range(5)]
@@ -44,6 +43,8 @@ for _n in ("vit_tiny_patch16", "vit_small_patch16", "vit_small_patch32",
     register(_n + "_224", getattr(vit, _n))
 for _n in convnext.NAMES:
     register(_n, getattr(convnext, _n))
+for _n in resnet.NAMES:
+    register(_n, getattr(resnet, _n))
 
 
 def create_model(

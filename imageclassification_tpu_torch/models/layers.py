@@ -6,7 +6,10 @@ fp32, compute runs in the module's `dtype` (weights cast at use, as flax's
 result cast back to `dtype`.
 
 Convolutions take NHWC activations, as the JAX models do, and run on a
-channels-first view of them (`conv2d_nhwc`).
+channels-first view of them (`conv2d_nhwc`). BatchNorm (`BatchNorm`) keeps
+flax's semantics: fp32 batch statistics with the biased variance, a running
+average with momentum 0.9, and no buffer update inside the forward (the
+train step commits the statistics, `commit_batch_stats`).
 
 Randomness (dropout, stochastic depth, init) takes an explicit
 `torch.Generator`; a training-mode forward that needs random draws and has
@@ -15,7 +18,7 @@ no generator raises.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -45,14 +48,92 @@ def init_conv_(conv: nn.Conv2d, generator: torch.Generator, std: float = 0.02) -
     nn.init.zeros_(conv.bias)
 
 
+def he_normal_(conv: nn.Conv2d, generator: torch.Generator) -> None:
+    """flax `he_normal()`: a truncated normal of std sqrt(2 / fan_in), fan_in
+    = kh * kw * (input channels per group)."""
+    fan_in = conv.weight[0].numel()
+    trunc_normal_(conv.weight, std=(2.0 / fan_in) ** 0.5, generator=generator)
+
+
 def conv2d_nhwc(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
     """flax `nn.Conv(dtype=dtype)` on NHWC `x` with `conv`'s fp32 parameters
     cast at use: the convolution runs on a channels-first view of x (which is
-    channels_last in memory, so nothing is copied), and the bias is added in
-    `dtype` after it, as flax adds it. Returns NHWC."""
+    channels_last in memory, so nothing is copied), and the bias, where the
+    conv has one, is added in `dtype` after it, as flax adds it. Returns NHWC."""
     y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), conv.weight.to(dtype), None,
                  stride=conv.stride, padding=conv.padding, groups=conv.groups)
-    return y.permute(0, 2, 3, 1) + conv.bias.to(dtype)
+    y = y.permute(0, 2, 3, 1)
+    return y if conv.bias is None else y + conv.bias.to(dtype)
+
+
+class BatchNorm(nn.Module):
+    """flax `nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=dtype)` over the
+    last (channel) axis of NHWC x: fp32 `weight`/`bias` (JAX scale/bias) and
+    fp32 `running_mean`/`running_var` buffers (JAX batch_stats mean/var).
+
+    Train mode normalises with the batch statistics, taken in fp32 with the
+    biased variance, and keeps them in `batch_stats` (detached) without
+    touching the buffers: the train step commits them (`commit_batch_stats`)
+    only on a finite step, and the exact-mode accuracy forward's are thrown
+    away. Eval mode normalises with the buffers. The output is (x - mean) *
+    rsqrt(var + eps) * weight + bias in fp32, returned in x's dtype."""
+
+    def __init__(self, dim: int, momentum: float = 0.9, eps: float = 1e-5):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.register_buffer("running_mean", torch.zeros(dim))
+        self.register_buffer("running_var", torch.ones(dim))
+        self.momentum, self.eps = momentum, eps
+        self.batch_stats = None  # (mean, var) of the last train-mode forward
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xc = x.permute(0, 3, 1, 2)  # channels-first view, channels_last in memory
+        if not self.training:
+            y = F.batch_norm(xc, self.running_mean, self.running_var, self.weight, self.bias,
+                             training=False, eps=self.eps)
+            return y.permute(0, 2, 3, 1)
+        # the statistics of native_batch_norm: the batch mean and the inverse
+        # standard deviation of the biased variance, both fp32
+        y, mean, invstd = torch.native_batch_norm(xc, self.weight, self.bias, None, None,
+                                                  True, 0.0, self.eps)
+        self.batch_stats = (mean.detach(), invstd.detach().pow(-2) - self.eps)
+        return y.permute(0, 2, 3, 1)
+
+
+def _batch_norms(model: nn.Module):
+    return [m for m in model.modules() if isinstance(m, BatchNorm)]
+
+
+def batch_norm_stats(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The running statistics of every BatchNorm of `model` by state_dict
+    name (the JAX `batch_stats`); empty for a model without BatchNorm."""
+    return {f"{name}.{k}" if name else k: t
+            for name, m in model.named_modules() if isinstance(m, BatchNorm)
+            for k, t in (("running_mean", m.running_mean), ("running_var", m.running_var))}
+
+
+@torch.no_grad()
+def commit_batch_stats(model: nn.Module) -> None:
+    """running <- momentum * running + (1 - momentum) * batch for every
+    BatchNorm of `model` that holds the statistics of a train-mode forward
+    (flax's update), then drop them."""
+    bns = [m for m in _batch_norms(model) if m.batch_stats is not None]
+    if not bns:
+        return
+    running = [t for m in bns for t in (m.running_mean, m.running_var)]
+    batch = [t for m in bns for t in m.batch_stats]
+    momentum = bns[0].momentum  # 0.9 in every BatchNorm of the registry's models
+    torch._foreach_mul_(running, momentum)
+    torch._foreach_add_(running, torch._foreach_mul(batch, 1.0 - momentum))
+    clear_batch_stats(model)
+
+
+def clear_batch_stats(model: nn.Module) -> None:
+    """Drop the batch statistics a train-mode forward left in the
+    BatchNorms of `model`, uncommitted."""
+    for m in _batch_norms(model):
+        m.batch_stats = None
 
 
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:

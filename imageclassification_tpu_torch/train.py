@@ -4,6 +4,8 @@
         --model vit_base_patch16 [--flash_attn true] [--device cuda|cpu] ...
     python -m imageclassification_tpu_torch.train --data_path <ImageFolder> \\
         --model convnext_tiny [--drop_path 0.1] [--device cuda|cpu] ...
+    python -m imageclassification_tpu_torch.train --data_path <ImageFolder> \\
+        --model resnet50 [--device cuda|cpu] ...
 
 The JAX train.py's flags, artifacts and epoch flow: `class_indices.json`
 and `checkpoint-{N,best,best-ema}.pth` under --output_dir (JAX layout, so
@@ -11,9 +13,9 @@ either package resumes them and either val.py reads them), JSON lines in
 log.txt beside it, TensorBoard scalars under --log_dir, auto-resume,
 --eval, --pretrained_path with a repo checkpoint, and a checkpoint on
 SIGTERM/SIGUSR1 before a clean exit. One process on one device; the ViT,
-ConvNeXt and ConvNeXt-V2 families are built (other names raise
-NotImplementedError), and the flags of features not ported yet raise
-(config.check_ported).
+ConvNeXt, ConvNeXt-V2 and ResNet (ResNeXt, wide ResNet) families are built
+(other names raise NotImplementedError), and the flags of features not
+ported yet raise (config.check_ported).
 """
 
 from __future__ import annotations
@@ -39,33 +41,37 @@ from .engine.loop import evaluate, train_one_epoch
 from .engine.state import create_train_state, num_params
 from .engine.step import build_eval_step, build_train_step
 from .models import create_model, model_kwargs_for
-from .optim.ema import init_ema
+from .optim.ema import init_ema, init_ema_stats
 from .optim.factory import create_optimizer
 from .optim.schedules import build_schedules
 from .utils.loggers import TensorboardLogger
 
 
 class _EmaWeights:
-    """Context manager: the model runs with the EMA weights inside, its own
-    weights are restored on exit."""
+    """Context manager: the model runs with the EMA weights (parameters, and
+    BatchNorm statistics where it has them) inside; its own are restored on
+    exit."""
 
-    def __init__(self, model, ema):
-        self.model, self.ema = model, ema
+    def __init__(self, model, ema, ema_stats=None):
+        self.model = model
+        self.ema = None if ema is None else {**ema, **(ema_stats or {})}
 
     def __enter__(self):
         if self.ema is not None:
-            params = dict(self.model.named_parameters())
-            self.saved = {k: p.detach().clone() for k, p in params.items()}
-            with torch.no_grad():
-                for k, v in self.ema.items():
-                    params[k].copy_(v)
+            self.saved = {k: v.detach().clone()
+                          for k, v in self.model.state_dict().items() if k in self.ema}
+            self._copy(self.ema)
         return self.model
 
     def __exit__(self, *exc):
         if self.ema is not None:
-            with torch.no_grad():
-                for k, p in self.model.named_parameters():
-                    p.copy_(self.saved[k])
+            self._copy(self.saved)
+
+    def _copy(self, src):
+        tensors = self.model.state_dict(keep_vars=True)
+        with torch.no_grad():
+            for k, v in src.items():
+                tensors[k].copy_(v)
 
 
 def _load_pretrained(args, state) -> None:
@@ -83,8 +89,11 @@ def _load_pretrained(args, state) -> None:
             f"{tuple(own.shape)}: resampling it to another --input_size "
             "is not ported yet (ROADMAP A12)")
     ckpt_io.load_params_with_pruning(state.model, ck["model"])
+    if ck.get("batch_stats"):
+        ckpt_io.load_params_with_pruning(state.model, ck["batch_stats"], verbose=False)
     if state.ema is not None:
         state.ema = init_ema(state.model)
+        state.ema_stats = init_ema_stats(state.model)
     print(f"Loaded pretrained weights from {args.pretrained_path}")
 
 
@@ -164,7 +173,7 @@ def main(args: TrainConfig):
 
     if args.eval:
         print("Eval only mode")
-        with _EmaWeights(model, state.ema if args.model_ema else None):
+        with _EmaWeights(model, state.ema if args.model_ema else None, state.ema_stats):
             test_stats = evaluate(eval_step, make_val_loader(), num_classes)
         print(f"Accuracy of the network on {len(dataset_val)} test images: "
               f"{test_stats['acc1']:.5f}%")
@@ -239,7 +248,7 @@ def _train(args, state, train_step, eval_step, make_val_loader, log_writer, data
             "n_parameters": f"{num_params(state) / 1e6:.2f}M",
         }
         if args.model_ema:
-            with _EmaWeights(model, state.ema):
+            with _EmaWeights(model, state.ema, state.ema_stats):
                 test_stats_ema = evaluate(eval_step, make_val_loader(), num_classes)
             print(f"Accuracy of the model EMA on {len(dataset_val)} test images: "
                   f"{test_stats_ema['acc1']:.1f}%")

@@ -13,8 +13,8 @@
   `Empty/` (class 0) or `NonEmpty/` (any other class) directory.
 
 The eval transform is the squash resize (bilinear) on the host, then the
-ImageNet normalisation on the device. A ViT or ConvNeXt checkpoint written
-by the JAX `train.py` loads and runs unchanged; a ViT trained with
+ImageNet normalisation on the device. A ViT, ConvNeXt or ResNet checkpoint
+written by the JAX `train.py` loads and runs unchanged; a ViT trained with
 --flash_attn runs the flash-attention kernel.
 """
 
@@ -40,8 +40,9 @@ from .utils.metrics import per_class_precision_recall
 def initialize_model(model_weight_path: str, model_ema: bool, half_precision=True,
                      return_checkpoint=False, dequantize=False, device="cuda"):
     """Rebuild (model, num_classes) from a checkpoint, the model on `device`
-    in eval mode. With return_checkpoint=True the second element is the
-    loaded checkpoint dict instead of num_classes.
+    in eval mode, with the checkpoint's BatchNorm statistics where it has
+    them. With return_checkpoint=True the second element is the loaded
+    checkpoint dict instead of num_classes.
 
     int8 checkpoints run quantized in the JAX package (ops/int8.py); that
     path is not ported yet, so one raises NotImplementedError unless
@@ -68,6 +69,13 @@ def initialize_model(model_weight_path: str, model_ema: bool, half_precision=Tru
         print("initialize model_ema success")
     else:
         load_params_with_pruning(model, checkpoint["model"], verbose=False)
+    # BatchNorm running statistics: the EMA's with --model_ema where the
+    # checkpoint has them, else the model's
+    stats = checkpoint.get("batch_stats")
+    if model_ema and checkpoint.get("model_ema_batch_stats"):
+        stats = checkpoint["model_ema_batch_stats"]
+    if stats:
+        load_params_with_pruning(model, stats, verbose=False)
     model = model.to(device).eval()
     if return_checkpoint:
         return model, checkpoint

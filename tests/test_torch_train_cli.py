@@ -3,7 +3,8 @@ checkpoint/io.py write side and resume) against the JAX package: the same
 flags, checkpoints that resume in either package with their optimizer state,
 an end-to-end CPU run of `python -m imageclassification_tpu_torch.train`
 followed by the port's val.py, and chip_smoke.py's training phases rehearsed
-on the CPU; for ViT and for ConvNeXt."""
+on the CPU; for ViT, ConvNeXt and ResNet (with its BatchNorm statistics and
+their EMA)."""
 
 import functools
 import json
@@ -103,8 +104,9 @@ def test_train_refuses_silent_cpu(monkeypatch, toy_dataset, tmp_path):
 
 
 def test_train_refuses_unported_models(toy_dataset, tmp_path):
-    args = config.parse_args(["--data_path", toy_dataset, "--model", "resnet50", "--batch_size",
-                              "4", "--device", "cpu", "--output_dir", str(tmp_path / "o"),
+    args = config.parse_args(["--data_path", toy_dataset, "--model", "mobilenetv3_large_100",
+                              "--batch_size", "4", "--device", "cpu",
+                              "--output_dir", str(tmp_path / "o"),
                               "--log_dir", str(tmp_path / "l")])
     with pytest.raises(NotImplementedError, match="not yet ported"):
         train.main(args)
@@ -519,3 +521,221 @@ def test_layernorm_and_dwconv_bound_numbers():
         2 * 49 * 64 * 56 * 56 * 96 / 66.9e12 * 1e3, rel=1e-12)
     assert ms == pytest.approx(0.0282, abs=1e-4)
     assert chip_smoke.dwconv_bound(64, 7, 7, 768)[0] == pytest.approx(0.0035, abs=1e-4)
+
+
+
+def test_device_ms_survives_dropped_launches(monkeypatch):
+    # a trace may keep none of a kernel's launches (traced again) or only
+    # some of them (a mean per launch times the launches of one call)
+    traces = iter([
+        {"conv1x1_bn_kernel<true, true>": (0.5, 1.0)},  # no sum_partials
+        {"conv1x1_bn_kernel<true, true>": (0.3, 0.5),   # half its launches
+         "sum_partials_kernel<float>": (0.04, 2.0), "other": (9.0, 1.0)},
+    ])
+    monkeypatch.setattr(chip_smoke, "trace", lambda fn: (0.0, 0.0, next(traces)))
+    got = chip_smoke._device_ms(None, {"conv1x1_bn_kernel": 1, "sum_partials": 2})
+    assert got == pytest.approx(0.3 / 0.5 * 1 + 0.04 / 2.0 * 2, rel=1e-12)
+    monkeypatch.setattr(chip_smoke, "trace", lambda fn: (0.0, 0.0, {"other": (1.0, 1.0)}))
+    with pytest.raises(AssertionError, match="no launch"):
+        chip_smoke._device_ms(None, {"conv1x1_bn_kernel": 1})
+
+# ResNet: resnet18 at 32x32 (BasicBlock; the stem's 7x7/s2 and the max pool
+# leave 8x8 for the blocks), and a narrow Bottleneck for the replay
+RESNET_SPEC = {"name": "resnet18", "kwargs": {"num_classes": 3}}
+
+
+def _jax_trees(name):
+    jmodel = jax_create_model(name, num_classes=3)
+    shapes = jax.eval_shape(jmodel.init, jax.random.key(0), jnp.zeros(INPUT_SHAPE))
+    return {tree: {"/".join(p.key for p in path): leaf.shape for path, leaf in
+                   jax.tree_util.tree_flatten_with_path(shapes[tree])[0]}
+            for tree in ("params", "batch_stats")}
+
+
+def test_resnet_cli_trains_on_cpu_and_jax_val_reads_it(toy_dataset, tmp_path, monkeypatch,
+                                                        capsys):
+    # train.main --model resnet18 --device cpu (mixup, EMA): the checkpoint
+    # holds the parameters, batch_stats, the EMA and its batch statistics in
+    # the JAX layout, and the JAX val.py reads it to the port's probabilities
+    # with the model's statistics and with the EMA's (fp32, summation order:
+    # 1e-5)
+    out_dir = tmp_path / "train_cls" / "output"
+    args = config.parse_args([
+        "--device", "cpu", "--data_path", toy_dataset, "--model", "resnet18",
+        "--input_size", "32", "--batch_size", "4", "--epochs", "1", "--warmup_epochs", "1",
+        "--num_workers", "2", "--model_ema", "true", "--model_ema_decay", "0.5",
+        "--output_dir", str(out_dir), "--log_dir", str(tmp_path / "train_cls" / "log_dir")])
+    state = train.main(args)
+    out = capsys.readouterr().out
+    assert "Mixup is activated!" in out and "Accuracy of the model EMA" in out
+    path = str(out_dir / "checkpoint-0.pth")
+    with open(path, "rb") as f:
+        ck = pickle.load(f)
+    assert ck["model_spec"] == RESNET_SPEC and ck["input_shape"] == INPUT_SHAPE
+    want = _jax_trees("resnet18")
+    for key, tree in (("model", "params"), ("model_ema", "params"),
+                      ("batch_stats", "batch_stats"), ("model_ema_batch_stats", "batch_stats")):
+        assert {k: v.shape for k, v in ck[key].items()} == want[tree], key
+    assert int(ck["optimizer"]["count"]) == state.optimizer.num_updates > 0
+    assert not np.allclose(ck["batch_stats"]["bn_stem/var"], 1.0)  # the statistics moved
+    assert not np.allclose(ck["batch_stats"]["bn_stem/var"],
+                           ck["model_ema_batch_stats"]["bn_stem/var"])
+
+    imgs = np.random.default_rng(0).integers(0, 256, (4, 32, 32, 3), dtype=np.uint8)
+    import imageclassification_tpu.data.native_decode as jax_native
+    import val as jax_val
+
+    monkeypatch.setattr(jax_native, "get_lib", lambda: None)
+    probs = {}
+    for ema in (False, True):
+        jm, jp, jbs, _ = jax_val.initialize_model(path, ema, half_precision=False)
+        want_p = np.asarray(jax_val._predict_fn(jm)(jp, jbs, jnp.asarray(imgs)))
+        pm, _ = port_val.initialize_model(path, ema, half_precision=False, device="cpu")
+        probs[ema] = port_val._predict_fn(pm)(torch.from_numpy(imgs)).numpy()
+        np.testing.assert_allclose(probs[ema], want_p, atol=1e-5, rtol=0, err_msg=f"ema {ema}")
+    assert np.abs(probs[True] - probs[False]).max() > 1e-4  # the EMA's weights were used
+
+
+def _narrow_resnets(seed):
+    """A JAX train state (AdamW, EMA) and a port train state of the same
+    narrow BasicBlock ResNet; the JAX one holds numpy-drawn parameters and
+    statistics, its EMA other draws."""
+    from imageclassification_tpu.models.resnet import BasicBlock as JaxBasicBlock
+    from imageclassification_tpu.models.resnet import ResNet as JaxResNet
+    from imageclassification_tpu_torch.models import resnet as port_resnet
+    from test_torch_resnet import jax_resnet_flat, nest
+
+    jmodel = JaxResNet([1, 1, 1, 1], JaxBasicBlock, num_classes=3, width=8)
+    tx = jax_create_optimizer("adamw", 0.01, 0.05)
+    jstate = jax_create_state(jmodel, tx, jax.random.key(seed), INPUT_SHAPE, use_ema=True)
+    params, stats = jax_resnet_flat(jmodel, 32, seed)
+    ema, ema_stats = jax_resnet_flat(jmodel, 32, seed + 1)
+    jstate = jstate.replace(params=nest(params), batch_stats=nest(stats), ema_params=nest(ema),
+                            ema_batch_stats=nest(ema_stats), opt_state=tx.init(nest(params)))
+    pmodel = port_resnet.ResNet([1, 1, 1, 1], port_resnet.BasicBlock, num_classes=3, width=8)
+    pstate = create_train_state(pmodel, create_optimizer("adamw", pmodel.parameters(), 0.01, 0.05),
+                                use_ema=True)
+    return jstate, pstate, {"model": params, "batch_stats": stats, "model_ema": ema,
+                            "model_ema_batch_stats": ema_stats}
+
+
+def test_resnet_checkpoints_resume_across_packages(tmp_path, capsys):
+    # JAX -> port: a ResNet checkpoint of the JAX save_model resumes in the
+    # port's auto_load_model with its optimizer, statistics and both EMAs,
+    # exactly
+    jstate, state, trees = _narrow_resnets(seed=2)
+    jsave = jax_config.TrainConfig(output_dir=str(tmp_path / "jax"), model_ema=True)
+    jax_io.save_model(jsave, INPUT_SHAPE, 3, jstate, 3, RESNET_SPEC)
+    jax_io.wait_for_pending_saves()
+    pargs = config.TrainConfig(output_dir=str(tmp_path / "jax"), model_ema=True, device="cpu")
+    state, _ = port_io.auto_load_model(pargs, state)
+    assert "With optim & sched!" in capsys.readouterr().out and pargs.start_epoch == 4
+    carry = carry_for(state.model)
+    _assert_flat_equal(carry.to_jax(dict(state.model.named_parameters())), trees["model"],
+                       "params")
+    _assert_flat_equal(carry.to_jax(dict(state.model.named_buffers())), trees["batch_stats"],
+                       "batch_stats")
+    _assert_flat_equal(carry.to_jax(state.ema), trees["model_ema"], "ema")
+    _assert_flat_equal(carry.to_jax(state.ema_stats), trees["model_ema_batch_stats"], "ema stats")
+
+    # port -> JAX: after two updates (and statistics moved by a train-mode
+    # step's commit) the port's checkpoint resumes in the JAX auto_load_model
+    # with every tree, exactly
+    _updates(state, seed=4, n=2)
+    from imageclassification_tpu_torch.models.layers import commit_batch_stats
+
+    state.model.train()(torch.from_numpy(
+        np.random.default_rng(0).standard_normal((4, 32, 32, 3)).astype(np.float32)))
+    commit_batch_stats(state.model)
+    port_io.save_model(config.TrainConfig(output_dir=str(tmp_path / "port"), device="cpu"),
+                       INPUT_SHAPE, 0, state, 3, RESNET_SPEC)
+    with open(tmp_path / "port" / "checkpoint-0.pth", "rb") as f:
+        ck = pickle.load(f)
+    fresh, _, _ = _narrow_resnets(seed=5)
+    jargs = jax_config.TrainConfig(output_dir=str(tmp_path / "port"), model_ema=True)
+    fresh, _ = jax_io.auto_load_model(jargs, fresh)
+    assert "With optim & sched!" in capsys.readouterr().out and jargs.start_epoch == 1
+    for key, tree in (("model", fresh.params), ("batch_stats", fresh.batch_stats),
+                      ("model_ema", fresh.ema_params),
+                      ("model_ema_batch_stats", fresh.ema_batch_stats),
+                      ("optimizer", fresh.opt_state)):
+        _assert_flat_equal(_jax_flat(tree), ck[key], key)
+    assert not np.array_equal(ck["batch_stats"]["bn_stem/mean"],
+                              trees["batch_stats"]["bn_stem/mean"])
+
+
+def test_ema_eval_and_val_use_the_ema_statistics(tmp_path):
+    # train.py's EMA eval swaps the BatchNorm statistics with the parameters,
+    # and restores both; val.initialize_model(model_ema=True) loads the EMA's
+    # statistics, model_ema=False the model's
+    model = create_model("resnet18", num_classes=3, generator=torch.Generator().manual_seed(0))
+    state = create_train_state(model, create_optimizer("adamw", model.parameters(), 0.01, 0.05),
+                               use_ema=True)
+    with torch.no_grad():
+        for t in (*state.ema.values(), *state.ema_stats.values()):
+            t.add_(0.5)
+    own = {k: v.clone() for k, v in model.state_dict().items()}
+    with train._EmaWeights(model, state.ema, state.ema_stats):
+        for k, v in model.state_dict().items():
+            want = state.ema_stats[k] if k in state.ema_stats else state.ema[k]
+            assert torch.equal(v, want), k
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, own[k]), k
+    with train._EmaWeights(model, None, state.ema_stats):  # --model_ema false: no swap
+        assert all(torch.equal(v, own[k]) for k, v in model.state_dict().items())
+
+    path = port_io.save_model(config.TrainConfig(output_dir=str(tmp_path), device="cpu"),
+                              INPUT_SHAPE, 0, state, 3, RESNET_SPEC)
+    for ema, want in ((True, state.ema_stats), (False, own)):
+        loaded, _ = port_val.initialize_model(path, ema, half_precision=False, device="cpu")
+        for k, v in loaded.named_buffers():
+            assert torch.equal(v, want[k]), (ema, k)
+
+
+def test_chip_smoke_resnet_training_and_replay_rehearsal_on_cpu(tmp_path):
+    # chip_smoke.py's phases 7 and 7b at a tiny size on the CPU (bf16 models,
+    # the op's plain version, so no kernel launches): resnet18 through
+    # train.main (its 3 strided downsamples replayed), and a narrow
+    # Bottleneck net's 12 1x1 convs (conv1, conv3 with the prologue, the
+    # downsamples) held against the model's own results
+    from imageclassification_tpu_torch.models import resnet as port_resnet
+
+    model = dict(name="resnet18", stage_sizes=(2, 2, 2, 2), block="BasicBlock", width=64)
+    run = chip_smoke.run_resnet_training(str(tmp_path), "cpu", model, img=32, num_classes=3,
+                                         per_class=10, batch=4, epochs=2)
+    assert len(run["records"]) == 2 * run["steps_per_epoch"] == 12
+    batch = chip_smoke._fixed_batch(run, "cpu")
+    rep = chip_smoke.replay_resnet_convs(run["state"].model, run["args"], batch, 3)
+    assert rep["n"] == {"conv1": 0, "conv3": 0, "downsample": 3}
+    narrow = port_resnet.ResNet([1, 1, 1, 1], port_resnet.Bottleneck, num_classes=3, width=8,
+                                dtype=torch.bfloat16, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        for blk in narrow.modules():
+            if isinstance(blk, port_resnet.Bottleneck):
+                blk.bn3.weight.fill_(1.0)  # zero-initialised: make conv3's path count
+    rep = chip_smoke.replay_resnet_convs(narrow, run["args"], batch, 3)
+    assert rep["n"] == {"conv1": 4, "conv3": 4, "downsample": 4}
+    assert rep["launches"] == {"k2": 0, "k2_bn_in": 0}
+    assert rep["errs"]["y vs model"] <= 2.0 ** -6 and rep["errs"]["batch var vs model"] > 0
+
+
+@pytest.mark.parametrize("name,stages,block", [("resnet50", (3, 4, 6, 3), "Bottleneck"),
+                                               ("resnet18", (2, 2, 2, 2), "BasicBlock")])
+def test_chip_smoke_resnet_layout_is_the_jax_layout(name, stages, block):
+    want = _jax_trees(name)
+    params, stats = chip_smoke.jax_resnet_shapes(stages, block, 64, 3)
+    assert params == want["params"] and stats == want["batch_stats"]
+
+
+def test_conv1x1_bound_numbers():
+    # ResNet-50's 1x1 convs at batch 64, 224x224, bf16: x, w and y once over
+    # 3.35 TB/s against 2MKN flops over 989 TFLOP/s; bytes bind at stages
+    # 1-3, operations at stage 4
+    for (M, K, N, bn_in), want_ms, want_by in zip(chip_smoke.K2_SHAPES, (
+            0.0384, 0.0384, 0.0192, 0.0192, 0.0097, 0.0097, 0.0067, 0.0067, 0.0133),
+            ["bytes"] * 6 + ["operations"] * 3):
+        ms, by = chip_smoke.conv1x1_bound(M, K, N, bn_in)
+        assert by == want_by and ms == pytest.approx(want_ms, abs=1e-4), (M, K, N)
+    ms, _ = chip_smoke.conv1x1_bound(200704, 64, 256, True)
+    assert ms == pytest.approx(((200704 * 64 + 64 * 256 + 200704 * 256) * 2 + 2 * 256 * 4
+                                + 2 * 64 * 4) / 3.35e12 * 1e3, rel=1e-12)

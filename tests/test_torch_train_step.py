@@ -2,9 +2,11 @@
 JAX package's `build_train_step` on the same weights, batch and random draws:
 a small ViT (dim 128, 2 heads of 64, depth 2, 32x32 input) with
 flash_attn=True, the JAX side running its Pallas flash kernels (forward and
-backward) in interpret mode, the port its plain versions; and a small
-ConvNeXt (depths (1, 1, 1, 1), dims (16, 32, 64, 128), drop_path 0). fp32
-on both sides.
+backward) in interpret mode, the port its plain versions; a small ConvNeXt
+(depths (1, 1, 1, 1), dims (16, 32, 64, 128), drop_path 0); and a narrow
+ResNet (Bottleneck, stages (1, 1, 1, 1), width 8) whose BatchNorm running
+statistics and their EMA are held against the JAX state's too. fp32 on both
+sides.
 
 Gradients are compared through post-update parameters under SGD, and under
 AdamW with a large eps (with a small eps, m/sqrt(v) turns a near-zero
@@ -25,6 +27,8 @@ from imageclassification_tpu.engine.state import create_train_state as jax_creat
 from imageclassification_tpu.engine.step import _global_norm as jax_global_norm
 from imageclassification_tpu.engine.step import build_train_step as jax_build_train_step
 from imageclassification_tpu.models.convnext import ConvNeXt as JaxConvNeXt
+from imageclassification_tpu.models.resnet import Bottleneck as JaxBottleneck
+from imageclassification_tpu.models.resnet import ResNet as JaxResNet
 from imageclassification_tpu.models.vit import ViT as JaxViT
 from imageclassification_tpu.optim.factory import create_optimizer as jax_create_optimizer
 from imageclassification_tpu_torch.checkpoint.from_jax import vit_state_dict_from_jax
@@ -34,9 +38,11 @@ from imageclassification_tpu_torch.data.mixup import build_mixup
 from imageclassification_tpu_torch.engine.state import create_train_state
 from imageclassification_tpu_torch.engine.step import build_train_step, global_norm
 from imageclassification_tpu_torch.models import convnext as port_convnext
+from imageclassification_tpu_torch.models import resnet as port_resnet
 from imageclassification_tpu_torch.models import vit as port_vit
 from imageclassification_tpu_torch.optim.factory import create_optimizer
 from test_torch_convnext import jax_convnext_flat
+from test_torch_resnet import jax_resnet_flat
 
 SMALL = dict(patch_size=16, dim=128, depth=2, num_heads=2, num_classes=5)
 SMALL_CONVNEXT = dict(depths=(1, 1, 1, 1), dims=(16, 32, 64, 128), num_classes=5)
@@ -92,37 +98,56 @@ def _configs(**kw):
 
 
 def _family(name):
-    """(JAX model, its flat parameters, the port model carrying them) of a
-    small ViT (flash attention) or ConvNeXt (drop_path 0)."""
+    """(JAX model, its flat parameters, its flat batch statistics, the port
+    model carrying both) of a small ViT (flash attention), ConvNeXt
+    (drop_path 0) or ResNet."""
+    stats = {}
     if name == "vit":
         jmodel = JaxViT(**SMALL, flash_attn=True, dtype=jnp.float32)
         pmodel = port_vit.ViT(**SMALL, img_size=32, flash_attn=True)
         flat = _flat()
-    else:
+    elif name == "convnext":
         jmodel = JaxConvNeXt(**SMALL_CONVNEXT)
         pmodel = port_convnext.ConvNeXt(**SMALL_CONVNEXT)
         flat = jax_convnext_flat(jmodel, 32, seed=0)
-    pmodel.load_state_dict(carry_for(pmodel).to_port(flat)[0])
-    return jmodel, flat, pmodel
+    else:
+        jmodel = JaxResNet([1, 1, 1, 1], JaxBottleneck, num_classes=5, width=8)
+        pmodel = port_resnet.ResNet([1, 1, 1, 1], port_resnet.Bottleneck, num_classes=5, width=8)
+        flat, stats = jax_resnet_flat(jmodel, 32, seed=0)
+    pmodel.load_state_dict(carry_for(pmodel).to_port({**flat, **stats})[0])
+    return jmodel, flat, stats, pmodel
 
 
 CONVNEXT = dict(model="convnext_atto", flash_attn=False, drop_path=0.0)
+RESNET = dict(model="resnet50", flash_attn=False)
 CASES = {
-    # name: (config overrides, steps); ViT unless the model is a ConvNeXt
+    # name: (config overrides, steps); ViT unless the name starts with
+    # another family's
     "mixup_off_sgd": (dict(mixup=0.0, opt="sgd"), 2),
     "mixup_on_sgd": (dict(opt="sgd", model_ema_warmup=True), 2),
     "update_freq_2_sgd": (dict(opt="sgd", update_freq=2, clip_grad=0.5), 4),
     "mixup_on_adamw_large_eps": (dict(opt="adamw", opt_eps=1.0, lr=0.01), 2),
     "convnext_mixup_off_sgd": (dict(CONVNEXT, mixup=0.0, opt="sgd"), 2),
     "convnext_mixup_on_adamw_large_eps": (dict(CONVNEXT, opt="adamw", opt_eps=1.0, lr=0.01), 2),
+    # BatchNorm: the exact-mode accuracy forward on batch statistics, the
+    # running statistics advancing at each finite micro-step, their EMA
+    "resnet_mixup_on_adamw_large_eps": (dict(RESNET, opt="adamw", opt_eps=1.0, lr=0.01), 2),
+    "resnet_update_freq_2_sgd": (dict(RESNET, opt="sgd", update_freq=2), 4),
 }
+
+
+def _flat_of(tree):
+    return {"/".join(p.key for p in path): np.asarray(v) for path, v in
+            jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_train_step_matches_jax(interpret_mode, case):
     kw, steps = CASES[case]
     jargs, pargs = _configs(**kw)
-    jmodel, flat, pmodel = _family("convnext" if case.startswith("convnext") else "vit")
+    jmodel, flat, stats, pmodel = _family(case.split("_")[0] if case.startswith(("convnext",
+                                                                                 "resnet"))
+                                          else "vit")
     images, labels = _batch()
     lr_sched = np.linspace(jargs.lr, jargs.lr / 2, steps)
     wd_sched = np.linspace(jargs.weight_decay, jargs.weight_decay / 2, steps)
@@ -133,6 +158,8 @@ def test_train_step_matches_jax(interpret_mode, case):
                               update_freq=jargs.update_freq)
     jstate = jstate.replace(params=_nest(flat), ema_params=_nest(flat),
                             opt_state=tx.init(_nest(flat)))
+    if stats:
+        jstate = jstate.replace(batch_stats=_nest(stats), ema_batch_stats=_nest(stats))
     jmix = jax_build_mixup(jargs, 5)
     jstep = jax.jit(jax_build_train_step(jmodel, tx, jargs, 5, jmix, lr_sched, wd_sched,
                                          ema_decay=jargs.model_ema_decay))
@@ -166,11 +193,8 @@ def test_train_step_matches_jax(interpret_mode, case):
 
     # the updates of every parameter (and of the EMA) agree to 1e-4 of the
     # largest update: the gradients agree to fp32 rounding
-    jflat = {"/".join(p.key for p in path): np.asarray(v) for path, v in
-             jax.tree_util.tree_flatten_with_path(jstate.params)[0]}
-    jema = {"/".join(p.key for p in path): np.asarray(v) for path, v in
-            jax.tree_util.tree_flatten_with_path(jstate.ema_params)[0]}
-    pflat = carry_for(pmodel).to_jax(pmodel.state_dict())
+    jflat, jema = _flat_of(jstate.params), _flat_of(jstate.ema_params)
+    pflat = carry_for(pmodel).to_jax(dict(pmodel.named_parameters()))
     pema = carry_for(pmodel).to_jax(pstate.ema)
     scale = max(np.abs(jflat[k] - flat[k]).max() for k in flat)
     assert scale > 1e-4  # the steps moved the weights
@@ -179,6 +203,18 @@ def test_train_step_matches_jax(interpret_mode, case):
                                    rtol=0, err_msg=k)
         np.testing.assert_allclose(pema[k] - flat[k], jema[k] - flat[k], atol=1e-4 * scale,
                                    rtol=0, err_msg=f"ema {k}")
+    if stats:
+        # the running statistics and their EMA: fp32 batch means and biased
+        # variances of the same activations, 1e-5 on values of magnitude ~1
+        jst, jema_st = _flat_of(jstate.batch_stats), _flat_of(jstate.ema_batch_stats)
+        pst = carry_for(pmodel).to_jax(dict(pmodel.named_buffers()))
+        pema_st = carry_for(pmodel).to_jax(pstate.ema_stats)
+        assert set(pst) == set(jst) == set(pema_st) == set(jema_st) == set(stats)
+        assert max(np.abs(jst[k] - stats[k]).max() for k in stats) > 1e-2  # they moved
+        for k in stats:
+            np.testing.assert_allclose(pst[k], jst[k], atol=1e-5, rtol=1e-5, err_msg=k)
+            np.testing.assert_allclose(pema_st[k], jema_st[k], atol=1e-5, rtol=1e-5,
+                                       err_msg=f"ema {k}")
 
 
 def _port_state(update_freq=1, **kw):
@@ -215,6 +251,36 @@ def test_non_finite_loss_skips_the_update():
     _assert_same(ema_before, state.ema)
     assert state.optimizer.num_updates == 0 and not state.optimizer.inner.state
     assert state.step == 1
+
+
+def test_non_finite_loss_leaves_batch_stats_and_their_ema():
+    # a BatchNorm model: a non-finite loss commits none of the forward's batch
+    # statistics, and moves neither the parameters nor either EMA; the next
+    # finite step moves the statistics and their EMA
+    _, pargs = _configs(**RESNET, opt="adamw")
+    _, _, _, model = _family("resnet")
+    opt = create_optimizer("adamw", model.parameters(), lr=0.01, weight_decay=0.05)
+    state = create_train_state(model, opt, use_ema=True)
+    step = build_train_step(model, pargs, 5, build_mixup(pargs, 5), [0.01] * 8, [0.05] * 8,
+                            ema_decay=0.9)
+    images, labels = _batch()
+    batch = {"image": torch.from_numpy(images), "label": torch.from_numpy(labels)}
+    with torch.no_grad():
+        model.fc.bias[0] = float("inf")  # logits inf - inf: a NaN loss
+    before, ema_before = _snapshot(state)
+    stats_before = {k: v.clone() for k, v in state.ema_stats.items()}
+    m = step(state, batch)
+    assert m["skipped"] == 1.0 and state.optimizer.num_updates == 0
+    _assert_same(before, _snapshot(state)[0])  # parameters and running statistics
+    _assert_same(ema_before, state.ema)
+    _assert_same(stats_before, state.ema_stats)
+    with torch.no_grad():
+        model.fc.bias[0] = 0.0
+    step(state, batch)
+    assert state.optimizer.num_updates == 1
+    for k, v in model.named_buffers():
+        assert not torch.equal(v, before[k]), k
+        assert not torch.equal(state.ema_stats[k], stats_before[k]), k
 
 
 def test_non_finite_window_boundary_discards_the_window():

@@ -189,7 +189,7 @@ def test_registry_builds_vit_names(name):
 
 def test_registry_not_ported_and_unknown_names():
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        port_models.create_model("resnet50")
+        port_models.create_model("efficientvit_m0")
     with pytest.raises(ValueError):
         port_models.create_model("no_such_model")
 
