@@ -14,14 +14,16 @@ exit before the last line:
    qkv tensor), at the main path's shape and larger ones, with the kernel's,
    the plain version's and one PyTorch library call's times (CUDA events,
    median, host cost of each call included) beside the least time the card
-   could take (the bound): 3a the forward, 3b the backward (dK/dV and dQ
-   kernels, and the forward's lse), each kernel's device time from a trace;
+   could take (the bound), and the factor kernel ms / library ms: 3a the
+   forward, 3b the backward (dK/dV and dQ kernels, and the forward's lse),
+   each kernel's device time from a trace;
    3c the LayerNorm kernels (forward, backward) at ConvNeXt-T's four stage
    shapes, the head's and a ragged ViT row count, and on constant rows; 3d
    the depthwise-conv kernels (forward, dx, dw) at ConvNeXt-T's four stage
-   shapes; 3e the fused 1x1 conv + BN statistics kernel at ResNet-50's 1x1
-   shapes (both variants, and the ragged M = 3136 that the Pallas kernel
-   refuses), with cuBLAS `x @ w` and the unfused chain as yardsticks;
+   shapes, dw also run twice and held bitwise equal; 3e the fused 1x1 conv +
+   BN statistics kernel at ResNet-50's 1x1 shapes (both variants, and the
+   ragged M = 3136 that the Pallas kernel refuses), with cuBLAS `x @ w` and
+   the unfused chain as yardsticks;
 4. the serving path: a seeded JAX-format ViT-B/16 checkpoint trained with
    --flash_attn (random weights) and a seeded 5-class image folder go through
    `val_precision` and `val_move` on cuda at batch 64, with every kernel's
@@ -319,15 +321,23 @@ def check_attention(shape, device):
     ms = time_ms(lambda: fa.flash_attention(q, k, v), iters)
     plain_ms = time_ms(lambda: fa.flash_attention_ref(q, k, v), max(3, iters // 10))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt)
+
+    library_ms = time_ms(sdpa, iters)
     bound_ms, bound_by = attention_bound(B, N, H, D)
+    device_ms = _device_ms(lambda: fa.flash_attention(q, k, v), {"flash_attention_fwd_kernel": 1})
+    library_device_ms = _library_device_ms(sdpa)
     row = dict(shape=list(shape), max_abs_err=err, ms=ms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+               device_ms=device_ms, library_device_ms=library_device_ms)
     log(f"flash_attention_fwd B,N,H,D={shape} (strided qkv): max|d| vs fp32 plain "
         f"{err:.3e} (tol {tol:.3e} = 2^-7 of max|ref|; dropping the last key moves "
-        f"the reference by {tail:.3e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-        f"bound/kernel {bound_ms / ms:.3f}")
+        f"the reference by {tail:.3e}), kernel {ms:.4f} ms (device {device_ms:.4f}), plain "
+        f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms (device {library_device_ms:.4f}), "
+        f"kernel/sdpa {ms / library_ms:.3f} (device {device_ms / library_device_ms:.3f}), "
+        f"bound {bound_ms:.4f} ms ({bound_by}), bound/device {bound_ms / device_ms:.3f}")
     return row
 
 
@@ -744,14 +754,16 @@ def layernorm_bound(rows: int, C: int, part: str = "fwd", itemsize: int = 2):
     return max(t_bytes, t_flops) * 1e3, ("bytes" if t_bytes >= t_flops else "operations")
 
 
-def dwconv_bound(B: int, H: int, W: int, C: int, itemsize: int = 2):
-    """(bound_ms, bound_by) of the 7x7 depthwise conv over [B, H, W, C], the
-    same for the forward, dx and dw: two tensors of that shape read or
-    written and the 7x7xC weights (or dw), 2 * 49 flops per element on the
-    fp32 CUDA cores (a depthwise conv has no tensor-core form)."""
+def dwconv_bound(B: int, H: int, W: int, C: int, itemsize: int = 2, part: str = "fwd"):
+    """(bound_ms, bound_by) of the 7x7 depthwise conv over [B, H, W, C]: two
+    tensors of that shape read or written and the 7x7xC weights (or dw), 2 *
+    49 flops per element. 'fwd' (the forward, and dx) on the fp32 CUDA cores:
+    each channel has its own filter, so there is no dense tensor-core form.
+    'dw' at the bf16 tensor-core rate: per channel dw is a 7 x 7 product of
+    depth B*H*W (csrc/dwconv7x7.cu), whatever the kernel runs it on."""
     n = B * H * W * C
     t_bytes = (2 * n + 49 * C) * itemsize / HBM_BYTES_PER_S
-    t_flops = 2 * 49 * n / FP32_FLOPS_PER_S
+    t_flops = 2 * 49 * n / {"fwd": FP32_FLOPS_PER_S, "dw": BF16_FLOPS_PER_S}[part]
     return max(t_bytes, t_flops) * 1e3, ("bytes" if t_bytes >= t_flops else "operations")
 
 
@@ -779,6 +791,19 @@ def _device_ms(fn, launches: dict) -> float:
             return sum(sum(ms for ms, _ in got) / sum(n for _, n in got) * launches[name]
                        for name, got in seen.items())
     raise AssertionError(f"three traces held no launch of one of {list(launches)}")
+
+
+def _library_device_ms(fn, traces: int = 3) -> float:
+    """Device ms per call of a library call fn(), whose kernels are not known
+    by name: every kernel of `traces` traces at its mean time per launch,
+    times the most launches per call one trace kept, as `_device_ms` reads a
+    kernel that a trace may have dropped launches of."""
+    seen = {}
+    for _ in range(traces):
+        for name, (ms, n) in trace(fn)[2].items():
+            total, launches, most = seen.get(name, (0.0, 0.0, 0.0))
+            seen[name] = (total + ms, launches + n, max(most, n))
+    return sum(total / launches * most for total, launches, most in seen.values())
 
 
 def check_layernorm(rows: int, C: int, device, constant: bool = False, timed: bool = True):
@@ -862,7 +887,10 @@ def check_dwconv(shape, device, timed: bool = True):
     dy = torch.randn(shape, generator=g, device=device).bfloat16()
     y = dw.depthwise_conv7x7(x, w)
     dx, dwg = dw.dwconv7x7_bwd(x, w, dy)
+    again = dw._launch_dw(x, dy, w.dtype)
     torch.cuda.synchronize()
+    if not torch.equal(dwg, again):  # no atomics: the same bits on every run
+        raise AssertionError(f"dwconv7x7_dw {shape}: two runs differ")
     errs = {"y": _hold(f"dwconv7x7_fwd {shape}", y, dw.dwconv7x7_ref(x.float(), w.float()),
                        OP_RTOL),
             "dx": _hold(f"dwconv7x7 dx {shape}", dx,
@@ -893,13 +921,23 @@ def check_dwconv(shape, device, timed: bool = True):
             "fwd": _device_ms(lambda: dw.depthwise_conv7x7(x, w), {"dwconv7x7_fwd_kernel": 1}),
             "dw": _device_ms(lambda: dw._launch_dw(x, dy, w.dtype),
                              {"dwconv7x7_dw_kernel": 1, "sum_partials": 1})}
-        row["bound"] = dwconv_bound(B, H, W, C)
+        row["library_device_ms_dw"] = _library_device_ms(
+            lambda: conv_bwd(dyc, xc, wc, None, [1, 1], [3, 3], [1, 1], False, [0, 0], C,
+                             [False, True, False]))
+        row["bound"] = {part: dwconv_bound(B, H, W, C, part=part) for part in ("fwd", "dw")}
+        factor = {k: row["ms"][k] / row["library_ms"][k] for k in row["ms"]}
         log(f"dwconv7x7 {shape} bf16: kernel ms fwd {row['ms']['fwd']:.4f} (device "
             f"{row['device_ms']['fwd']:.4f}), dx {row['ms']['dx']:.4f}, dw {row['ms']['dw']:.4f} "
             f"(device {row['device_ms']['dw']:.4f}); plain fwd {row['plain_ms']['fwd']:.4f}, dw "
             f"{row['plain_ms']['dw']:.4f}; cuDNN fwd {row['library_ms']['fwd']:.4f}, dx "
-            f"{row['library_ms']['dx']:.4f}, dw {row['library_ms']['dw']:.4f}; bound "
-            f"{row['bound'][0]:.4f} ms ({row['bound'][1]})")
+            f"{row['library_ms']['dx']:.4f}, dw {row['library_ms']['dw']:.4f} (device "
+            f"{row['library_device_ms_dw']:.4f}); kernel/cuDNN fwd {factor['fwd']:.3f}, dx "
+            f"{factor['dx']:.3f}, dw {factor['dw']:.3f} (device "
+            f"{row['device_ms']['dw'] / row['library_device_ms_dw']:.3f}); bound fwd/dx "
+            f"{row['bound']['fwd'][0]:.4f} ms ({row['bound']['fwd'][1]}, fp32), dw "
+            f"{row['bound']['dw'][0]:.4f} ms ({row['bound']['dw'][1]}, bf16 tensor cores), dw "
+            f"bound/device {row['bound']['dw'][0] / row['device_ms']['dw']:.3f}; dw bitwise "
+            f"equal over two runs")
     log(f"dwconv7x7 {shape}: max|d| vs plain "
         + ", ".join(f"{k} {e:.3e} (tol {t:.3e})" for k, (e, t) in errs.items()))
     return row
@@ -1643,6 +1681,8 @@ def main() -> int:
         "max_abs_err": main_row["max_abs_err"], "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"], "library_ms": main_row["library_ms"],
+        "device_ms": main_row["device_ms"], "library_device_ms": main_row["library_device_ms"],
+        "launches_lse": totals["fwd_lse"],
     }]
     for part, line, errs in (("dkv", 1121, ("dk", "dv")), ("dq", 1456, ("dq",))):
         kernels.append({
@@ -1685,13 +1725,15 @@ def main() -> int:
             "max_abs_err": max(dw0["errs"][e][0] for e in (("y", "dx") if part == "fwd"
                                                             else ("dw",))),
             "ms": dw0["ms"][part], "plain_ms": dw0["plain_ms"][part],
-            "bound_ms": dw0["bound"][0], "bound_by": dw0["bound"][1],
+            "bound_ms": dw0["bound"][part][0], "bound_by": dw0["bound"][part][1],
             "library_ms": dw0["library_ms"][part], "shape": dw0["shape"],
             "path": replay_path.format(f"{n_dw} depthwise convs"),
         })
     kernels[-2].update(launches_fwd=replay["launches"]["dw_fwd"],
                        launches_dx=replay["launches"]["dw_dx"], ms_dx=dw0["ms"]["dx"],
-                       library_ms_dx=dw0["library_ms"]["dx"])
+                       library_ms_dx=dw0["library_ms"]["dx"], device_ms=dw0["device_ms"]["fwd"])
+    kernels[-1].update(device_ms=dw0["device_ms"]["dw"],
+                       library_device_ms=dw0["library_device_ms_dw"])
     # the fused 1x1 conv row: ResNet-50's stage-1 conv3 shape (the largest),
     # launches counted over the replay of phase 7b
     k2_0 = k2_rows[0]

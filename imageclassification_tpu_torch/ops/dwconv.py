@@ -16,8 +16,13 @@ dw in w's dtype.
 What bounds the kernels on an H100 and what the designs do about it: see the
 header of `csrc/dwconv7x7.cu` (operations on the fp32 CUDA cores: input tile
 and halo in shared memory, zero-filled by the copy instead of a padded
-tensor, 8 channels x 4 pixels of fp32 accumulators a thread; dw from per-CTA
-partials summed by a second pass, no atomics).
+tensor, 8 channels x 4 pixels of fp32 accumulators a thread; dw slides a
+7-pixel register window of x along a row, 7 x 4 accumulators a thread, over
+bands of 8 rows fed by TMA, from per-CTA partials summed by a second pass, no
+atomics).
+The host computes dw's work split and shared-memory layout (`dw_plan`) and
+passes them to the kernel, which checks and uses them, so the CPU tests check
+what is launched.
 
 Like the Pallas kernel this is an op of its own: the JAX ConvNeXt runs
 `lax.conv` and the port's ConvNeXt runs `F.conv2d(groups=C)`, not this op.
@@ -31,6 +36,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -41,10 +47,16 @@ KERNEL = "dwconv7x7"
 K, PAD = 7, 3
 # the channel width of a thread: C must be a multiple of it
 CHANNEL_VECTOR = 8
-# CTAs (over every channel tile) of the weight gradient, each writing one
-# fp32 partial row of [49 * C]
-DW_CTAS = 1056
-_TILE, _CHANNEL_TILE = 8, 32
+# the weight gradient's work split (csrc/dwconv7x7.cu): bands of DW_ROWS dy
+# rows, tiles of DW_CHANNELS channels, segments of at most DW_SEGMENT columns
+# (a multiple of 7), up to DW_STAGES shared-memory stages a CTA;
+# DW_CTAS_PER_SM CTAs of 7 warps fit an SM by registers, and by shared memory
+# when each stays within DW_SMEM_PER_CTA bytes (an H100 SM has 228 KB, of
+# which each CTA's runtime keeps 1 KB)
+DW_ROWS, DW_CHANNELS, DW_SEGMENT, DW_STAGES = 8, 16, 28, 4
+DW_CTAS_PER_SM = 3
+DW_SMEM_PER_CTA = (233472 - DW_CTAS_PER_SM * 1024) // DW_CTAS_PER_SM
+H100_SMS = 132
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -76,12 +88,17 @@ def dwconv7x7_dw_ref(x: torch.Tensor, dy: torch.Tensor, dtype: torch.dtype) -> t
 
 
 @functools.cache
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.cache
 def _kernels():
     lib = _build.load(KERNEL)
     p, i = ctypes.c_void_p, ctypes.c_int
     fwd, dw = lib.dwconv7x7_fwd, lib.dwconv7x7_dw
     fwd.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
-    dw.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+    dw.argtypes = [p, p, p, p] + [i] * 14 + [p]
     fwd.restype = dw.restype = ctypes.c_int
     return fwd, dw
 
@@ -120,12 +137,63 @@ def _launch_fwd(x: torch.Tensor, w: torch.Tensor, flip: bool = False) -> torch.T
     return out
 
 
-def dw_ctas(B: int, H: int, W: int, C: int) -> int:
-    """The weight-gradient kernel's partial slots per channel tile: at most
-    DW_CTAS CTAs over all channel tiles, and no more slots than (batch,
-    8x8 tile) items."""
-    items = B * math.ceil(H / _TILE) * math.ceil(W / _TILE)
-    return max(1, min(items, DW_CTAS // math.ceil(C / _CHANNEL_TILE)))
+class DwPlan(NamedTuple):
+    """The weight-gradient kernel's work split: item i of the
+    B * bands * segs items is (batch i // (bands * segs), band
+    (i // segs) % bands, segment i % segs); CTA (slot, tile) sums the items
+    slot, slot + slots, ... of channel tile `tile`."""
+    seg: int        # columns a segment (a multiple of 7)
+    segs: int
+    bands: int
+    tiles: int
+    items: int
+    slots: int      # CTAs a channel tile, each writing one fp32 partial row
+    stages: int     # shared-memory stages a CTA: the next stages - 1 items load ahead
+    row_x: int      # pixels a shared-memory row of the x tile (odd, >= seg + 6)
+    row_dy: int     # pixels a shared-memory row of the dy tile (odd, >= seg)
+    x_bytes: int    # the x tile of a stage, rounded up to 128 bytes; the dy tile follows
+    stage_bytes: int
+    smem_bytes: int  # dynamic shared memory a CTA: the stages + 128 to align them
+
+
+@functools.lru_cache(maxsize=64)
+def dw_plan(B: int, H: int, W: int, C: int, itemsize: int, sms: int = H100_SMS) -> DwPlan:
+    """The split for [B, H, W, C] inputs of `itemsize` bytes on a card of `sms`
+    SMs: segments as wide as DW_SEGMENT allows, split evenly and rounded up to
+    7; at most DW_CTAS_PER_SM CTAs an SM over all channel tiles, and as few
+    rounds of items per CTA as that allows, spread over as few slots as give
+    them; as many stages (up to DW_STAGES) as fit in a CTA's share of shared
+    memory. A stage holds the x tile (DW_ROWS + 6 rows of row_x pixels) and
+    then the dy tile (DW_ROWS rows of row_dy pixels), each 128-byte aligned
+    for TMA; odd rows keep a warp's loads free of bank conflicts."""
+    segs = math.ceil(W / DW_SEGMENT)
+    seg = 7 * math.ceil(math.ceil(W / segs) / 7)
+    bands, tiles = math.ceil(H / DW_ROWS), math.ceil(C / DW_CHANNELS)
+    items = B * bands * segs
+    rounds = math.ceil(items / max(1, min(items, DW_CTAS_PER_SM * sms // tiles)))
+    row_x, row_dy = (seg + 2 * PAD) | 1, seg | 1
+    x_bytes = _round128((DW_ROWS + 2 * PAD) * row_x * DW_CHANNELS * itemsize)
+    stage = x_bytes + _round128(DW_ROWS * row_dy * DW_CHANNELS * itemsize)
+    stages = max(1, min(DW_STAGES, (DW_SMEM_PER_CTA - 128) // stage))
+    return DwPlan(seg, segs, bands, tiles, items, math.ceil(items / rounds), stages, row_x,
+                  row_dy, x_bytes, stage, stages * stage + 128)
+
+
+def _round128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def dw_cta_work(plan: DwPlan, H: int, W: int, C: int, slot: int, tile: int):
+    """What CTA (slot, tile) of `plan` sums, as the kernel indexes it: a list
+    of (batch, rows, columns, channels) ranges, one per item."""
+    work = []
+    for i in range(slot, plan.items, plan.slots):
+        b, rem = divmod(i, plan.bands * plan.segs)
+        band, s = divmod(rem, plan.segs)
+        work.append((b, range(band * DW_ROWS, min(H, (band + 1) * DW_ROWS)),
+                     range(s * plan.seg, min(W, (s + 1) * plan.seg)),
+                     range(tile * DW_CHANNELS, min(C, (tile + 1) * DW_CHANNELS))))
+    return work
 
 
 def _launch_dw(x: torch.Tensor, dy: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -136,12 +204,14 @@ def _launch_dw(x: torch.Tensor, dy: torch.Tensor, dtype: torch.dtype) -> torch.T
         raise ValueError(f"dy must match x's shape and dtype, got {tuple(dy.shape)} {dy.dtype}")
     x, dy = _build.aligned(x), _build.aligned(dy)
     B, H, W, C = x.shape
-    slots = dw_ctas(B, H, W, C)
-    part = torch.empty((slots, K * K * C), dtype=torch.float32, device=x.device)
+    plan = dw_plan(B, H, W, C, x.element_size(), _sms(x.device))
+    part = torch.empty((plan.slots, K * K * C), dtype=torch.float32, device=x.device)
     dw = torch.empty((K, K, C), dtype=dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = _kernels()[1](x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(), B, H,
-                            W, C, slots, _DTYPES[x.dtype], _DTYPES[dtype], _build.stream(x))
+                            W, C, plan.seg, plan.row_x, plan.row_dy, plan.x_bytes,
+                            plan.stage_bytes, plan.slots, plan.stages, plan.smem_bytes,
+                            _DTYPES[x.dtype], _DTYPES[dtype], _build.stream(x))
     _build.raise_on(err, "dwconv7x7_dw")
     depthwise_conv7x7.launches_dw += 1
     return dw

@@ -13,9 +13,13 @@ kernels mask the ragged tail themselves.
 What bounds them on an H100 and what the designs do about it: see the headers
 of `csrc/flash_attention_fwd.cu` and `csrc/flash_attention_bwd.cu`. In short:
 memory-bound at ViT's N = 197, compute-bound from a few hundred tokens up;
-one CTA per (batch, head, 64-row tile) looping over the other axis, tiles
-streamed through shared memory with cp.async, the N x N products kept in
-registers, all products on tensor cores (mma.sync bf16, fp32 accumulation).
+the N x N products kept in registers, all products on tensor cores (bf16,
+fp32 accumulation). The forward: persistent CTAs walking over (batch, head,
+128-row query block) items, K/V tiles loaded by TMA into a 4-stage ring from
+tensor maps of the strided [B, N, H, 64] view (`tensor_map_layout`),
+products on the warpgroup tensor cores (wgmma). The backward: one CTA per
+(batch, head, 64-row tile) looping over the other axis, tiles streamed
+through shared memory with cp.async, mma.sync.
 The forward writes the row log-sum-exp (fp32 [B, H, N]) only when autograd
 will run the backward, which recomputes P from it.
 
@@ -75,10 +79,11 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do):
     return tuple(t.transpose(1, 2).to(q.dtype) for t in (dq, dk, dv))
 
 
-def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """Raise on what the kernels do not take: NotImplementedError for the
     dtypes and head sizes not ported yet, ValueError for a layout the kernels
-    cannot read."""
+    cannot read. Returns the layout of the forward's tensor maps
+    (`tensor_map_layout`), which the backward's 16-byte loads need too."""
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise NotImplementedError(
             f"flash-attention kernel takes bfloat16 only, got {q.dtype}/{k.dtype}/{v.dtype}"
@@ -96,20 +101,32 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> No
         raise ValueError(
             f"q, k, v must share strides, got {q.stride()}, {k.stride()}, {v.stride()}"
         )
-    if not _readable(q):
-        raise ValueError(
-            f"kernel needs unit stride on D and other strides a multiple of 8, got {q.stride()}"
-        )
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
+    if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
         raise ValueError("kernel needs 16-byte aligned q, k, v")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must be on one device")
+    return tensor_map_layout(q)
 
 
 def _readable(t: torch.Tensor) -> bool:
     """The kernels read 16-byte chunks along D: unit stride there, the other
     strides a multiple of 8 elements."""
     return t.stride(-1) == 1 and not any(s % 8 for s in t.stride()[:3])
+
+
+def tensor_map_layout(t: torch.Tensor):
+    """(dims, byte strides) of the forward kernel's TMA tensor map over a
+    [B, N, H, D] view: dims (D, H, N, B) innermost first, and the byte strides
+    of H, N and B. TMA needs a unit stride on D and the other byte strides
+    multiples of 16 below 2^40; raises ValueError for a view it cannot take."""
+    if t.dim() != 4:
+        raise ValueError(f"tensor map over [B, N, H, D] only, got {tuple(t.shape)}")
+    B, N, H, D = t.shape
+    sb, sn, sh, sd = (s * t.element_size() for s in t.stride())
+    if sd != t.element_size() or any(s % 16 or s >= 2 ** 40 for s in (sh, sn, sb)):
+        raise ValueError(f"TMA needs unit stride on D and 16-byte multiples on H, N, B; "
+                         f"got strides {t.stride()} of {t.element_size()}-byte elements")
+    return (D, H, N, B), (sh, sn, sb)
 
 
 def _fn(lib: str, name: str, n_ptrs: int, n_ints: int, n_strides: int):
@@ -137,16 +154,15 @@ def _kernel_dq():
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool = False):
     """Forward kernel: (out, lse), lse None unless `with_lse`."""
-    check_kernel_inputs(q, k, v)
+    _, strides = check_kernel_inputs(q, k, v)  # k and v share q's strides
     B, N, H, D = q.shape
     out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device) if with_lse else None
-    sb, sn, sh, _ = q.stride()
     with torch.cuda.device(q.device):
         err = _kernel()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if with_lse else None,
-            B, N, H, sb, sn, sh, D ** -0.5, _build.stream(q),
+            B, N, H, *strides, D ** -0.5, _build.stream(q),
         )
     _build.raise_on(err, KERNEL)
     flash_attention.launches += 1

@@ -148,11 +148,55 @@ def test_kernel_input_checks(dtype, C, err):
         dwconv.check_kernel_inputs(torch.zeros((1, 4, 4, 8)), (3, 3, 8), torch.float32)
 
 
-def test_dw_partial_slots():
-    # at most DW_CTAS CTAs over the channel tiles, never more slots than items
-    assert dwconv.dw_ctas(64, 56, 56, 96) == dwconv.DW_CTAS // 3
-    assert dwconv.dw_ctas(64, 7, 7, 768) == dwconv.DW_CTAS // 24
-    assert dwconv.dw_ctas(1, 8, 8, 8) == 1
+@pytest.mark.parametrize("hw", [7, 13, 14, 28, 56])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_dw_plan_covers_every_pixel_once(hw, itemsize):
+    # the weight-gradient kernel's items, as it indexes them, cover every
+    # (batch, row, column, channel) exactly once over all CTAs (slot, tile)
+    B, C = 3, 40  # three channel tiles, the last one ragged
+    plan = dwconv.dw_plan(B, hw, hw, C, itemsize)
+    seen = np.zeros((B, hw, hw, C), np.int64)
+    for tile in range(plan.tiles):
+        for slot in range(plan.slots):
+            work = dwconv.dw_cta_work(plan, hw, hw, C, slot, tile)
+            assert work, "every CTA sums at least one item"
+            for b, rows, cols, chans in work:
+                assert len(rows) <= dwconv.DW_ROWS and len(cols) <= plan.seg
+                seen[b, rows.start:rows.stop, cols.start:cols.stop, chans.start:chans.stop] += 1
+    assert (seen == 1).all()
+    assert plan.seg % 7 == 0 and plan.seg <= dwconv.DW_SEGMENT
+
+
+@pytest.mark.parametrize("shape", [(64, 56, 56, 96), (64, 28, 28, 192), (64, 14, 14, 384),
+                                   (64, 7, 7, 768), (2, 224, 224, 8)])
+def test_dw_plan_fits_the_ctas_of_an_sm(shape):
+    # ConvNeXt-T's four stages (and a wide image, split into segments): at
+    # most DW_CTAS_PER_SM CTAs an SM over all channel tiles, each within its
+    # share of shared memory; no padding along a row at 224^2
+    for itemsize in (2, 4):
+        plan = dwconv.dw_plan(*shape, itemsize)
+        assert plan.slots * plan.tiles <= dwconv.DW_CTAS_PER_SM * dwconv.H100_SMS
+        assert plan.smem_bytes <= dwconv.DW_SMEM_PER_CTA
+        assert plan.slots <= plan.items  # no CTA without an item
+    bf16 = dwconv.dw_plan(*shape, 2)
+    assert bf16.seg * bf16.segs == shape[2]
+    assert bf16.stages >= 2  # the next item loads while one computes
+
+
+@pytest.mark.parametrize("hw", [7, 13, 14, 28, 56, 224])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_dw_plan_layout_holds_the_tiles(hw, itemsize):
+    # what the kernel's launch checks before it takes the layout: odd rows
+    # at least as wide as the boxes' columns, 128-byte aligned tiles that
+    # hold the TMA boxes, and a request that holds every stage
+    plan = dwconv.dw_plan(2, hw, hw, 16, itemsize)
+    px = dwconv.DW_CHANNELS * itemsize  # bytes a pixel of a tile
+    assert plan.row_x % 2 == 1 and plan.row_x >= plan.seg + 2 * dwconv.PAD
+    assert plan.row_dy % 2 == 1 and plan.row_dy >= plan.seg
+    assert plan.x_bytes % 128 == 0 and plan.stage_bytes % 128 == 0
+    assert plan.x_bytes >= (dwconv.DW_ROWS + 2 * dwconv.PAD) * plan.row_x * px
+    assert plan.stage_bytes - plan.x_bytes >= dwconv.DW_ROWS * plan.row_dy * px
+    assert plan.smem_bytes == plan.stages * plan.stage_bytes + 128
 
 
 CARD_SHAPES = [(2, 12, 10, 8), (3, 9, 13, 40), (4, 28, 28, 192), (2, 56, 56, 96),
@@ -195,3 +239,21 @@ def test_kernels_take_a_bf16_input_with_fp32_weights_on_card(cuda_device):
     first = dwconv.dwconv7x7_bwd(xb, w, xb)
     for a, c in zip(first, dwconv.dwconv7x7_bwd(xb, w, xb)):
         assert torch.equal(a, c)  # no atomics: the same bits every run
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [8, 40, 96, 200, 768])
+@pytest.mark.parametrize("hw", [7, 13, 28, 56])
+def test_dw_kernel_matches_plain_version_and_repeats_on_card(cuda_device, hw, C):
+    # bf16 x and dy, fp32 dw: sums of H*W terms in fp32 in another order,
+    # 1e-4 of the largest value; no atomics, so a second run gives the same bits
+    x, _ = _xw((1, hw, hw, C), seed=hw + C)
+    dy = np.random.default_rng(hw * C).standard_normal(x.shape).astype(np.float32)
+    x, dy = (torch.from_numpy(a).to(cuda_device, torch.bfloat16) for a in (x, dy))
+    first = dwconv._launch_dw(x, dy, torch.float32)
+    second = dwconv._launch_dw(x, dy, torch.float32)
+    torch.cuda.synchronize()
+    want = dwconv.dwconv7x7_dw_ref(x, dy, torch.float32)
+    err = (first - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item(), f"max|d| {err}"
+    assert torch.equal(first, second)

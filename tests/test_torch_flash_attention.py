@@ -124,6 +124,26 @@ def test_kernel_input_checks_reject_unreadable_layouts():
         fa.check_kernel_inputs(t, t, t)
 
 
+def test_tensor_map_layout_of_fused_and_contiguous_views():
+    # the forward kernel's TMA tensor maps: dims (D, H, N, B) innermost first
+    # and the byte strides of H, N, B, read straight from the view
+    B, N, H = 2, 197, 12
+    q = torch.zeros((B, N, 3, H, 64), dtype=torch.bfloat16).unbind(2)[0]
+    assert fa.tensor_map_layout(q) == ((64, H, N, B), (128, 3 * H * 128, N * 3 * H * 128))
+    c = torch.zeros((B, N, H, 64), dtype=torch.bfloat16)
+    assert fa.tensor_map_layout(c) == ((64, H, N, B), (128, H * 128, N * H * 128))
+
+
+@pytest.mark.parametrize("make", [
+    lambda: torch.zeros((2, 9, 3, 68), dtype=torch.bfloat16)[..., :64],  # H stride 136 B
+    lambda: torch.zeros((2, 9, 64, 3), dtype=torch.bfloat16).transpose(2, 3),  # D strided
+    lambda: torch.zeros((2, 9, 64), dtype=torch.bfloat16),  # not [B, N, H, D]
+])
+def test_tensor_map_layout_rejects_what_tma_cannot_read(make):
+    with pytest.raises(ValueError):
+        fa.tensor_map_layout(make())
+
+
 @pytest.fixture(scope="module")
 def jax_flash_grads():
     """get(n) -> (q, k, v, g, (dq, dk, dv)): jax.grad of sum(g * out) through
@@ -277,3 +297,42 @@ def test_backward_kernels_match_plain_version_on_card(cuda_device, launches, n):
         tol = 2.0 ** -6 * w.abs().max().item() + 1e-5
         err = (got.float() - w).abs().max().item()
         assert err <= tol, f"d{name}: max|d| {err} > {tol}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_lse", [False, True])
+@pytest.mark.parametrize("n", [1, 5, 63, 64, 65, 129, 197, 577, 1025])
+def test_forward_on_fused_qkv_views_on_card(cuda_device, launches, n, with_lse):
+    # every ragged tail against the 64-key tiles and 128-row query blocks;
+    # bf16 output: 2^-7 of the largest reference value (P rounded to bf16
+    # before P.V, the output rounded once); lse as logsumexp of fp32 scores
+    q, k, v = _card_qkv(n, cuda_device, seed=7 * n).unbind(2)
+    out, lse = fa._launch(q, k, v, with_lse=with_lse)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == 1 and fa.flash_attention.launches_lse == int(with_lse)
+    ref = fa.flash_attention_ref(q.float(), k.float(), v.float())
+    assert out.is_contiguous() and out.shape == q.shape
+    err = (out.float() - ref).abs().max().item()
+    assert err <= 2.0 ** -7 * ref.abs().max().item(), f"max|d| {err}"
+    if with_lse:
+        torch.testing.assert_close(lse, fa.flash_attention_lse_ref(q, k), atol=1e-3, rtol=0)
+    else:
+        assert lse is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [63, 64, 129, 1025])
+def test_backward_kernels_take_the_forward_lse_on_card(cuda_device, n):
+    # the backward kernels on the forward kernel's o and lse, against the
+    # fp32 plain backward: 2^-6 of the largest reference gradient
+    q, k, v = _card_qkv(n, cuda_device, seed=9 * n).unbind(2)
+    do = _card_qkv(n, cuda_device, seed=11 * n)[:, :, 0]
+    o, lse = fa._launch(q, k, v, with_lse=True)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    want = fa.flash_attention_bwd_ref(qf, kf, vf, fa.flash_attention_ref(qf, kf, vf),
+                                      fa.flash_attention_lse_ref(qf, kf), do.float())
+    for name, got, w in zip(("dq", "dk", "dv"), grads, want):
+        err = (got.float() - w).abs().max().item()
+        assert err <= 2.0 ** -6 * w.abs().max().item(), f"{name}: max|d| {err}"

@@ -539,6 +539,31 @@ def test_device_ms_survives_dropped_launches(monkeypatch):
     with pytest.raises(AssertionError, match="no launch"):
         chip_smoke._device_ms(None, {"conv1x1_bn_kernel": 1})
 
+
+def test_library_device_ms_survives_dropped_launches(monkeypatch):
+    # a library call's kernels, unknown by name, over three traces: each at
+    # its mean per launch, times the most launches per call one trace kept
+    traces = iter([
+        {"wgrad": (0.2, 2.0), "reduce": (0.1, 1.0)},
+        {"wgrad": (0.1, 1.0)},  # half of wgrad's launches, none of reduce's
+        {"wgrad": (0.2, 2.0), "reduce": (0.1, 1.0)},
+    ])
+    monkeypatch.setattr(chip_smoke, "trace", lambda fn: (0.0, 0.0, next(traces)))
+    got = chip_smoke._library_device_ms(None)
+    assert got == pytest.approx(0.5 / 5.0 * 2 + 0.2 / 2.0 * 1, rel=1e-12)
+
+
+@pytest.mark.parametrize("shape, want", [((64, 56, 56, 96), 0.0230), ((64, 28, 28, 192), 0.0115),
+                                         ((64, 14, 14, 384), 0.0058), ((64, 7, 7, 768), 0.0029)])
+def test_dwconv_dw_bound_is_its_bytes_at_the_tensor_core_rate(shape, want):
+    # dw is per channel a 7 x 7 product of depth B*H*W: its 98 flops per
+    # element over 989 TFLOP/s of bf16 take less time than reading x and dy
+    B, H, W, C = shape
+    ms, by = chip_smoke.dwconv_bound(*shape, part="dw")
+    assert by == "bytes" and ms == pytest.approx(
+        (2 * B * H * W * C + 49 * C) * 2 / 3.35e12 * 1e3, rel=1e-12)
+    assert ms == pytest.approx(want, abs=1e-4)
+
 # ResNet: resnet18 at 32x32 (BasicBlock; the stem's 7x7/s2 and the max pool
 # leave 8x8 for the blocks), and a narrow Bottleneck for the replay
 RESNET_SPEC = {"name": "resnet18", "kwargs": {"num_classes": 3}}
