@@ -15,7 +15,10 @@ exit before the last line:
    the plain version's and one PyTorch library call's times (CUDA events,
    median, host cost of each call included) beside the least time the card
    could take (the bound), and the factor kernel ms / library ms: 3a the
-   forward, 3b the backward (dK/dV and dQ kernels, and the forward's lse),
+   forward, 3b the backward (the dQ kernel, which also writes di, then the
+   dK/dV kernel; and the forward's lse): one launch of each and no other
+   kernel in its trace, two runs bitwise equal, its device time against
+   SDPA's backward (forward + backward less forward) and the factor;
    each kernel's device time from a trace;
    3c the LayerNorm kernels (forward, backward) at ConvNeXt-T's four stage
    shapes, the head's and a ragged ViT row count, and on constant rows; 3d
@@ -39,8 +42,9 @@ exit before the last line:
    in the JAX layout and load in the port's val.py;
    5b. on the trained weights: ms per train step and img/s (CUDA events over
    one fixed batch), a torch.profiler trace of train steps with flash on and
-   off, and the flash path's gradients of one step held against the plain
-   attention path and fp32 on the same weights, batch and draws;
+   off (with the backward kernels' device ms a step), and the flash path's
+   gradients of one step held against the plain attention path and fp32 on
+   the same weights, batch and draws;
 6. the ConvNeXt-T training path: `train.main --model convnext_tiny` at
    224x224, batch 64, the default training flags, 2 epochs of 10 steps on the
    folder of phase 5; losses finite, no kernel launched (the model runs
@@ -342,13 +346,16 @@ def check_attention(shape, device):
 
 
 def backward_bound(B, N, H, D, part="all"):
-    """(bound_ms, bound_by) of the attention backward. 'all': q, k, v, o, dO
-    read and dq, dk, dv written in bf16, lse and di in fp32, and the five
-    products S, dP, dV, dK, dQ (10*B*H*N^2*D flops); 'dkv': q, k, v, dO, lse,
-    di in and dk, dv out, products S, dP, dV, dK; 'dq': q, k, v, dO, lse, di
-    in and dq out, products S, dP, dQ."""
-    tensors, products = {"all": (8, 5), "dkv": (6, 4), "dq": (5, 3)}[part]
-    t_bytes = (tensors * B * N * H * D * 2 + 2 * B * H * N * 4) / HBM_BYTES_PER_S
+    """(bound_ms, bound_by) of the attention backward. 'all': the function,
+    q, k, v, o, dO and lse read and dq, dk, dv written (bf16; lse fp32), and
+    its five products S, dP, dV, dK, dQ (10*B*H*N^2*D flops); 'two_kernel':
+    the same bytes and the seven products of the two-kernel design (S and dP
+    in both kernels); 'dq': q, k, v, o, dO and lse in, dq and di (fp32) out,
+    products S, dP, dQ; 'dkv': q, k, v, dO, lse and di in, dk and dv out,
+    products S, dP, dV, dK."""
+    tensors, stats, products = {"all": (8, 1, 5), "two_kernel": (8, 1, 7), "dq": (6, 2, 3),
+                                "dkv": (6, 2, 4)}[part]
+    t_bytes = (tensors * B * N * H * D * 2 + stats * B * H * N * 4) / HBM_BYTES_PER_S
     t_flops = products * 2 * B * H * N * N * D / BF16_FLOPS_PER_S
     return max(t_bytes, t_flops) * 1e3, ("bytes" if t_bytes >= t_flops else "operations")
 
@@ -390,11 +397,17 @@ def compare_backward(grads, q, k, v, do):
     return out
 
 
+BWD_KERNELS = ("flash_attention_bwd_dq_kernel", "flash_attention_bwd_dkv_kernel")
+
+
 def check_backward(shape, device):
     """The backward kernels (and the forward's lse) against their plain
     versions at one shape, on q, k, v read strided out of one fused qkv
-    tensor; kernel ms (both, and each alone), plain ms, the SDPA backward's
-    ms (forward + backward less forward) and the bounds."""
+    tensor: one backward is one launch of each kernel by the counts and the
+    only kernels in its trace (di included), and two runs give the same
+    bits. Kernel ms (both, and each alone; CUDA events), device ms (both and
+    each, from traces), plain ms, the SDPA backward's ms and device ms
+    (forward + backward less forward) and the bounds."""
     import torch
     import torch.nn.functional as F
 
@@ -409,41 +422,74 @@ def check_backward(shape, device):
     lse_err = (lse - fa.flash_attention_lse_ref(q, k)).abs().max().item()
     if not lse_err <= LSE_ATOL:
         raise AssertionError(f"forward lse {shape}: max|d| {lse_err} > {LSE_ATOL}")
+    fa.reset_launches()
     grads = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    counts = (fa.flash_attention.launches_dq, fa.flash_attention.launches_dkv)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do)
     torch.cuda.synchronize()
+    if counts != (1, 1):
+        raise AssertionError(f"attention backward {shape}: launches (dq, dkv) {counts}, "
+                             "expected one of each")
+    for name, a, b in zip(("dq", "dk", "dv"), grads, again):
+        if not torch.equal(a, b):
+            raise AssertionError(f"attention backward {shape}: {name} differs between two runs")
     errs = compare_backward(grads, q, k, v, do)
 
+    def bwd():
+        return fa.flash_attention_bwd(q, k, v, o, lse, do)
+
+    others = [name for name in trace(bwd, steps=3)[2]
+              if not any(kernel in name for kernel in BWD_KERNELS)]
+    if others:
+        raise AssertionError(f"attention backward {shape}: kernels besides the two in its "
+                             f"trace: {others}")
     iters = max(5, min(200, int(1e9 // (B * H * N * N * D))))
-    ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do), iters)
-    dob, di = fa._bwd_inputs(q, k, v, o, lse, do)
-    ms_dkv = time_ms(lambda: fa._launch_dkv(q, k, v, dob, lse, di), iters)
-    ms_dq = time_ms(lambda: fa._launch_dq(q, k, v, dob, lse, di), iters)
+    ms = time_ms(bwd, iters)
+    strides = fa._bwd_inputs(q, k, v, o, lse, do)[1]
+    _, di = fa._launch_dq(q, k, v, o, do, lse, strides)
+    ms_dq = time_ms(lambda: fa._launch_dq(q, k, v, o, do, lse, strides), iters)
+    ms_dkv = time_ms(lambda: fa._launch_dkv(q, k, v, do, lse, di, strides), iters)
     plain_ms = time_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, o, lse, do),
                        max(3, iters // 10))
+    device_ms = _device_ms(bwd, {name: 1 for name in BWD_KERNELS})
+    device_each = {part: _device_ms(bwd, {f"flash_attention_bwd_{part}_kernel": 1})
+                   for part in ("dq", "dkv")}
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
     dot = do.transpose(1, 2)
-    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters)
-    sdpa_fwd_bwd = time_ms(lambda: torch.autograd.grad(
-        F.scaled_dot_product_attention(qt, kt, vt), (qt, kt, vt), dot), iters)
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(F.scaled_dot_product_attention(qt, kt, vt), (qt, kt, vt), dot)
+
+    sdpa_ms = time_ms(sdpa_fwd, iters)
+    sdpa_fwd_bwd_ms = time_ms(sdpa_fwd_bwd, iters)
+    sdpa_device = _library_device_ms(sdpa_fwd)
+    sdpa_fwd_bwd_device = _library_device_ms(sdpa_fwd_bwd)
     row = dict(shape=list(shape), lse_err=lse_err, errs=errs, ms=ms, ms_dkv=ms_dkv,
-               ms_dq=ms_dq, plain_ms=plain_ms, library_ms=sdpa_fwd_bwd - sdpa_fwd,
-               bounds={part: backward_bound(B, N, H, D, part) for part in ("all", "dkv", "dq")})
-    if shape == MAIN_SHAPE:
-        _, _, kernels = trace(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do))
-        row["trace_ms"] = {part: next(ms for name, (ms, n) in kernels.items()
-                                      if f"flash_attention_bwd_{part}_kernel" in name)
-                           for part in ("dkv", "dq")}
+               ms_dq=ms_dq, plain_ms=plain_ms, library_ms=sdpa_fwd_bwd_ms - sdpa_ms,
+               device_ms=device_ms, device_ms_dq=device_each["dq"],
+               device_ms_dkv=device_each["dkv"],
+               library_device_ms=sdpa_fwd_bwd_device - sdpa_device,
+               bounds={part: backward_bound(B, N, H, D, part)
+                       for part in ("all", "two_kernel", "dq", "dkv")})
     log(f"flash_attention_bwd B,N,H,D={shape} (strided qkv): forward lse max|d| {lse_err:.3e} "
         f"(tol {LSE_ATOL}); " + "; ".join(
             f"{n} max|d| {e:.3e} (tol {t:.3e} = 2^-6 of max|ref|; dropping the last key "
-            f"moves it by {c:.3e})" for n, (e, t, c) in errs.items()))
-    log(f"flash_attention_bwd B,N,H,D={shape}: kernels {ms:.4f} ms (dK/dV {ms_dkv:.4f}, "
-        f"dQ {ms_dq:.4f}; di and checks included in the first), plain {plain_ms:.4f} ms, "
-        f"sdpa backward {row['library_ms']:.4f} ms (fwd+bwd {sdpa_fwd_bwd:.4f} - fwd "
-        f"{sdpa_fwd:.4f}), bound " + ", ".join(
-            f"{p} {b:.4f} ms ({by})" for p, (b, by) in row["bounds"].items())
-        + (f"; device ms per launch from the trace: dK/dV {row['trace_ms']['dkv']:.4f}, "
-           f"dQ {row['trace_ms']['dq']:.4f}" if "trace_ms" in row else ""))
+            f"moves it by {c:.3e})" for n, (e, t, c) in errs.items())
+        + "; one launch each of dQ and dK/dV, no other kernel in the trace; two runs "
+          "bitwise equal")
+    log(f"flash_attention_bwd B,N,H,D={shape}: kernels {ms:.4f} ms (dQ {ms_dq:.4f}, dK/dV "
+        f"{ms_dkv:.4f}; di included, wrapper checks in the first), device {device_ms:.4f} ms "
+        f"(dQ {device_each['dq']:.4f}, dK/dV {device_each['dkv']:.4f}), plain {plain_ms:.4f} "
+        f"ms, sdpa backward {row['library_ms']:.4f} ms (fwd+bwd {sdpa_fwd_bwd_ms:.4f} - fwd "
+        f"{sdpa_ms:.4f}), device {row['library_device_ms']:.4f} ms (fwd+bwd "
+        f"{sdpa_fwd_bwd_device:.4f} - fwd {sdpa_device:.4f}); kernels/sdpa "
+        f"{ms / row['library_ms']:.3f}, device {device_ms / row['library_device_ms']:.3f}; "
+        "bound " + ", ".join(f"{p} {b:.4f} ms ({by})" for p, (b, by) in row["bounds"].items())
+        + f"; bound/device {row['bounds']['all'][0] / device_ms:.3f} (five products), "
+        f"{row['bounds']['two_kernel'][0] / device_ms:.3f} (seven)")
     return row
 
 
@@ -1590,6 +1636,11 @@ def main() -> int:
                 f"fixed batch, exact-mode accuracy forward included)")
             log_trace(f"ViT-B/16 batch {cfg['batch']} bf16 train step, {name} attention",
                       chk[f"trace_{name}"], "step")
+        step_kernels = chk["trace_flash"][2]
+        log("flash backward in the ViT-B/16 train step (trace): " + ", ".join(
+            f"{kernel} {sum(ms for k, (ms, _) in step_kernels.items() if kernel in k):.4f} ms in "
+            f"{sum(n for k, (_, n) in step_kernels.items() if kernel in k):.1f} launches a step"
+            for kernel in BWD_KERNELS))
         totals = run["totals"]
         del run, chk
 
@@ -1693,7 +1744,8 @@ def main() -> int:
             "max_abs_err": max(bwd_main["errs"][e][0] for e in errs),
             "ms": bwd_main[f"ms_{part}"], "plain_ms": bwd_main["plain_ms"],
             "bound_ms": bwd_main["bounds"][part][0], "bound_by": bwd_main["bounds"][part][1],
-            "library_ms": bwd_main["library_ms"],
+            "library_ms": bwd_main["library_ms"], "device_ms": bwd_main[f"device_ms_{part}"],
+            "library_device_ms": bwd_main["library_device_ms"],
         })
     # the LayerNorm and depthwise-conv rows: the stage-0 shape (the largest),
     # launches counted over the replay of phase 6b

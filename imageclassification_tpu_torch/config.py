@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
@@ -194,10 +195,29 @@ def _mesh_devices(mesh_shape: str) -> int:
     return n
 
 
+def _launcher_processes() -> tuple:
+    """(processes, variable) of the launcher environment that makes the JAX
+    train.py join processes (imageclassification_tpu/parallel/dist.py:40-53):
+    torchrun's RANK and WORLD_SIZE, else SLURM's SLURM_PROCID and
+    SLURM_NTASKS; (1, "") when there is none."""
+    env = os.environ
+    if "RANK" in env and "WORLD_SIZE" in env:
+        return int(env["WORLD_SIZE"]), f"WORLD_SIZE={env['WORLD_SIZE']}"
+    if "SLURM_PROCID" in env:
+        ntasks = env.get("SLURM_NTASKS", "1")
+        return int(ntasks), f"SLURM_NTASKS={ntasks}"
+    return 1, ""
+
+
 def check_ported(args: TrainConfig) -> None:
     """Raise NotImplementedError for a flag whose feature is not ported yet,
-    naming its ROADMAP item."""
+    naming its ROADMAP item; also for a launch of more than one process,
+    which the JAX train.py joins into one training and this one would run as
+    independent trainings writing the same checkpoints."""
+    processes, variable = _launcher_processes()
     unported = [
+        (args.dist_on_itp, "--dist_on_itp true", "A9 (distributed)"),
+        (processes > 1, f"a launch of {processes} processes ({variable})", "A9 (distributed)"),
         (args.fsdp, "--fsdp true", "A9 (distributed)"),
         (_mesh_devices(args.mesh_shape) > 1, f"--mesh_shape {args.mesh_shape}",
          "A9 (distributed)"),

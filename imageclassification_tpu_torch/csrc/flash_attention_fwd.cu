@@ -52,7 +52,6 @@
 // warpgroups take turns on the tensor cores while the others run softmax.
 
 #include "flash_attention_common.cuh"
-#include "hopper_common.cuh"
 
 namespace {
 
@@ -62,7 +61,6 @@ constexpr int kConsumers = 2;                        // warpgroups of 64 query r
 constexpr int kStages = 4;                           // K/V ring
 constexpr int kRowsPerCta = kConsumers * kBlock;     // 128
 constexpr int kFwdThreads = (kConsumers * 4 + 1) * 32;  // + the producer warp
-constexpr uint32_t kTileBytes = kTileElems * sizeof(bf16);
 
 struct alignas(1024) FwdSmem {
   bf16 q[2][kConsumers][kTileElems];  // two items' Q; each tile 8 KB, 1024-byte aligned
@@ -75,10 +73,6 @@ struct alignas(1024) FwdSmem {
 };
 // + slack to align the dynamic shared memory to 1024 bytes (the swizzle atom)
 constexpr int kSmemBytes = sizeof(FwdSmem) + 1024;
-
-__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
 
 // One key tile of the warpgroup's online softmax: the first kKeys (64 or 16)
 // keys of the stage whose K and V descriptors are dk and dv, keys key0 ..
@@ -155,7 +149,7 @@ __device__ __forceinline__ void attend_tile(float (&acc)[32], float (&row_max)[2
   hopper::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < kKeys / 16; ++kk) {
-    hopper::wgmma_m64n64k16_rs<1>(acc, p[kk], dv + 128 * kk, 1);
+    hopper::wgmma_m64k16_rs<64, 1>(acc, p[kk], dv + 128 * kk, 1);
   }
   hopper::wgmma_commit();
   hopper::wgmma_wait<0>();
@@ -276,28 +270,10 @@ flash_attention_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 
       // stage O in the warpgroup's own Q tile (its last product is done), in
       // the same swizzle, then write whole 128-byte rows with 16-byte stores
-      bf16* so = s.q[qs][wg];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = wl * 16 + (lane >> 2) + r * 8;
-#pragma unroll
-        for (int j = 0; j < kHeadDim / 8; ++j) {
-          *reinterpret_cast<unsigned*>(so + swizzle(row, j) + (lane & 3) * 2) =
-              pack_bf16(acc[4 * j + 2 * r] * inv[r], acc[4 * j + 2 * r + 1] * inv[r]);
-        }
-      }
-      named_barrier_sync(1 + wg, 128);
+      stage_acc(s.q[qs][wg], acc, inv, wl, lane);
+      hopper::named_barrier_sync(1 + wg, 128);
       const int row0 = m0 + wg * kBlock;
-#pragma unroll
-      for (int i = 0; i < (kBlock * 8) / 128; ++i) {
-        const int c = (tid & 127) + i * 128;
-        const int row = c >> 3, chunk = c & 7;
-        const int n = row0 + row;
-        if (n < N) {
-          *reinterpret_cast<uint4*>(o + (((int64_t)b * N + n) * H + h) * kHeadDim + chunk * 8) =
-              *reinterpret_cast<const uint4*>(so + swizzle(row, chunk));
-        }
-      }
+      write_tile(o, s.q[qs][wg], b, h, row0, N, H, tid & 127);
       if (lse != nullptr && (lane & 3) == 0) {
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
@@ -328,35 +304,21 @@ extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void
                                         long long stride_n, long long stride_b,
                                         float sm_scale, void* stream) {
   if (B == 0 || N == 0 || H == 0) return 0;
-  const cuuint64_t dims[4] = {(cuuint64_t)kHeadDim, (cuuint64_t)H, (cuuint64_t)N,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)stride_h, (cuuint64_t)stride_n,
-                                 (cuuint64_t)stride_b};
-  const cuuint32_t box[4] = {(cuuint32_t)kHeadDim, 1, (cuuint32_t)kBlock, 1};
   CUtensorMap maps[3];
   const void* bases[3] = {q, k, v};
   for (int i = 0; i < 3; ++i) {
-    const int err = hopper::encode_4d(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, bases[i], dims,
-                                      strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+    const int err = encode_rows(&maps[i], bases[i], B, N, H, stride_h, stride_n, stride_b);
     if (err != 0) return err;
   }
   const int num_m_blocks = (N + kRowsPerCta - 1) / kRowsPerCta;
   const long long items = (long long)num_m_blocks * B * H;
   if (items > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  // once per device: let the kernel take more than 48 KB of shared memory,
-  // and read the SM count (two persistent CTAs an SM)
+  // two persistent CTAs an SM
   static int sms[64] = {0};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  int n_sms = dev < 64 ? sms[dev] : 0;
-  if (n_sms == 0) {
-    e = cudaFuncSetAttribute(flash_attention_fwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-    if (dev < 64) sms[dev] = n_sms;
-  }
+  int n_sms = 0;
+  const int err = hopper::prepare_persistent((const void*)flash_attention_fwd_kernel, kSmemBytes,
+                                             sms, &n_sms);
+  if (err != 0) return err;
   const int blocks = (int)(items < 2LL * n_sms ? items : 2LL * n_sms);
   flash_attention_fwd_kernel<<<blocks, kFwdThreads, kSmemBytes, (cudaStream_t)stream>>>(
       maps[0], maps[1], maps[2], static_cast<bf16*>(o), static_cast<float*>(lse), N, H,

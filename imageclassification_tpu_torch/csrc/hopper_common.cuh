@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks for kernels fed by the Tensor Memory
-// Accelerator (flash_attention_fwd.cu, dwconv7x7.cu's weight gradient) and
-// multiplying on warpgroup tensor cores (flash_attention_fwd.cu): mbarriers,
-// TMA tile loads, wgmma descriptors and
-// bf16 products (m64n64k16 and m64n16k16 with A in shared memory, m64n64k16
-// with A in registers), and the host-side encoding of a tensor map through
-// the driver entry point (so nothing links -lcuda).
+// Accelerator (flash_attention_fwd.cu, flash_attention_bwd.cu, dwconv7x7.cu's
+// weight gradient) and multiplying on warpgroup tensor cores (the
+// flash-attention kernels): mbarriers, named barriers, TMA tile loads, wgmma
+// descriptors and bf16 products (m64n64k16 and m64n16k16 with A in shared
+// memory or in registers), register reallocation between warpgroups, the
+// host-side encoding of a tensor map through the driver entry point (so
+// nothing links -lcuda), and the set-up of a persistent launch.
 #pragma once
 
 #include <cuda.h>
@@ -58,6 +59,29 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       "}\n" ::"r"(smem_addr(bar)),
       "r"(parity)
       : "memory");
+}
+
+// ---- named barriers --------------------------------------------------------
+
+// wait until `threads` threads (whole warps) have reached barrier `id` (1-15;
+// 0 is __syncthreads)
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---- register reallocation -------------------------------------------------
+
+// Between warpgroups of a CTA: every warp of a warpgroup lowers (or raises) its
+// registers a thread to kRegs (a multiple of 8 in [24, 256]); a raise waits
+// until lowered registers are free.
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
 }
 
 // ---- TMA -------------------------------------------------------------------
@@ -152,26 +176,44 @@ __device__ __forceinline__ void wgmma_m64k16_ss(float (&d)[N / 2], uint64_t desc
   }
 }
 
-// N = 64, a in registers: the warp's m16k16 A fragment, laid out as for
-// mma.sync
-template <int kTransB>
-__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const unsigned (&a)[4],
-                                                   uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+// N = 64 or 16, a in registers: the warp's m16k16 A fragment, laid out as
+// for mma.sync. The registers of `a` must keep their values until the
+// product is waited for.
+template <int N, int kTransB>
+__device__ __forceinline__ void wgmma_m64k16_rs(float (&d)[N / 2], const unsigned (&a)[4],
+                                                uint64_t desc_b, int scale_d) {
+  static_assert(N == 64 || N == 16, "m64n64k16 and m64n16k16 only");
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d),
+          "n"(kTransB));
+  } else {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d),
+          "n"(kTransB));
+  }
 }
 
 // ---- host: tensor maps -----------------------------------------------------
@@ -208,11 +250,43 @@ inline int encode_4d(CUtensorMap* map, CUtensorMapDataType type, const void* bas
                      const cuuint32_t (&box)[4], CUtensorMapSwizzle swizzle) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
+  // the encoding needs a current context on this thread. The runtime makes
+  // the primary context current lazily, and a thread that has only asked
+  // for the device it already has (torch's autograd threads) may not have
+  // one yet: cudaSetDevice makes it current, once per thread and device
+  static thread_local int bound = -1;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && dev != bound) {
+    e = cudaSetDevice(dev);
+    if (e == cudaSuccess) bound = dev;
+  }
+  if (e != cudaSuccess) return (int)e;
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   CUresult r = fn(map, type, 4, const_cast<void*>(base), dims, strides, box, elem_strides,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Once per device for each kernel (`cache`, indexed by device, zeros at
+// first): allow `kernel` `smem_bytes` of dynamic shared memory and read the
+// device's SM count, which sizes a persistent grid. Returns 0 or an error
+// code.
+inline int prepare_persistent(const void* kernel, int smem_bytes, int (&cache)[64],
+                              int* n_sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  int n = dev < 64 ? cache[dev] : 0;
+  if (n == 0) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 64) cache[dev] = n;
+  }
+  *n_sms = n;
+  return 0;
 }
 
 }  // namespace hopper

@@ -1,5 +1,5 @@
 """Flash attention: hand-written Hopper kernels (forward, and the backward as a
-dK/dV kernel and a dQ kernel) and their plain versions.
+dQ kernel and a dK/dV kernel) and their plain versions.
 
 Replaces `imageclassification_tpu/models/vit.py:25` `flash_attention_fn`,
 which runs the Pallas TPU kernel `jax.experimental.pallas.ops.tpu.flash_attention`
@@ -17,11 +17,14 @@ the N x N products kept in registers, all products on tensor cores (bf16,
 fp32 accumulation). The forward: persistent CTAs walking over (batch, head,
 128-row query block) items, K/V tiles loaded by TMA into a 4-stage ring from
 tensor maps of the strided [B, N, H, 64] view (`tensor_map_layout`),
-products on the warpgroup tensor cores (wgmma). The backward: one CTA per
-(batch, head, 64-row tile) looping over the other axis, tiles streamed
-through shared memory with cp.async, mma.sync.
-The forward writes the row log-sum-exp (fp32 [B, H, N]) only when autograd
-will run the backward, which recomputes P from it.
+products on the warpgroup tensor cores (wgmma). The backward is two
+launches and no torch work between them: the dQ kernel runs first and also
+computes di = rowsum(dO * O) from its tiles of O and dO, which it writes for
+the dK/dV kernel; each walks persistently over (batch, head, 128-row block)
+items, one CTA an SM, the other axis's tiles streamed through a TMA ring from
+tensor maps of q, k, v, o and dO as they lie, products on wgmma. The
+forward writes the row log-sum-exp (fp32 [B, H, N]) only when autograd will
+run the backward, which recomputes P from it.
 
 `flash_attention` takes the plain version only for tensors on the CPU (where
 autograd differentiates it as plain torch code). For a CUDA tensor it
@@ -62,17 +65,23 @@ def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return torch.logsumexp(torch.matmul(qf * q.shape[-1] ** -0.5, kf.transpose(-1, -2)), -1)
 
 
+def flash_attention_di_ref(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """Plain version of the di that the dQ kernel writes: rowsum(do * o) over
+    the head dimension in fp32, [B, N, H, D] in, fp32 [B, H, N] out."""
+    return (o.float() * do.float()).sum(-1).transpose(1, 2)
+
+
 def flash_attention_bwd_ref(q, k, v, o, lse, do):
     """Plain version of the backward, explicit fp32 math: (dq, dk, dv) of
     softmax(q k^T * D^-0.5) v given the output o, its row log-sum-exp `lse`
     ([B, H, N]) and the output gradient do, [B, N, H, D] in and out, results
     in q's dtype."""
     scale = q.shape[-1] ** -0.5
-    qf, kf, vf, of, dof = _heads_first(q, k, v, o, do)
+    qf, kf, vf, dof = _heads_first(q, k, v, do)
     p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale - lse.float()[..., None])
     dv = torch.matmul(p.transpose(-1, -2), dof)
     dp = torch.matmul(dof, vf.transpose(-1, -2))
-    di = (dof * of).sum(-1, keepdim=True)
+    di = flash_attention_di_ref(o, do)[..., None]
     ds = p * (dp - di)
     dq = torch.matmul(ds, kf) * scale
     dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
@@ -83,7 +92,7 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """Raise on what the kernels do not take: NotImplementedError for the
     dtypes and head sizes not ported yet, ValueError for a layout the kernels
     cannot read. Returns the layout of the forward's tensor maps
-    (`tensor_map_layout`), which the backward's 16-byte loads need too."""
+    (`tensor_map_layout`), which the backward's tensor maps take too."""
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise NotImplementedError(
             f"flash-attention kernel takes bfloat16 only, got {q.dtype}/{k.dtype}/{v.dtype}"
@@ -106,12 +115,6 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must be on one device")
     return tensor_map_layout(q)
-
-
-def _readable(t: torch.Tensor) -> bool:
-    """The kernels read 16-byte chunks along D: unit stride there, the other
-    strides a multiple of 8 elements."""
-    return t.stride(-1) == 1 and not any(s % 8 for s in t.stride()[:3])
 
 
 def tensor_map_layout(t: torch.Tensor):
@@ -143,13 +146,13 @@ def _kernel():
 
 
 @functools.cache
-def _kernel_dkv():
-    return _fn(KERNEL_BWD, "flash_attention_bwd_dkv_bf16", 8, 3, 6)
+def _kernel_dq():
+    return _fn(KERNEL_BWD, "flash_attention_bwd_dq_bf16", 8, 3, 9)
 
 
 @functools.cache
-def _kernel_dq():
-    return _fn(KERNEL_BWD, "flash_attention_bwd_dq_bf16", 7, 3, 6)
+def _kernel_dkv():
+    return _fn(KERNEL_BWD, "flash_attention_bwd_dkv_bf16", 8, 3, 6)
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool = False):
@@ -171,59 +174,84 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool = 
     return out, lse
 
 
+def _tma_readable(t: torch.Tensor) -> bool:
+    """Whether a tensor map reads t in place: a 16-byte aligned base, unit
+    stride on D, the other strides positive multiples of 16 bytes."""
+    try:
+        _, strides = tensor_map_layout(t)
+    except ValueError:
+        return False
+    return t.data_ptr() % 16 == 0 and min(strides) > 0
+
+
 def _bwd_inputs(q, k, v, o, lse, do):
-    """Checks shared by the two backward kernels; returns (do, di) with do in a
-    layout the kernels read and di = rowsum(do * o) fp32 [B, H, N], the jnp
-    expression outside Pallas in the TPU version (flash_attention.py:273-275)."""
-    check_kernel_inputs(q, k, v)
-    if do.shape != q.shape or o.shape != q.shape or do.dtype != q.dtype:
+    """Checks shared by the two backward kernels. Returns (do, strides): do
+    as given when a tensor map reads it in place, else a contiguous copy
+    (autograd may hand over any layout); strides: the byte strides of the
+    tensor maps of q (shared by k and v), o and do. o must be readable as it
+    is: the forward kernel writes it contiguous."""
+    _, qkv_strides = check_kernel_inputs(q, k, v)
+    if do.shape != q.shape or o.shape != q.shape or do.dtype != q.dtype or o.dtype != q.dtype:
         raise ValueError(f"do and o must match q's shape and dtype, got do "
-                         f"{tuple(do.shape)} {do.dtype}, o {tuple(o.shape)}")
+                         f"{tuple(do.shape)} {do.dtype}, o {tuple(o.shape)} {o.dtype}")
+    if not (o.device == do.device == lse.device == q.device):
+        raise ValueError("o, do and lse must be on q's device")
     B, N, H, _ = q.shape
     if lse.shape != (B, H, N) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous fp32 {(B, H, N)}, got {tuple(lse.shape)}")
-    if not _readable(do) or do.data_ptr() % 16:
+    if not _tma_readable(o):
+        raise ValueError(f"o must be readable by a tensor map (16-byte aligned, unit stride "
+                         f"on D, the other strides positive multiples of 16 bytes), got "
+                         f"strides {o.stride()}")
+    if not _tma_readable(do):
         do = do.contiguous()
-    di = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    return do, di
+    return do, (qkv_strides, tensor_map_layout(o)[1], tensor_map_layout(do)[1])
 
 
-def _launch_dkv(q, k, v, do, lse, di):
-    """dK/dV kernel on checked inputs (see `_bwd_inputs`): (dk, dv)."""
+def _launch_dq(q, k, v, o, do, lse, strides):
+    """dQ kernel on checked inputs (see `_bwd_inputs`): (dq, di), di =
+    rowsum(do * o) fp32 [B, H, N] as the kernel writes it for the dK/dV
+    kernel."""
+    B, N, H, D = q.shape
+    dq = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
+    di = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+    qkv_strides, o_strides, do_strides = strides
+    with torch.cuda.device(q.device):
+        err = _kernel_dq()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), di.data_ptr(), dq.data_ptr(), B, N, H, *qkv_strides, *o_strides,
+            *do_strides, D ** -0.5, _build.stream(q),
+        )
+    _build.raise_on(err, "flash_attention_bwd_dq")
+    flash_attention.launches_dq += 1
+    return dq, di
+
+
+def _launch_dkv(q, k, v, do, lse, di, strides):
+    """dK/dV kernel on checked inputs (see `_bwd_inputs`) and the di of
+    `_launch_dq`: (dk, dv)."""
     B, N, H, D = q.shape
     dk = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
+    qkv_strides, _, do_strides = strides
     with torch.cuda.device(q.device):
         err = _kernel_dkv()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            di.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, N, H, *q.stride()[:3],
-            *do.stride()[:3], D ** -0.5, _build.stream(q),
+            di.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, N, H, *qkv_strides, *do_strides,
+            D ** -0.5, _build.stream(q),
         )
     _build.raise_on(err, "flash_attention_bwd_dkv")
     flash_attention.launches_dkv += 1
     return dk, dv
 
 
-def _launch_dq(q, k, v, do, lse, di):
-    """dQ kernel on checked inputs (see `_bwd_inputs`): dq."""
-    B, N, H, D = q.shape
-    dq = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        err = _kernel_dq()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            di.data_ptr(), dq.data_ptr(), B, N, H, *q.stride()[:3], *do.stride()[:3],
-            D ** -0.5, _build.stream(q),
-        )
-    _build.raise_on(err, "flash_attention_bwd_dq")
-    flash_attention.launches_dq += 1
-    return dq
-
-
 def flash_attention_bwd(q, k, v, o, lse, do):
-    """(dq, dk, dv) through the two backward kernels; CUDA tensors only."""
-    do, di = _bwd_inputs(q, k, v, o, lse, do)
-    dk, dv = _launch_dkv(q, k, v, do, lse, di)
-    return _launch_dq(q, k, v, do, lse, di), dk, dv
+    """(dq, dk, dv) through the two backward kernels, dQ first (it writes
+    di for dK/dV); CUDA tensors only."""
+    do, strides = _bwd_inputs(q, k, v, o, lse, do)
+    dq, di = _launch_dq(q, k, v, o, do, lse, strides)
+    dk, dv = _launch_dkv(q, k, v, do, lse, di, strides)
+    return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):

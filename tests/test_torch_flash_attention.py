@@ -204,6 +204,49 @@ def test_lse_ref_normalises_the_softmax():
                                fa.flash_attention_ref(q, k, v), atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("make", [
+    lambda: torch.zeros((2, 9, 3, 68), dtype=torch.bfloat16)[..., :64],  # H stride 136 B
+    lambda: torch.zeros((2, 9, 64, 3), dtype=torch.bfloat16).transpose(2, 3),  # D strided
+    lambda: torch.zeros((1, 3, 64), dtype=torch.bfloat16).expand(2, 9, 3, 64),  # stride 0
+    lambda: torch.zeros(2 * 9 * 3 * 64 + 1, dtype=torch.bfloat16)[1:].view(2, 9, 3, 64),
+])
+def test_backward_reads_o_and_do_through_tensor_maps(make):
+    # the dQ kernel reads O (for di) and dO through tensor maps of their own
+    # strides: an O that TMA cannot read raises (the forward kernel writes it
+    # contiguous), a dO that it cannot read is copied to one it can, and a
+    # readable dO is read in place
+    q, k, v = torch.zeros((2, 9, 3, 3, 64), dtype=torch.bfloat16).unbind(2)
+    lse = torch.zeros((2, 3, 9))
+    bad = make()
+    with pytest.raises(ValueError, match="tensor map"):
+        fa._bwd_inputs(q, k, v, bad, lse, q)
+    got_do, (_, o_strides, do_strides) = fa._bwd_inputs(q, k, v, q, lse, bad)
+    assert got_do.is_contiguous() and torch.equal(got_do, bad)
+    assert o_strides == (128, 3 * 3 * 128, 9 * 3 * 3 * 128) and do_strides == (128, 384, 3456)
+    strided_do = torch.zeros((2, 3, 9, 64), dtype=torch.bfloat16).transpose(1, 2)
+    got_do, (_, _, do_strides) = fa._bwd_inputs(q, k, v, q, lse, strided_do)
+    assert got_do is strided_do and do_strides == (9 * 128, 128, 3 * 9 * 128)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_di_ref_matches_jax_expression(dtype):
+    # the di that the dQ kernel writes for the dK/dV kernel: the JAX
+    # backward's jnp expression (flash_attention.py:273-275) over [B, H, N,
+    # D], here from [B, N, H, D] inputs; fp32 sums of the same products, only
+    # the order differs: 1e-5 of the largest value
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(30)
+    o, do = (rng.standard_normal((2, 37, 3, 64)).astype(np.float32) for _ in range(2))
+    if dtype == "bfloat16":
+        o, do = (np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32)) for a in (o, do))
+    want = np.asarray(jnp.sum(jnp.transpose(o, (0, 2, 1, 3)).astype(jnp.float32)
+                              * jnp.transpose(do, (0, 2, 1, 3)).astype(jnp.float32), axis=-1))
+    got = fa.flash_attention_di_ref(torch.from_numpy(o), torch.from_numpy(do))
+    assert got.dtype == torch.float32 and got.shape == want.shape == (2, 3, 37)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5 * np.abs(want).max(), rtol=0)
+
+
 def test_cpu_wrapper_backward_launches_nothing(launches):
     # bf16 autograd through strided fused-qkv views, as a training step on the
     # CPU runs it: plain torch code, no kernel
@@ -220,8 +263,11 @@ def test_backward_input_checks():
     q, k, v = torch.zeros((3, 2, 9, 3, 64), dtype=torch.bfloat16).unbind(0)
     lse = torch.zeros((2, 3, 9))
     do = torch.ones((2, 9, 64, 3), dtype=torch.bfloat16).transpose(2, 3)  # D not unit-stride
-    got_do, di = fa._bwd_inputs(q, k, v, q, lse, do)
-    assert got_do.is_contiguous() and di.shape == (2, 3, 9) and di.dtype == torch.float32
+    got_do, strides = fa._bwd_inputs(q, k, v, q, lse, do)
+    # a dO that no tensor map reads is copied; the byte strides of the maps
+    # of q (shared by k, v), o and dO
+    assert got_do.is_contiguous() and torch.equal(got_do, do)
+    assert strides == ((128, 384, 3456), (128, 384, 3456), (128, 384, 3456))
     with pytest.raises(ValueError, match="lse"):
         fa._bwd_inputs(q, k, v, q, lse[:, :, :-1], do)
     with pytest.raises(ValueError, match="do"):
@@ -276,8 +322,11 @@ def test_forward_lse_matches_logsumexp_on_card(cuda_device, launches, n):
     torch.testing.assert_close(lse, fa.flash_attention_lse_ref(q, k), atol=1e-3, rtol=0)
 
 
+BWD_CARD_N = [1, 5, 63, 64, 65, 127, 128, 129, 197, 577, 1025]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 5, 65, 197, 577])
+@pytest.mark.parametrize("n", BWD_CARD_N)
 def test_backward_kernels_match_plain_version_on_card(cuda_device, launches, n):
     qkv = _card_qkv(n, cuda_device, seed=n).requires_grad_()
     q, k, v = qkv.unbind(2)
@@ -321,18 +370,56 @@ def test_forward_on_fused_qkv_views_on_card(cuda_device, launches, n, with_lse):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [63, 64, 129, 1025])
-def test_backward_kernels_take_the_forward_lse_on_card(cuda_device, n):
-    # the backward kernels on the forward kernel's o and lse, against the
-    # fp32 plain backward: 2^-6 of the largest reference gradient
+@pytest.mark.parametrize("n", BWD_CARD_N)
+def test_backward_kernels_take_the_forward_lse_on_card(cuda_device, launches, n):
+    # the backward kernels on the forward kernel's o and lse, q, k, v strided
+    # out of one fused tensor and dO a strided view of another, against the
+    # fp32 plain backward: 2^-6 of the largest reference gradient (+1e-5 for
+    # dq at N = 1, which vanishes); one launch of each kernel, dQ first
     q, k, v = _card_qkv(n, cuda_device, seed=9 * n).unbind(2)
     do = _card_qkv(n, cuda_device, seed=11 * n)[:, :, 0]
+    assert not do.is_contiguous()
     o, lse = fa._launch(q, k, v, with_lse=True)
     grads = fa.flash_attention_bwd(q, k, v, o, lse, do)
     torch.cuda.synchronize()
+    assert (fa.flash_attention.launches_dq, fa.flash_attention.launches_dkv) == (1, 1)
     qf, kf, vf = (t.float() for t in (q, k, v))
     want = fa.flash_attention_bwd_ref(qf, kf, vf, fa.flash_attention_ref(qf, kf, vf),
                                       fa.flash_attention_lse_ref(qf, kf), do.float())
     for name, got, w in zip(("dq", "dk", "dv"), grads, want):
         err = (got.float() - w).abs().max().item()
-        assert err <= 2.0 ** -6 * w.abs().max().item(), f"{name}: max|d| {err}"
+        assert err <= 2.0 ** -6 * w.abs().max().item() + 1e-5, f"{name}: max|d| {err}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5, 197, 1025])
+def test_dq_kernel_writes_di_on_card(cuda_device, launches, n):
+    # di = rowsum(dO * O), which the dQ kernel sums in fp32 from the bf16
+    # tiles of O and dO and writes for the dK/dV kernel, against the plain
+    # version on the same tensors: only the order of 64 terms differs
+    q, k, v = _card_qkv(n, cuda_device, seed=13 * n).unbind(2)
+    do = _card_qkv(n, cuda_device, seed=17 * n)[:, :, 1]
+    o, lse = fa._launch(q, k, v, with_lse=True)
+    do, strides = fa._bwd_inputs(q, k, v, o, lse, do)
+    dq, di = fa._launch_dq(q, k, v, o, do, lse, strides)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches_dq == 1 and fa.flash_attention.launches_dkv == 0
+    want = fa.flash_attention_di_ref(o, do)
+    assert di.shape == want.shape == (2, 12, n) and di.dtype == torch.float32
+    torch.testing.assert_close(di, want, atol=1e-5 * want.abs().max().item(), rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [197, 1025])
+def test_backward_is_bitwise_repeatable_on_card(cuda_device, n):
+    # no atomics: every element of dq, dk and dv is summed by one thread in a
+    # fixed order, so two runs on the same inputs give the same bits
+    qkv = _card_qkv(n, cuda_device, seed=19 * n)
+    q, k, v = qkv.unbind(2)
+    do = _card_qkv(n, cuda_device, seed=23 * n)[:, :, 2]
+    o, lse = fa._launch(q, k, v, with_lse=True)
+    first = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    second = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name

@@ -94,6 +94,35 @@ def test_ported_flags_pass():
         config.check_ported(config.parse_args(argv))
 
 
+@pytest.mark.parametrize("argv,env,raises", [
+    (["--dist_on_itp", "true"], {}, True),
+    ([], {"RANK": "0", "WORLD_SIZE": "2"}, True),
+    ([], {"SLURM_PROCID": "0", "SLURM_NTASKS": "2"}, True),
+    ([], {"RANK": "0", "WORLD_SIZE": "1"}, False),
+    ([], {"SLURM_NTASKS": "1"}, False),
+    ([], {}, False),
+])
+def test_multi_process_launch_raises(monkeypatch, tmp_path, argv, env, raises):
+    # the launcher environments in which the JAX train.py joins processes
+    # (parallel/dist.py:40-53): the port raises before it builds anything or
+    # writes a file, where it would run independent trainings writing the
+    # same checkpoints; a world of one process runs as a single process does
+    monkeypatch.chdir(tmp_path)
+    for name in ("RANK", "WORLD_SIZE", "SLURM_PROCID", "SLURM_NTASKS"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    args = config.parse_args(argv)
+    if not raises:
+        config.check_ported(args)
+        return
+    with pytest.raises(NotImplementedError, match="A9"):
+        config.check_ported(args)
+    with pytest.raises(NotImplementedError, match="A9"):
+        train.main(args)
+    assert not any(tmp_path.iterdir())
+
+
 def test_train_refuses_silent_cpu(monkeypatch, toy_dataset, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     args = config.parse_args(["--data_path", toy_dataset, "--model", "vit_tiny_patch16",
@@ -327,13 +356,25 @@ def test_chip_smoke_training_rehearsal_on_cpu(tmp_path):
 
 
 def test_backward_bound_numbers():
+    # the function reads q, k, v, o, dO (bf16) and lse (fp32) and writes dq,
+    # dk, dv; di is the two kernels' own intermediate. Five products, seven
+    # in the two-kernel design; the dQ kernel also writes di, which the
+    # dK/dV kernel reads
     ms, by = chip_smoke.backward_bound(64, 197, 12, 64)
     assert by == "bytes" and ms == pytest.approx(
-        (8 * 64 * 197 * 12 * 64 * 2 + 2 * 64 * 12 * 197 * 4) / 3.35e12 * 1e3, rel=1e-12)
+        (8 * 64 * 197 * 12 * 64 * 2 + 64 * 12 * 197 * 4) / 3.35e12 * 1e3, rel=1e-12)
+    assert chip_smoke.backward_bound(64, 197, 12, 64, "two_kernel") == (ms, by)
     ms, by = chip_smoke.backward_bound(2, 4097, 12, 64)
     assert by == "operations" and ms == pytest.approx(
         10 * 2 * 12 * 4097 ** 2 * 64 / 989e12 * 1e3, rel=1e-12)
-    assert chip_smoke.backward_bound(64, 197, 12, 64, "dq")[0] < ms
+    assert chip_smoke.backward_bound(2, 4097, 12, 64, "two_kernel")[0] == pytest.approx(
+        ms * 7 / 5, rel=1e-12)
+    for part, products in (("dq", 3), ("dkv", 4)):
+        t_ms, t_by = chip_smoke.backward_bound(64, 197, 12, 64, part)
+        assert t_by == "bytes" and t_ms == pytest.approx(
+            (6 * 64 * 197 * 12 * 64 * 2 + 2 * 64 * 12 * 197 * 4) / 3.35e12 * 1e3, rel=1e-12)
+        assert chip_smoke.backward_bound(2, 4097, 12, 64, part)[0] == pytest.approx(
+            ms * products / 5, rel=1e-12)
 
 
 @pytest.mark.parametrize("n", [37, 65])
