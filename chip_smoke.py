@@ -21,7 +21,10 @@ exit before the last line:
    SDPA's backward (forward + backward less forward) and the factor;
    each kernel's device time from a trace;
    3c the LayerNorm kernels (forward, backward) at ConvNeXt-T's four stage
-   shapes, the head's and a ragged ViT row count, and on constant rows; 3d
+   shapes, the head's and a ragged ViT row count, and on constant rows, the
+   backward run twice and held bitwise equal, with F.layer_norm's kernel
+   and device ms and the factors on both, each wrapper's host cost a call,
+   and the forward wrapper's host steps timed one by one; 3d
    the depthwise-conv kernels (forward, dx, dw) at ConvNeXt-T's four stage
    shapes, dw also run twice and held bitwise equal; 3e the fused 1x1 conv +
    BN statistics kernel at ResNet-50's 1x1 shapes (both variants, and the
@@ -855,10 +858,13 @@ def _library_device_ms(fn, traces: int = 3) -> float:
 def check_layernorm(rows: int, C: int, device, constant: bool = False, timed: bool = True):
     """The LayerNorm kernels (forward, and backward with its partial-sum
     pass) against their plain versions on seeded bf16 x and dy, fp32 gamma
-    and beta, at [rows, C]; with `constant`, every other row holds one value
-    (var = 0: those rows must give beta). When `timed`: kernel, plain and
-    library (F.layer_norm in bf16, and its autograd backward) ms by CUDA
-    events, device ms per call from a trace, and the bounds."""
+    and beta, at [rows, C], the backward run twice and held bitwise equal;
+    with `constant`, every other row holds one value (var = 0: those rows
+    must give beta). When `timed`: kernel, plain and library (F.layer_norm in
+    bf16 without autograd, as the kernel is called; its backward as forward +
+    backward less forward, with autograd) ms by CUDA events, device ms per
+    call of both from traces, the factors kernel / library on each, each
+    wrapper's host cost (kernel ms - device ms), and the bounds."""
     import torch
     import torch.nn.functional as F
 
@@ -874,7 +880,10 @@ def check_layernorm(rows: int, C: int, device, constant: bool = False, timed: bo
     dy = torch.randn((rows, C), generator=g, device=device).bfloat16()
     y = ln.fused_layer_norm(x, gamma, beta)
     dx, dg, db = ln.layer_norm_bwd(x, gamma, dy)
+    again = ln.layer_norm_bwd(x, gamma, dy)
     torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip((dx, dg, db), again)):
+        raise AssertionError(f"layer_norm_bwd {rows}x{C}: two runs differ")
     want_dx, want_dg, want_db = ln.layer_norm_bwd_ref(x.float(), gamma, dy.float())
     errs = {"y": _hold(f"layer_norm_fwd {rows}x{C}", y, ln.layer_norm_ref(x.float(), gamma, beta),
                        OP_RTOL),
@@ -887,31 +896,97 @@ def check_layernorm(rows: int, C: int, device, constant: bool = False, timed: bo
     if timed:
         iters = max(10, min(200, int(2e9 // (rows * C))))
         slow = max(3, iters // 10)
-        row["ms_fwd"] = time_ms(lambda: ln.fused_layer_norm(x, gamma, beta), iters)
-        row["ms_bwd"] = time_ms(lambda: ln.layer_norm_bwd(x, gamma, dy), iters)
+        fwd = lambda: ln.fused_layer_norm(x, gamma, beta)  # noqa: E731
+        bwd = lambda: ln.layer_norm_bwd(x, gamma, dy)  # noqa: E731
+        row["ms_fwd"], row["ms_bwd"] = time_ms(fwd, iters), time_ms(bwd, iters)
         row["plain_ms_fwd"] = time_ms(lambda: ln.layer_norm_ref(x, gamma, beta), slow)
         row["plain_ms_bwd"] = time_ms(lambda: ln.layer_norm_bwd_ref(x, gamma, dy), slow)
+        g16, b16 = gamma.bfloat16(), beta.bfloat16()
         xl = x.detach().requires_grad_()
-        gl, bl = (t.bfloat16().requires_grad_() for t in (gamma, beta))
-        lib_fwd = time_ms(lambda: F.layer_norm(xl, (C,), gl, bl, 1e-6), iters)
-        lib_all = time_ms(lambda: torch.autograd.grad(
-            F.layer_norm(xl, (C,), gl, bl, 1e-6), (xl, gl, bl), dy), iters)
-        row["library_ms_fwd"], row["library_ms_bwd"] = lib_fwd, lib_all - lib_fwd
-        row["device_ms_fwd"] = _device_ms(lambda: ln.fused_layer_norm(x, gamma, beta),
-                                          {"layer_norm_fwd_kernel": 1})
-        row["device_ms_bwd"] = _device_ms(lambda: ln.layer_norm_bwd(x, gamma, dy),
-                                          {"layer_norm_bwd_kernel": 1, "sum_partials": 2})
-        row["bound_fwd"] = layernorm_bound(rows, C, "fwd")
-        row["bound_bwd"] = layernorm_bound(rows, C, "bwd")
-        log(f"layer_norm {rows}x{C} bf16: fwd kernel {row['ms_fwd']:.4f} ms (device "
-            f"{row['device_ms_fwd']:.4f}), plain {row['plain_ms_fwd']:.4f}, F.layer_norm "
-            f"{lib_fwd:.4f}, bound {row['bound_fwd'][0]:.4f} ({row['bound_fwd'][1]}); bwd kernel "
-            f"{row['ms_bwd']:.4f} ms (device {row['device_ms_bwd']:.4f}), plain "
-            f"{row['plain_ms_bwd']:.4f}, F.layer_norm backward {row['library_ms_bwd']:.4f}, "
-            f"bound {row['bound_bwd'][0]:.4f} ({row['bound_bwd'][1]})")
+        gl, bl = (t.detach().requires_grad_() for t in (g16, b16))
+        lib_fwd = lambda: F.layer_norm(x, (C,), g16, b16, 1e-6)  # noqa: E731
+        lib_fwd_grad = lambda: F.layer_norm(xl, (C,), gl, bl, 1e-6)  # noqa: E731
+        lib_all = lambda: torch.autograd.grad(lib_fwd_grad(), (xl, gl, bl), dy)  # noqa: E731
+        row["library_ms_fwd"] = time_ms(lib_fwd, iters)
+        row["library_ms_bwd"] = time_ms(lib_all, iters) - time_ms(lib_fwd_grad, iters)
+        row["device_ms_fwd"] = _device_ms(fwd, {"layer_norm_fwd_kernel": 1})
+        row["device_ms_bwd"] = _device_ms(bwd, {"layer_norm_bwd_kernel": 1, "sum_partials": 1})
+        row["library_device_ms_fwd"] = _library_device_ms(lib_fwd)
+        row["library_device_ms_bwd"] = _library_device_ms(lib_all) - _library_device_ms(
+            lib_fwd_grad)
+        for part in ("fwd", "bwd"):
+            row[f"bound_{part}"] = layernorm_bound(rows, C, part)
+            row[f"host_ms_{part}"] = row[f"ms_{part}"] - row[f"device_ms_{part}"]
+            row[f"factor_{part}"] = row[f"ms_{part}"] / row[f"library_ms_{part}"]
+            row[f"device_factor_{part}"] = (row[f"device_ms_{part}"]
+                                            / row[f"library_device_ms_{part}"])
+        log(f"layer_norm {rows}x{C} bf16: " + "; ".join(
+            f"{part} kernel {row[f'ms_{part}']:.4f} ms (device {row[f'device_ms_{part}']:.4f}, "
+            f"host {row[f'host_ms_{part}']:.4f}), plain {row[f'plain_ms_{part}']:.4f}, "
+            f"F.layer_norm {'backward ' if part == 'bwd' else ''}"
+            f"{row[f'library_ms_{part}']:.4f} (device {row[f'library_device_ms_{part}']:.4f}), "
+            f"kernel/library {row[f'factor_{part}']:.3f} (device "
+            f"{row[f'device_factor_{part}']:.3f}), bound {row[f'bound_{part}'][0]:.4f} "
+            f"({row[f'bound_{part}'][1]}), bound/device "
+            f"{row[f'bound_{part}'][0] / row[f'device_ms_{part}']:.3f}"
+            for part in ("fwd", "bwd")) + "; bwd bitwise equal over two runs")
     log(f"layer_norm {rows}x{C}{' (constant rows)' if constant else ''}: max|d| vs plain "
         + ", ".join(f"{k} {e:.3e} (tol {t:.3e})" for k, (e, t) in errs.items()))
     return row
+
+
+def host_us(fn, calls: int = 2000, reps: int = 5) -> float:
+    """Median over `reps` of the host microseconds per call of fn() (no
+    device work waited for: perf_counter around `calls` calls)."""
+    for _ in range(100):
+        fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+    return statistics.median(times)
+
+
+def layernorm_host_steps(device) -> dict:
+    """Host microseconds per call of the steps of the LayerNorm forward
+    wrapper's host path, on the card's host: the input checks, gamma's
+    fp32/alignment step, the output's allocation, the plan and its `Launch`
+    (a cache lookup), the raw stream handle, the ctypes call of the entry
+    point (given a plan it refuses before launching, so no launch is timed:
+    the device guard and the plan check included); and, at 64x768 bf16 (the
+    head), the forward with and without its autograd node (kernel launched,
+    CUDA events)."""
+    import torch
+
+    from imageclassification_tpu_torch.ops import _build
+    from imageclassification_tpu_torch.ops import layernorm as ln
+
+    x = torch.randn((64, 768), device=device).bfloat16()
+    gamma, beta = torch.ones(768, device=device), torch.zeros(768, device=device)
+    y, dev = torch.empty_like(x), x.get_device()
+    refused = ln._Launch(64, 768, 1, 0, dev, 1e-6)  # an all-zero plan
+    steps = {
+        "check_kernel_inputs": host_us(lambda: ln.check_kernel_inputs(x, gamma, beta)),
+        "gamma fp32 and aligned (_build.aligned)": host_us(
+            lambda: _build.aligned(gamma, torch.float32)),
+        "output (torch.empty_like)": host_us(lambda: torch.empty_like(x)),
+        "plan and its Launch (_launch_args, cached)": host_us(
+            lambda: ln._launch_args(64, 768, x.dtype, gamma.dtype, 1e-6, dev, False)),
+        "raw stream handle (_build.stream)": host_us(lambda: _build.stream(x)),
+        "entry point through ctypes, refused before its launch": host_us(
+            lambda: ln._kernels()[0](x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                                     y.data_ptr(), refused, _build.stream(x))),
+    }
+    xg = x.detach().requires_grad_()
+    steps["forward 64x768, no autograd node (us, CUDA events)"] = 1e3 * time_ms(
+        lambda: ln.fused_layer_norm(x, gamma, beta), 200)
+    steps["forward 64x768, through the autograd node (us, CUDA events)"] = 1e3 * time_ms(
+        lambda: ln.fused_layer_norm(xg, gamma, beta), 200)
+    log("layer_norm host path, us per call on this host: "
+        + "; ".join(f"{k} {v:.2f}" for k, v in steps.items()))
+    return steps
 
 
 def check_dwconv(shape, device, timed: bool = True):
@@ -1580,6 +1655,7 @@ def main() -> int:
     # 3c. the LayerNorm kernels against theirs (and one input with constant rows)
     ln_rows = [check_layernorm(r, c, "cuda") for r, c in LN_SHAPES]
     check_layernorm(4096, 96, "cuda", constant=True, timed=False)
+    layernorm_host_steps("cuda")
     # 3d. the depthwise-conv kernels against theirs
     dw_rows = [check_dwconv(s, "cuda") for s in DW_SHAPES]
     # 3e. the fused 1x1 conv + BN statistics kernel against its plain version
@@ -1764,6 +1840,8 @@ def main() -> int:
             "ms": ln0[f"ms_{part}"], "plain_ms": ln0[f"plain_ms_{part}"],
             "bound_ms": ln0[f"bound_{part}"][0], "bound_by": ln0[f"bound_{part}"][1],
             "library_ms": ln0[f"library_ms_{part}"], "shape": ln0["shape"],
+            "device_ms": ln0[f"device_ms_{part}"],
+            "library_device_ms": ln0[f"library_device_ms_{part}"],
             "path": replay_path.format(f"{n_ln} LayerNorms"),
         })
     replaces_dw = "imageclassification_tpu/ops/pallas_dwconv.py:{} (depthwise_conv7x7)"

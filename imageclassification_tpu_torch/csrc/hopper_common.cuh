@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for kernels fed by the Tensor Memory
 // Accelerator (flash_attention_fwd.cu, flash_attention_bwd.cu, dwconv7x7.cu's
-// weight gradient) and multiplying on warpgroup tensor cores (the
-// flash-attention kernels): mbarriers, named barriers, TMA tile loads, wgmma
+// weight gradient, layernorm.cu) and multiplying on warpgroup tensor cores
+// (the flash-attention kernels): mbarriers, named barriers, TMA tile loads
+// and 1-d bulk copies, wgmma
 // descriptors and bf16 products (m64n64k16 and m64n16k16 with A in shared
 // memory or in registers), register reallocation between warpgroups, the
 // host-side encoding of a tensor map through the driver entry point (so
@@ -96,6 +97,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// Copy `bytes` (a multiple of 16) of contiguous global memory at `src` into
+// shared memory at `dst`, both 16-byte aligned; completion is counted in
+// bytes on `bar`. A 1-d bulk copy: no tensor map.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+      "r"(smem_addr(bar))
       : "memory");
 }
 

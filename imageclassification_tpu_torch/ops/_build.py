@@ -70,8 +70,9 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def stream(t: torch.Tensor) -> int:
-    """The handle of torch's current stream on t's device, for a launch."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The handle of torch's current stream on t's device, for a launch: the
+    raw handle, without building a `torch.cuda.Stream` object."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def raise_on(err: int, name: str) -> None:
@@ -83,5 +84,7 @@ def raise_on(err: int, name: str) -> None:
 def aligned(t: torch.Tensor, dtype=None) -> torch.Tensor:
     """t contiguous (in `dtype` when given) at a 32-byte aligned address, as
     16-byte vector loads and stores of 8 channels need."""
-    t = t.contiguous() if dtype is None else t.to(dtype).contiguous()
+    if dtype is not None and t.dtype != dtype:
+        t = t.to(dtype)
+    t = t.contiguous()
     return t if t.data_ptr() % 32 == 0 else t.clone()

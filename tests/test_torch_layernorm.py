@@ -180,11 +180,118 @@ def test_kernel_input_checks(dtype, C, err):
         ln.check_kernel_inputs(torch.zeros((3, 96)), torch.ones(95), torch.ones(96))
 
 
+def _cta_tiles(plan, rows, cta):
+    """The rows CTA `cta` of `plan` normalises, as csrc/layernorm.cu
+    `walk_tiles` walks them (tiles cta, cta + ctas, ...): a range of rows for
+    each tile, each one bulk copy (a tensor's) of len(range) * C * itemsize
+    bytes."""
+    tiles = -(-rows // plan.tile_rows)
+    return [range(t * plan.tile_rows, min(rows, (t + 1) * plan.tile_rows))
+            for t in range(cta, tiles, plan.ctas)]
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("C", [8, 96, 192, 384, 768, 4096])
+def test_ln_plan_fits_and_covers_every_row_once(C, itemsize, backward):
+    # what the bulk kernels' launch checks, and the walk they make: the
+    # lanes of a row hold its vectors (no more vectors a lane than needed),
+    # tiles of whole row slots, a ring of 2-4 stages (and the backward's
+    # column sums) within 227 KB, two CTAs an SM where the plan says so;
+    # every row normalised exactly once over the CTAs, the last tile
+    # ragged, each bulk copy a multiple of 16 bytes
+    vec = 16 // itemsize
+    slots_of = lambda p: ln.LN_THREADS // p.lanes  # noqa: E731
+    one = ln.ln_plan(1, C, itemsize, backward)
+    rows = 3 * one.tile_rows * ln.H100_SMS + 5  # more tiles than CTAs, ragged
+    plan = ln.ln_plan(rows, C, itemsize, backward)
+    assert plan[:7] == one[:7]  # the layout does not depend on the row count
+    assert plan.lanes & (plan.lanes - 1) == 0 and plan.lanes <= ln.LN_THREADS
+    assert 1 <= plan.vecs <= ln.LN_MAX_VECS
+    assert (plan.vecs - 1) * plan.lanes < C // vec <= plan.vecs * plan.lanes
+    assert plan.tile_rows % slots_of(plan) == 0
+    assert 2 <= plan.stages <= ln.LN_STAGES
+    assert plan.x_bytes % 128 == 0 and plan.x_bytes >= plan.tile_rows * C * itemsize
+    assert plan.stage_bytes == (2 if backward else 1) * plan.x_bytes
+    assert plan.smem_bytes >= plan.stages * plan.stage_bytes + 128
+    if backward:
+        assert plan.smem_bytes >= slots_of(plan) * 2 * C * 4 + 128
+    assert plan.smem_bytes <= ln.LN_SMEM_MAX <= 227 * 1024
+    per_sm = -(-plan.ctas // ln.H100_SMS)
+    assert per_sm <= (ln.LN_BWD_CTAS_PER_SM if backward else ln.LN_FWD_CTAS_PER_SM)
+    assert per_sm * (plan.smem_bytes + ln.LN_CTA_OVERHEAD) <= ln.SMEM_PER_SM
+    seen = np.zeros(rows, np.int64)
+    for cta in range(plan.ctas):
+        tiles = _cta_tiles(plan, rows, cta)
+        assert tiles, "every CTA normalises at least one tile"
+        for r in tiles:
+            assert 0 < len(r) <= plan.tile_rows and len(r) * C * itemsize % 16 == 0
+            seen[r.start:r.stop] += 1
+    assert (seen == 1).all()
+    assert plan.tile_rows == 1 or rows % plan.tile_rows  # a ragged last tile
+
+
+@pytest.mark.parametrize("rows", [1, 1000, 10 ** 6])
+def test_ln_plan_takes_the_warp_path_off_the_vector_width(rows):
+    # C = 100 in bf16 is not a multiple of 8: no bulk plan, only the
+    # backward's grid, a CTA per 8 rows up to two an SM; fp32 (a multiple of
+    # 4: 25 vectors) takes the bulk path, 8 lanes of up to 4 vectors
+    plan = ln.ln_plan(rows, 100, 2, True)
+    assert plan.lanes == 0 and 1 <= plan.ctas <= min(-(-rows // 8), 2 * ln.H100_SMS)
+    assert ln.ln_plan(rows, 100, 4, True)[:2] == (8, 4)
+
+
+def _no_grad_and_gamma_only(device, dtype):
+    """y without grad mode, with it, and with only gamma requiring a
+    gradient, held bitwise equal; the gradients of all three inputs and of
+    gamma alone held bitwise equal; a second backward held to twice the first
+    (it accumulates into the gradients the first left: on the card dgamma
+    and dbeta come back as the two rows of one tensor). Returns (y, the
+    gradients of x, gamma, beta, the plain version's (dx, dgamma, dbeta))."""
+    x, g, b = (torch.from_numpy(a).to(device) for a in _inputs((3, 5, 96), seed=11))
+    x = x.to(dtype)
+    t = torch.from_numpy(np.random.default_rng(12).standard_normal(x.shape).astype(np.float32))
+    t = t.to(device)
+    with torch.no_grad():
+        y0 = ln.fused_layer_norm(x.requires_grad_(), g.requires_grad_(), b.requires_grad_())
+    assert y0.grad_fn is None
+    x.grad = g.grad = b.grad = None
+    y1 = ln.fused_layer_norm(x, g, b)
+    assert y1.grad_fn is not None
+    assert torch.equal(y1, y0)
+    (y1.float() * t).sum().backward()
+    full = tuple(v.grad.clone() for v in (x, g, b))
+    gamma = g.detach().clone().requires_grad_()
+    y2 = ln.fused_layer_norm(x.detach(), gamma, b.detach())
+    assert torch.equal(y2, y0)
+    (y2.float() * t).sum().backward()
+    assert torch.equal(gamma.grad, full[1])
+    (ln.fused_layer_norm(x, g, b).float() * t).sum().backward()
+    for v, first in zip((x, g, b), full):
+        assert torch.equal(v.grad, 2 * first)
+    return y0, full, ln.layer_norm_bwd_ref(x.detach(), g.detach(), t.to(dtype), 1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_no_grad_and_gamma_only_give_the_same_values_and_gradients(dtype):
+    # the wrapper builds an autograd node only when an input needs a
+    # gradient: the values are the same either way, and a gradient of gamma
+    # alone is the one it gets when every input requires one
+    _, full, want = _no_grad_and_gamma_only("cpu", dtype)
+    for got, w in zip(full, want):
+        torch.testing.assert_close(got, w, rtol=0, atol=0)
+
+
 # rows x C on the card: the ConvNeXt-T stage widths at small row counts, a
-# ragged ViT row count, a C that is not a multiple of the vector width, and
-# the largest C (the backward's 4-warp, 128 KB shared-memory path)
+# ragged ViT row count, a C that is not a multiple of the vector width (bf16:
+# the warp-per-row kernels), wide rows over several warps (2048, 4096), and
+# row counts against the tiles of the bulk path (bf16 / fp32: 80 / 40 rows
+# at C = 96, 8 / 4 at C = 768): fewer rows than a tile (7x96, 3x768), one
+# tile exactly (80x96, 8x768), a ragged last tile (247x96, 43x768), and more
+# tiles than CTAs, so the rings wrap (30011x96, 3001x768)
 CARD_SHAPES = [(7, 96), (2 * 197, 768), (1000, 192), (33, 100), (64, 768), (9, 4096),
-               (4100, 384)]
+               (4100, 384), (80, 96), (247, 96), (30011, 96), (3, 768), (8, 768), (43, 768),
+               (3001, 768), (5, 2048), (17, 1000)]
 
 
 @pytest.mark.cuda
@@ -226,3 +333,64 @@ def test_backward_is_deterministic_and_takes_constant_rows_on_card(cuda_device):
     for _ in range(3):
         for a, c in zip(first, ln.layer_norm_bwd(x, g, dy)):
             assert torch.equal(a, c)  # no atomics: the same bits every run
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(200704, 96), (12608, 768)])
+def test_backward_is_bitwise_repeatable_at_model_shapes_on_card(cuda_device, shape):
+    # ConvNeXt-T's stage 0 and ViT-B/16's token rows at batch 64, bf16:
+    # dgamma/dbeta sum every row in a fixed order, so three runs give the
+    # same bits (and so do dx and y)
+    x, g, b = (torch.from_numpy(a).to(cuda_device) for a in _inputs(shape, seed=13))
+    x = x.bfloat16()
+    dy = torch.randn(shape, device=cuda_device).bfloat16()
+    runs = [(ln.fused_layer_norm(x, g, b), *ln.layer_norm_bwd(x, g, dy)) for _ in range(3)]
+    for run in runs[1:]:
+        for a, c in zip(runs[0], run):
+            assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3136, 768), (33, 100)])
+def test_one_launch_a_forward_and_one_plus_the_sums_a_backward_on_card(cuda_device, launches,
+                                                                       shape):
+    # the counters and a trace agree: a forward is one kernel, a backward one
+    # kernel and one partial-sum pass, and nothing else runs on the card
+    from torch.profiler import ProfilerActivity, profile
+
+    x, g, b = (torch.from_numpy(a).to(cuda_device) for a in _inputs(shape, seed=14))
+    x = x.bfloat16()
+    dy = torch.randn(shape, device=cuda_device).bfloat16()
+    ln.fused_layer_norm(x, g, b)
+    ln.layer_norm_bwd(x, g, dy)
+    torch.cuda.synchronize()
+    for call, want in ((lambda: ln.fused_layer_norm(x, g, b), ["layer_norm_fwd"]),
+                       (lambda: ln.layer_norm_bwd(x, g, dy), ["layer_norm_bwd", "sum_partials"])):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = sorted(e.name for e in prof.events() if e.device_type.name == "CUDA")
+        assert len(names) == len(want), names
+        for name, w in zip(names, want):
+            assert w in name, names
+    assert (ln.fused_layer_norm.launches, ln.fused_layer_norm.launches_bwd) == (2, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_no_grad_and_gamma_only_give_the_same_values_and_gradients_on_card(cuda_device,
+                                                                           launches, dtype):
+    # the kernels' side of the CPU test above: the branch without an
+    # autograd node and the backward through it (dgamma and dbeta the views
+    # of one [2, C] tensor, accumulated into by a second backward), against
+    # the plain versions at the tolerances of the tests above
+    y, full, want = _no_grad_and_gamma_only(cuda_device, dtype)
+    assert (ln.fused_layer_norm.launches, ln.fused_layer_norm.launches_bwd) == (4, 3)
+    x, g, b = (torch.from_numpy(a).to(cuda_device) for a in _inputs((3, 5, 96), seed=11))
+    want_y = ln.layer_norm_ref(x.to(dtype), g, b)
+    rel = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    assert (y.float() - want_y.float()).abs().max().item() <= rel * want_y.float().abs().max().item()
+    for name, got, w, r in zip(("dx", "dgamma", "dbeta"), full, want, (rel, 1e-4, 1e-4)):
+        assert got.dtype == w.dtype, name
+        err = (got.float() - w.float()).abs().max().item()
+        assert err <= r * w.float().abs().max().item(), f"{name}: max|d| {err}"
