@@ -26,10 +26,12 @@ exit before the last line:
    and device ms and the factors on both, each wrapper's host cost a call,
    and the forward wrapper's host steps timed one by one; 3d
    the depthwise-conv kernels (forward, dx, dw) at ConvNeXt-T's four stage
-   shapes, dw also run twice and held bitwise equal; 3e the fused 1x1 conv +
-   BN statistics kernel at ResNet-50's 1x1 shapes (both variants, and the
-   ragged M = 3136 that the Pallas kernel refuses), with cuBLAS `x @ w` and
-   the unfused chain as yardsticks;
+   shapes, dw also run twice and held bitwise equal, each with its device
+   ms and cuDNN's (F.conv2d(groups=C) and its two backward convolutions)
+   and the factors; 3e the fused 1x1 conv + BN statistics kernel at
+   ResNet-50's 1x1 shapes (both variants, and the ragged M = 3136 that the
+   Pallas kernel refuses), run twice and held bitwise equal, with cuBLAS
+   `x @ w` and the unfused chain as yardsticks, in kernel and device ms;
 4. the serving path: a seeded JAX-format ViT-B/16 checkpoint trained with
    --flash_attn (random weights) and a seeded 5-class image folder go through
    `val_precision` and `val_move` on cuda at batch 64, with every kernel's
@@ -94,6 +96,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 
@@ -803,16 +806,18 @@ def layernorm_bound(rows: int, C: int, part: str = "fwd", itemsize: int = 2):
     return max(t_bytes, t_flops) * 1e3, ("bytes" if t_bytes >= t_flops else "operations")
 
 
-def dwconv_bound(B: int, H: int, W: int, C: int, itemsize: int = 2, part: str = "fwd"):
-    """(bound_ms, bound_by) of the 7x7 depthwise conv over [B, H, W, C]: two
-    tensors of that shape read or written and the 7x7xC weights (or dw), 2 *
-    49 flops per element. 'fwd' (the forward, and dx) on the fp32 CUDA cores:
-    each channel has its own filter, so there is no dense tensor-core form.
-    'dw' at the bf16 tensor-core rate: per channel dw is a 7 x 7 product of
-    depth B*H*W (csrc/dwconv7x7.cu), whatever the kernel runs it on."""
+def dwconv_bound(B: int, H: int, W: int, C: int, itemsize: int = 2):
+    """(bound_ms, bound_by) of the 7x7 depthwise conv over [B, H, W, C], the
+    forward, dx or dw alike: two tensors of that shape read or written and
+    the 7x7xC weights (or dw), 2 * 49 flops per element at the card's rate
+    for the inputs' type. bf16: the tensor-core rate, since each has a
+    tensor-core form (per channel the forward and dx are banded Toeplitz
+    products of input rows with kernel rows, dw a 7 x 7 product of depth
+    B*H*W; csrc/dwconv7x7.cu), whatever the kernel runs them on. fp32
+    (itemsize 4): the fp32 CUDA cores. The bytes bind in both."""
     n = B * H * W * C
     t_bytes = (2 * n + 49 * C) * itemsize / HBM_BYTES_PER_S
-    t_flops = 2 * 49 * n / {"fwd": FP32_FLOPS_PER_S, "dw": BF16_FLOPS_PER_S}[part]
+    t_flops = 2 * 49 * n / (BF16_FLOPS_PER_S if itemsize == 2 else FP32_FLOPS_PER_S)
     return max(t_bytes, t_flops) * 1e3, ("bytes" if t_bytes >= t_flops else "operations")
 
 
@@ -831,15 +836,16 @@ def _device_ms(fn, launches: dict) -> float:
     `launches` at its mean time per launch in a trace, times the launches it
     makes per call. On the H100 a trace has kept only some, or none, of a
     kernel's launches (PERF.md §6, PR 4), so a mean per launch is taken, and
-    a kernel missing from a trace is traced again, up to three traces."""
-    for _ in range(3):
+    a kernel missing from a trace is traced again, up to five traces (three
+    in a row have dropped every launch of a kernel)."""
+    for _ in range(5):
         _, _, kernels = trace(fn)
         seen = {name: [(ms, n) for k, (ms, n) in kernels.items() if name in k]
                 for name in launches}
         if all(sum(n for _, n in got) for got in seen.values()):
             return sum(sum(ms for ms, _ in got) / sum(n for _, n in got) * launches[name]
                        for name, got in seen.items())
-    raise AssertionError(f"three traces held no launch of one of {list(launches)}")
+    raise AssertionError(f"five traces held no launch of one of {list(launches)}")
 
 
 def _library_device_ms(fn, traces: int = 3) -> float:
@@ -994,8 +1000,9 @@ def check_dwconv(shape, device, timed: bool = True):
     with the flipped weights, dw with its partial-sum pass) against their
     plain versions on seeded bf16 x, w and dy of `shape`; when `timed`,
     kernel, plain and library (cuDNN F.conv2d(groups=C) in channels_last bf16,
-    and aten.convolution_backward for dx and for dw) ms by CUDA events, device
-    ms per call from a trace, and the bound."""
+    and aten.convolution_backward for dx and for dw) ms by CUDA events, the
+    device ms per call of each kernel and each library call from traces, the
+    factors kernel / library on both, and the bounds."""
     import torch
     import torch.nn.functional as F
 
@@ -1032,33 +1039,30 @@ def check_dwconv(shape, device, timed: bool = True):
         xc, dyc = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)  # channels_last views
         wc = w.permute(2, 0, 1).unsqueeze(1).contiguous()
         conv_bwd = torch.ops.aten.convolution_backward
-        row["library_ms"] = {
-            "fwd": time_ms(lambda: F.conv2d(xc, wc, padding=3, groups=C), iters),
-            "dx": time_ms(lambda: conv_bwd(dyc, xc, wc, None, [1, 1], [3, 3], [1, 1], False,
-                                           [0, 0], C, [True, False, False]), iters),
-            "dw": time_ms(lambda: conv_bwd(dyc, xc, wc, None, [1, 1], [3, 3], [1, 1], False,
-                                           [0, 0], C, [False, True, False]), iters)}
+        lib = {"fwd": lambda: F.conv2d(xc, wc, padding=3, groups=C),
+               "dx": lambda: conv_bwd(dyc, xc, wc, None, [1, 1], [3, 3], [1, 1], False,
+                                      [0, 0], C, [True, False, False]),
+               "dw": lambda: conv_bwd(dyc, xc, wc, None, [1, 1], [3, 3], [1, 1], False,
+                                      [0, 0], C, [False, True, False])}
+        row["library_ms"] = {k: time_ms(fn, iters) for k, fn in lib.items()}
         row["device_ms"] = {
             "fwd": _device_ms(lambda: dw.depthwise_conv7x7(x, w), {"dwconv7x7_fwd_kernel": 1}),
+            "dx": _device_ms(lambda: dw._launch_fwd(dy, w, flip=True),
+                             {"dwconv7x7_fwd_kernel": 1}),
             "dw": _device_ms(lambda: dw._launch_dw(x, dy, w.dtype),
                              {"dwconv7x7_dw_kernel": 1, "sum_partials": 1})}
-        row["library_device_ms_dw"] = _library_device_ms(
-            lambda: conv_bwd(dyc, xc, wc, None, [1, 1], [3, 3], [1, 1], False, [0, 0], C,
-                             [False, True, False]))
-        row["bound"] = {part: dwconv_bound(B, H, W, C, part=part) for part in ("fwd", "dw")}
+        row["library_device_ms"] = {k: _library_device_ms(fn) for k, fn in lib.items()}
+        row["bound"] = dict.fromkeys(("fwd", "dx", "dw"), dwconv_bound(B, H, W, C))
         factor = {k: row["ms"][k] / row["library_ms"][k] for k in row["ms"]}
-        log(f"dwconv7x7 {shape} bf16: kernel ms fwd {row['ms']['fwd']:.4f} (device "
-            f"{row['device_ms']['fwd']:.4f}), dx {row['ms']['dx']:.4f}, dw {row['ms']['dw']:.4f} "
-            f"(device {row['device_ms']['dw']:.4f}); plain fwd {row['plain_ms']['fwd']:.4f}, dw "
-            f"{row['plain_ms']['dw']:.4f}; cuDNN fwd {row['library_ms']['fwd']:.4f}, dx "
-            f"{row['library_ms']['dx']:.4f}, dw {row['library_ms']['dw']:.4f} (device "
-            f"{row['library_device_ms_dw']:.4f}); kernel/cuDNN fwd {factor['fwd']:.3f}, dx "
-            f"{factor['dx']:.3f}, dw {factor['dw']:.3f} (device "
-            f"{row['device_ms']['dw'] / row['library_device_ms_dw']:.3f}); bound fwd/dx "
-            f"{row['bound']['fwd'][0]:.4f} ms ({row['bound']['fwd'][1]}, fp32), dw "
-            f"{row['bound']['dw'][0]:.4f} ms ({row['bound']['dw'][1]}, bf16 tensor cores), dw "
-            f"bound/device {row['bound']['dw'][0] / row['device_ms']['dw']:.3f}; dw bitwise "
-            f"equal over two runs")
+        dev_factor = {k: row["device_ms"][k] / row["library_device_ms"][k] for k in row["ms"]}
+        log(f"dwconv7x7 {shape} bf16: " + "; ".join(
+            f"{k} kernel {row['ms'][k]:.4f} ms (device {row['device_ms'][k]:.4f}), plain "
+            f"{row['plain_ms'][k]:.4f}, cuDNN {row['library_ms'][k]:.4f} (device "
+            f"{row['library_device_ms'][k]:.4f}), kernel/cuDNN {factor[k]:.3f} (device "
+            f"{dev_factor[k]:.3f}), bound {row['bound'][k][0]:.4f} ({row['bound'][k][1]}"
+            f", bf16 tensor cores), bound/device "
+            f"{row['bound'][k][0] / row['device_ms'][k]:.3f}" for k in ("fwd", "dx", "dw"))
+            + "; dw bitwise equal over two runs")
     log(f"dwconv7x7 {shape}: max|d| vs plain "
         + ", ".join(f"{k} {e:.3e} (tol {t:.3e})" for k, (e, t) in errs.items()))
     return row
@@ -1248,7 +1252,8 @@ def replay_convnext_ops(run: dict, device: str):
             "n_ln": len(records["ln"]), "n_dw": len(records["dw"]),
             "ln_shapes": sorted({(r["x"].numel() // r["x"].shape[-1], r["x"].shape[-1])
                                  for r in records["ln"]}),
-            "dw_shapes": sorted({tuple(r["x"].shape) for r in records["dw"]})}
+            "dw_shapes": sorted({tuple(r["x"].shape) for r in records["dw"]}),
+            "dw_counts": Counter(tuple(r["x"].shape) for r in records["dw"])}
 
 
 def _replay(records, grad_of, hold) -> None:
@@ -1338,10 +1343,11 @@ def _k2_inputs(M: int, K: int, N: int, bn_in: bool, device):
 def check_conv1x1(shape, device, timed: bool = True):
     """The fused 1x1 conv + BN statistics kernel against its plain version
     (fp32 product of the same bf16 inputs) at (M, K, N, prologue): y within
-    OP_RTOL of max|ref|, the statistics by `hold_stats`. When `timed`: kernel,
-    plain, cuBLAS `x @ w` alone (the library yardstick) and the unfused chain
-    (prologue, `x @ w`, the two column reductions in torch) ms by CUDA events,
-    the kernel's device ms per call from a trace, and the bound."""
+    OP_RTOL of max|ref|, the statistics by `hold_stats`, and two runs bitwise
+    equal. When `timed`: kernel, plain, cuBLAS `x @ w` alone (the library
+    yardstick) and the unfused chain (prologue, `x @ w`, the two column
+    reductions in torch) ms by CUDA events, the device ms per call of the
+    kernel, of `x @ w` and of the chain from traces, and the bound."""
     import torch
 
     from imageclassification_tpu_torch.ops import conv1x1_bn as k2
@@ -1349,7 +1355,10 @@ def check_conv1x1(shape, device, timed: bool = True):
     M, K, N, bn_in = shape
     x, w, scale, shift = _k2_inputs(M, K, N, bn_in, device)
     y, stats = k2.conv1x1_bn_stats(x, w, scale, shift)
+    again = k2.conv1x1_bn_stats(x, w, scale, shift)
     torch.cuda.synchronize()
+    if not (torch.equal(y, again[0]) and torch.equal(stats, again[1])):
+        raise AssertionError(f"conv1x1_bn {shape}: two runs differ")  # no atomics
     ref_y, ref_stats = k2.conv1x1_bn_ref(x, w, scale, shift)
     y_err, _ = _hold(f"conv1x1_bn y {shape}", y, ref_y.float(), OP_RTOL)
     xf = x.float() if not bn_in else torch.relu(x.float() * scale + shift).bfloat16().float()
@@ -1370,13 +1379,17 @@ def check_conv1x1(shape, device, timed: bool = True):
         row["library_ms"] = time_ms(lambda: x @ w, iters)
         row["chain_ms"] = time_ms(chain, iters)
         row["device_ms"] = _device_ms(lambda: k2.conv1x1_bn_stats(x, w, scale, shift),
-                                      {"conv1x1_bn_kernel": 1, "sum_partials": 2})
+                                      {"conv1x1_bn_kernel": 1, "sum_partials": 1})
+        row["library_device_ms"] = _library_device_ms(lambda: x @ w)
+        row["chain_device_ms"] = _library_device_ms(chain)
         row["bound"] = conv1x1_bound(M, K, N, bn_in)
         log(f"conv1x1_bn {'bn_in ' if bn_in else ''}M,K,N={M},{K},{N} bf16: kernel "
             f"{row['ms']:.4f} ms (device {row['device_ms']:.4f}), plain {row['plain_ms']:.4f}, "
-            f"cuBLAS x@w {row['library_ms']:.4f}, unfused chain {row['chain_ms']:.4f}, bound "
+            f"cuBLAS x@w {row['library_ms']:.4f} (device {row['library_device_ms']:.4f}), "
+            f"unfused chain {row['chain_ms']:.4f} (device {row['chain_device_ms']:.4f}), "
+            f"kernel/cuBLAS device {row['device_ms'] / row['library_device_ms']:.3f}, bound "
             f"{row['bound'][0]:.4f} ms ({row['bound'][1]}), bound/device "
-            f"{row['bound'][0] / row['device_ms']:.3f}")
+            f"{row['bound'][0] / row['device_ms']:.3f}; bitwise equal over two runs")
     log(f"conv1x1_bn {shape}: max|d| vs plain y {y_err:.3e} (tol 2^-7 of max|ref|), column sum "
         f"{s_err:.3e}, sum of squares {q_err:.3e} (tol {SUM_RTOL} of each column's sum of |y|, "
         f"sum of squares)")
@@ -1605,7 +1618,22 @@ def replay_resnet_convs(model, args, batch, num_classes: int):
             "n": {lab: sum(1 for j in jobs if j[0] == lab) for lab in ("conv1", "conv3",
                                                                       "downsample")},
             "shapes": sorted({(j[1].shape[0], j[1].shape[1], j[2].shape[1], j[3] is not None)
-                              for j in jobs})}
+                              for j in jobs}),
+            "counts": Counter((j[1].shape[0], j[1].shape[1], j[2].shape[1], j[3] is not None)
+                              for j in jobs)}
+
+
+def launch_gap(rows, counts, key, gap) -> tuple:
+    """(sum of launches x (device ms - bound ms), launches counted, launches
+    left out) over one replayed train step: `counts` the replay's launches by
+    shape, `rows` the timed rows of phase 3d or 3e, `key(row)` a row's shape
+    as `counts` keys it and `gap(row)` its device ms less its bound for one
+    launch of each kernel it stands for. Launches on shapes without a timed
+    row are left out."""
+    timed = {key(r): r for r in rows}
+    total = sum(n * gap(timed[k]) for k, n in counts.items() if k in timed)
+    counted = sum(n for k, n in counts.items() if k in timed)
+    return total, counted, sum(counts.values()) - counted
 
 
 def main() -> int:
@@ -1753,6 +1781,12 @@ def main() -> int:
             + ", ".join(f"{k} {e:.3e}" for k, e in replay["errs"].items())
             + f" (tolerances: vs model 2^-6 of max|ref|, dgamma/dbeta {MODEL_SUM_RTOL}; vs plain "
             f"2^-7, dgamma/dbeta {SUM_RTOL})")
+        dw_gap = launch_gap(dw_rows, replay["dw_counts"], lambda r: tuple(r["shape"]),
+                            lambda r: sum(r["device_ms"][k] - r["bound"][k][0]
+                                          for k in ("fwd", "dx")))
+        log(f"launches x (device - bound) over one ConvNeXt-T train step: dwconv7x7_fwd "
+            f"(forward + dx) {dw_gap[0]:.4f} ms over {dw_gap[1]} convs on the shapes of 3d "
+            f"({dw_gap[2]} on others, left out)")
 
         # 7. the ResNet-50 training path on the same folder
         rn = run_resnet_training(os.path.join(work, "resnet"), "cuda", RESNET50, cfg["img"],
@@ -1786,6 +1820,11 @@ def main() -> int:
         f"largest max|d| " + ", ".join(f"{k} {e:.3e}" for k, e in k2_replay["errs"].items())
         + f" (tolerances: vs model 2^-6 of max|ref| (batch mean: of the largest column mean of "
         f"|y|); vs plain 2^-7, column sums {SUM_RTOL})")
+    k2_gap = launch_gap(k2_rows, k2_replay["counts"], lambda r: (*r["shape"], r["bn_in"]),
+                        lambda r: r["device_ms"] - r["bound"][0])
+    log(f"launches x (device - bound) over one ResNet-50 train step: conv1x1_bn_stats "
+        f"{k2_gap[0]:.4f} ms over {k2_gap[1]} launches on the shapes of 3e ({k2_gap[2]} on "
+        f"others, left out)")
 
     # 7c. the port bench at batch 128, and a trace of its step
     from imageclassification_tpu_torch import bench
@@ -1859,11 +1898,14 @@ def main() -> int:
             "library_ms": dw0["library_ms"][part], "shape": dw0["shape"],
             "path": replay_path.format(f"{n_dw} depthwise convs"),
         })
-    kernels[-2].update(launches_fwd=replay["launches"]["dw_fwd"],
+    kernels[-2].update(launch_gap_ms=dw_gap[0], launches_fwd=replay["launches"]["dw_fwd"],
                        launches_dx=replay["launches"]["dw_dx"], ms_dx=dw0["ms"]["dx"],
-                       library_ms_dx=dw0["library_ms"]["dx"], device_ms=dw0["device_ms"]["fwd"])
+                       library_ms_dx=dw0["library_ms"]["dx"], device_ms=dw0["device_ms"]["fwd"],
+                       device_ms_dx=dw0["device_ms"]["dx"],
+                       library_device_ms=dw0["library_device_ms"]["fwd"],
+                       library_device_ms_dx=dw0["library_device_ms"]["dx"])
     kernels[-1].update(device_ms=dw0["device_ms"]["dw"],
-                       library_device_ms=dw0["library_device_ms_dw"])
+                       library_device_ms=dw0["library_device_ms"]["dw"])
     # the fused 1x1 conv row: ResNet-50's stage-1 conv3 shape (the largest),
     # launches counted over the replay of phase 7b
     k2_0 = k2_rows[0]
@@ -1876,8 +1918,9 @@ def main() -> int:
         "max_abs_err": k2_0["errs"]["y"], "ms": k2_0["ms"], "plain_ms": k2_0["plain_ms"],
         "bound_ms": k2_0["bound"][0], "bound_by": k2_0["bound"][1],
         "library_ms": k2_0["library_ms"], "shape": k2_0["shape"], "bn_in": k2_0["bn_in"],
-        "device_ms": k2_0["device_ms"], "chain_ms": k2_0["chain_ms"],
-        "launches_plain": k2_replay["launches"]["k2"],
+        "device_ms": k2_0["device_ms"], "library_device_ms": k2_0["library_device_ms"],
+        "chain_ms": k2_0["chain_ms"], "chain_device_ms": k2_0["chain_device_ms"],
+        "launch_gap_ms": k2_gap[0], "launches_plain": k2_replay["launches"]["k2"],
         "launches_bn_in": k2_replay["launches"]["k2_bn_in"],
         "path": ("replay of one ResNet-50 train step's 36 1x1 convs (chip_smoke.py phase 7b): "
                  "the JAX model and the port's run lax.conv / F.conv2d, not this kernel"),

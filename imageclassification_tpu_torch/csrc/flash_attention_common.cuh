@@ -90,7 +90,7 @@ inline int encode_rows(CUtensorMap* map, const void* base, int B, int N, int H,
   const cuuint64_t strides[3] = {(cuuint64_t)stride_h, (cuuint64_t)stride_n,
                                  (cuuint64_t)stride_b};
   const cuuint32_t box[4] = {(cuuint32_t)kHeadDim, 1, (cuuint32_t)kBlock, 1};
-  return hopper::encode_4d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, dims, strides, box,
+  return hopper::encode<4>(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, dims, strides, box,
                            CU_TENSOR_MAP_SWIZZLE_128B);
 }
 

@@ -1,12 +1,13 @@
 // Hopper (sm_90a) building blocks for kernels fed by the Tensor Memory
-// Accelerator (flash_attention_fwd.cu, flash_attention_bwd.cu, dwconv7x7.cu's
-// weight gradient, layernorm.cu) and multiplying on warpgroup tensor cores
-// (the flash-attention kernels): mbarriers, named barriers, TMA tile loads
-// and 1-d bulk copies, wgmma
-// descriptors and bf16 products (m64n64k16 and m64n16k16 with A in shared
-// memory or in registers), register reallocation between warpgroups, the
-// host-side encoding of a tensor map through the driver entry point (so
-// nothing links -lcuda), and the set-up of a persistent launch.
+// Accelerator (flash_attention_fwd.cu, flash_attention_bwd.cu, dwconv7x7.cu,
+// layernorm.cu, conv1x1_bn.cu) and multiplying on warpgroup tensor cores
+// (the flash-attention kernels, conv1x1_bn.cu): mbarriers, named barriers,
+// TMA tile loads and stores and 1-d bulk copies, wgmma descriptors and bf16
+// products (m64n128k16, m64n64k16 and m64n16k16 with A in shared memory or in
+// registers), register reallocation between warpgroups, the host-side
+// encoding of a tensor map through the driver entry point (so nothing links
+// -lcuda), and the host side of a launch: the device made current for it,
+// its dynamic shared memory allowed, the set-up of a persistent grid.
 #pragma once
 
 #include <cuda.h>
@@ -62,6 +63,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       : "memory");
 }
 
+// `raw` (a shared-memory array) advanced to the next multiple of kAlign
+// bytes of the shared address space. Pointer arithmetic on the array, not a
+// round trip through an integer: the compiler then still knows the result
+// points to shared memory and emits LDS/STS for it, not the slower generic
+// loads and stores.
+template <typename T, int kAlign>
+__device__ __forceinline__ T* align_smem(unsigned char* raw) {
+  const uint32_t pad = (kAlign - (smem_addr(raw) & (kAlign - 1))) & (kAlign - 1);
+  return reinterpret_cast<T*>(raw + pad);
+}
+
 // ---- named barriers --------------------------------------------------------
 
 // wait until `threads` threads (whole warps) have reached barrier `id` (1-15;
@@ -98,6 +110,47 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// The same for a 2-d tensor map: the box at (c0, c1).
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Copy a box of shared memory at `src` to the box at (c0, c1) of a 2-d
+// tensor map; elements outside the tensor are not written. The copy joins
+// this thread's current bulk group (bulk_commit closes it). The shared
+// memory must not be written again before bulk_wait_read says the group
+// has read it, and the writes of other threads must be ordered before the
+// copy by fence_proxy_async and a barrier.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// wait until at most N of this thread's bulk groups are still in flight
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Copy `bytes` (a multiple of 16) of contiguous global memory at `src` into
@@ -153,11 +206,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 // kTransB = 0: b is stored K-major (N rows of K contiguous values); 1:
 // MN-major (K rows of N contiguous values). scale_d = 0 overwrites d.
 
-// N = 64 or 16, a in shared memory (K-major) through its descriptor
+// N = 128, 64 or 16, a in shared memory (K-major) through its descriptor
 template <int N, int kTransB>
 __device__ __forceinline__ void wgmma_m64k16_ss(float (&d)[N / 2], uint64_t desc_a,
                                                 uint64_t desc_b, int scale_d) {
-  static_assert(N == 64 || N == 16, "m64n64k16 and m64n16k16 only");
+  static_assert(N == 128 || N == 64 || N == 16, "m64n128k16, m64n64k16 and m64n16k16 only");
   if constexpr (N == 64) {
     asm volatile(
         "{\n"
@@ -175,6 +228,30 @@ __device__ __forceinline__ void wgmma_m64k16_ss(float (&d)[N / 2], uint64_t desc
           "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
           "+f"(d[31])
         : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+  } else if constexpr (N == 128) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, %67;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
   } else {
     asm volatile(
         "{\n"
@@ -189,13 +266,13 @@ __device__ __forceinline__ void wgmma_m64k16_ss(float (&d)[N / 2], uint64_t desc
   }
 }
 
-// N = 64 or 16, a in registers: the warp's m16k16 A fragment, laid out as
+// N = 128, 64 or 16, a in registers: the warp's m16k16 A fragment, laid out as
 // for mma.sync. The registers of `a` must keep their values until the
 // product is waited for.
 template <int N, int kTransB>
 __device__ __forceinline__ void wgmma_m64k16_rs(float (&d)[N / 2], const unsigned (&a)[4],
                                                 uint64_t desc_b, int scale_d) {
-  static_assert(N == 64 || N == 16, "m64n64k16 and m64n16k16 only");
+  static_assert(N == 128 || N == 64 || N == 16, "m64n128k16, m64n64k16 and m64n16k16 only");
   if constexpr (N == 64) {
     asm volatile(
         "{\n"
@@ -212,6 +289,31 @@ __device__ __forceinline__ void wgmma_m64k16_rs(float (&d)[N / 2], const unsigne
           "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
           "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
           "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d),
+          "n"(kTransB));
+  } else if constexpr (N == 128) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d),
           "n"(kTransB));
   } else {
@@ -254,13 +356,14 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 4-d tensor map of `type` over `base` with dims[0] contiguous and the
-// byte strides of dims 1..3, read in boxes of box[0..3] elements with the
-// given swizzle; out-of-bounds elements load as zeros. Returns 0 or an
-// error code.
-inline int encode_4d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
-                     const cuuint64_t (&dims)[4], const cuuint64_t (&strides)[3],
-                     const cuuint32_t (&box)[4], CUtensorMapSwizzle swizzle) {
+// A tensor map of rank R (2 to 5) of `type` over `base` with dims[0]
+// contiguous and the byte strides of dims 1..R-1, read or written in boxes of
+// box[0..R-1] elements with the given swizzle; out-of-bounds elements load as
+// zeros. Returns 0 or an error code.
+template <int R>
+inline int encode(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                  const cuuint64_t (&dims)[R], const cuuint64_t (&strides)[R - 1],
+                  const cuuint32_t (&box)[R], CUtensorMapSwizzle swizzle) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   // the encoding needs a current context on this thread. The runtime makes
@@ -275,8 +378,9 @@ inline int encode_4d(CUtensorMap* map, CUtensorMapDataType type, const void* bas
     if (e == cudaSuccess) bound = dev;
   }
   if (e != cudaSuccess) return (int)e;
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  CUresult r = fn(map, type, 4, const_cast<void*>(base), dims, strides, box, elem_strides,
+  cuuint32_t elem_strides[R];
+  for (int i = 0; i < R; ++i) elem_strides[i] = 1;
+  CUresult r = fn(map, type, R, const_cast<void*>(base), dims, strides, box, elem_strides,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
@@ -299,6 +403,40 @@ inline int prepare_persistent(const void* kernel, int smem_bytes, int (&cache)[6
     if (dev < 64) cache[dev] = n;
   }
   *n_sms = n;
+  return 0;
+}
+
+// Makes `device` current for the launches of an entry point and restores
+// the caller's device after them: torch's current device may be another than
+// the tensors'. Costs a cudaGetDevice when it is already current.
+struct DeviceGuard {
+  int prev = -1;
+  int err = 0;
+  explicit DeviceGuard(int device) {
+    err = (int)cudaGetDevice(&prev);
+    if (err == 0 && prev != device) {
+      err = (int)cudaSetDevice(device);
+    } else {
+      prev = -1;
+    }
+  }
+  ~DeviceGuard() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
+};
+
+// Once per device for each kernel (a bit per device in `configured`): let
+// it take up to `bytes` of dynamic shared memory. Returns 0 or an error code.
+template <typename Kernel>
+int allow_smem(Kernel kernel, int bytes, unsigned long long& configured) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 64 || !((configured >> dev) & 1)) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 64) configured |= 1ull << dev;
+  }
   return 0;
 }
 

@@ -499,20 +499,6 @@ __global__ void layer_norm_bwd_rows_kernel(const T* __restrict__ x, const float*
 
 // ---- launches ----------------------------------------------------------------
 
-// Once per device for each kernel (a bit per device in `configured`): let
-// it take up to kSmemMax bytes of dynamic shared memory.
-template <typename Kernel>
-int allow_smem(Kernel kernel, unsigned long long& configured) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev >= 64 || !((configured >> dev) & 1)) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
-    if (e != cudaSuccess) return (int)e;
-    if (dev < 64) configured |= 1ull << dev;
-  }
-  return 0;
-}
 
 // Whether the host's plan holds what the bulk kernels read and write: the
 // vectors of a row over the lanes (vecs the fewest that do), whole row
@@ -542,7 +528,7 @@ int launch_fwd_bulk(const void* x, const float* gamma, const float* beta, void* 
                     int C, float eps, const Plan& p, cudaStream_t stream) {
   static unsigned long long configured = 0;
   auto kernel = layer_norm_fwd_kernel<T, kVecs>;
-  const int e = allow_smem(kernel, configured);
+  const int e = hopper::allow_smem(kernel, kSmemMax, configured);
   if (e != 0) return e;
   kernel<<<p.ctas, kThreads, p.smem_bytes, stream>>>(static_cast<const T*>(x), gamma, beta,
                                                      static_cast<T*>(y), rows, C, eps, p);
@@ -554,7 +540,7 @@ int launch_bwd_bulk(const void* x, const float* gamma, const void* dy, void* dx,
                     int64_t rows, int C, float eps, const Plan& p, cudaStream_t stream) {
   static unsigned long long configured = 0;
   auto kernel = layer_norm_bwd_kernel<T, kVecs>;
-  const int e = allow_smem(kernel, configured);
+  const int e = hopper::allow_smem(kernel, kSmemMax, configured);
   if (e != 0) return e;
   kernel<<<p.ctas, kThreads, p.smem_bytes, stream>>>(
       static_cast<const T*>(x), gamma, static_cast<const T*>(dy), static_cast<T*>(dx), part,
@@ -591,7 +577,7 @@ int launch_bwd(const void* x, const float* gamma, const void* dy, void* dx, floa
     const int warps = C <= 1024 ? 8 : 4;
     const size_t smem = (size_t)warps * 2 * C * sizeof(float);
     static unsigned long long configured = 0;
-    e = allow_smem(layer_norm_bwd_rows_kernel<T>, configured);
+    e = hopper::allow_smem(layer_norm_bwd_rows_kernel<T>, kSmemMax, configured);
     if (e != 0 || p.ctas < 1) return e != 0 ? e : (int)cudaErrorInvalidValue;
     layer_norm_bwd_rows_kernel<T><<<p.ctas, warps * 32, smem, stream>>>(
         static_cast<const T*>(x), gamma, static_cast<const T*>(dy), static_cast<T*>(dx), part,
@@ -611,24 +597,6 @@ int launch_bwd(const void* x, const float* gamma, const void* dy, void* dx, floa
   return (int)cudaGetLastError();
 }
 
-// Makes `device` current for the launches of an entry point and restores
-// the caller's device after them: torch's current device may be another than
-// the tensors'. Costs a cudaGetDevice when it is already current.
-struct DeviceGuard {
-  int prev = -1;
-  int err = 0;
-  explicit DeviceGuard(int device) {
-    err = (int)cudaGetDevice(&prev);
-    if (err == 0 && prev != device) {
-      err = (int)cudaSetDevice(device);
-    } else {
-      prev = -1;
-    }
-  }
-  ~DeviceGuard() {
-    if (prev >= 0) cudaSetDevice(prev);
-  }
-};
 
 }  // namespace
 
@@ -654,7 +622,7 @@ size_t layer_norm_launch_bytes() { return sizeof(Launch); }
 // for a plan that does not hold the tiles).
 int layer_norm_fwd(const void* x, const float* gamma, const float* beta, void* y,
                    const Launch* l, void* stream) {
-  const DeviceGuard guard(l->device);
+  const hopper::DeviceGuard guard(l->device);
   if (guard.err != 0) return guard.err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return l->dtype == vec::kBFloat16
@@ -667,7 +635,7 @@ int layer_norm_fwd(const void* x, const float* gamma, const float* beta, void* y
 // part: fp32 scratch of [plan.ctas, 2 * C] for the CTAs' partial rows.
 int layer_norm_bwd(const void* x, const float* gamma, const void* dy, void* dx, float* part,
                    void* dgb, const Launch* l, void* stream) {
-  const DeviceGuard guard(l->device);
+  const hopper::DeviceGuard guard(l->device);
   if (guard.err != 0) return guard.err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return l->dtype == vec::kBFloat16

@@ -1,7 +1,7 @@
-// Helpers shared by the LayerNorm and depthwise-conv kernels (layernorm.cu,
-// dwconv7x7.cu): fixed-width vectors of fp32 or bf16 with conversions to and
-// from fp32, a zero-filling cp.async, and the deterministic second pass that
-// sums per-CTA fp32 partials.
+// Helpers shared by the LayerNorm, depthwise-conv and 1x1-conv kernels
+// (layernorm.cu, dwconv7x7.cu, conv1x1_bn.cu): fixed-width vectors of fp32 or
+// bf16 with conversions to and from fp32, and the deterministic second pass
+// that sums per-CTA fp32 partials.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -40,18 +40,6 @@ __device__ __forceinline__ void store(T* p, const float (&in)[V]) {
 #pragma unroll
   for (int j = 0; j < V; ++j) a.v[j] = from_float<T>(in[j]);
   *reinterpret_cast<Vec<T, V>*>(p) = a;
-}
-
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem, bool valid) {
-  unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int src_bytes = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
 // out[n] = sum over p of part[p * N + n], p in order within each of 8 row

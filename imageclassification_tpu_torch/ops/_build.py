@@ -69,6 +69,12 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(library_path(name)))
 
 
+@functools.cache
+def sms(device: int) -> int:
+    """The SM count of CUDA device `device`, which sizes a persistent grid."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def stream(t: torch.Tensor) -> int:
     """The handle of torch's current stream on t's device, for a launch: the
     raw handle, without building a `torch.cuda.Stream` object."""

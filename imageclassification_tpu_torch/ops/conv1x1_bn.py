@@ -22,8 +22,15 @@ takes bf16 x and w (the model-path regime of the JAX tests) with K and N
 multiples of 8, and raises NotImplementedError for any other dtype or width.
 What bounds it on an H100 and what the design does about it: see the header
 of `csrc/conv1x1_bn.cu` (bytes at every ResNet-50 shape but the last stage:
-x and y cross device memory once, the statistics come from the accumulators,
-per-CTA column partials summed by a second pass, no atomics).
+persistent CTAs, one an SM, fed by a TMA ring of 64-deep x chunks (and W
+chunks where W's slice does not stay in shared memory), wgmma products, the
+prologue applied to the A fragments in registers, the statistics carried in
+registers across every tile a CTA walks and y written by TMA stores; one
+partial row a CTA summed by one second pass, no atomics). The host plans the
+split and the shared-memory layout (`k2_plan`) and the kernel checks the
+plan, so the CPU tests check what is launched. The host path is the
+LayerNorm wrapper's: the launch's scalars are one `ctypes.Structure` cached
+by shape, and the C entry point makes the tensors' device current itself.
 
 Like the Pallas kernel this is an op of its own: the JAX ResNet runs
 `lax.conv` and `nn.BatchNorm`, and the port's ResNet runs `F.conv2d` and its
@@ -37,19 +44,78 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from . import _build
 
 KERNEL = "conv1x1_bn"
-# rows of y a CTA computes: the M-tiles whose column partials the second
-# pass sums
-TILE_M = 128
 # x rows and w rows are read as 16-byte vectors of 8 bf16
 WIDTH_VECTOR = 8
+# the kernel's tiles (csrc/conv1x1_bn.cu): TILE_M x TILE_N tiles of y, K in
+# chunks of CHUNK_K; an x chunk and a W chunk are CHUNK_BYTES each; y staging
+# Y_BYTES, the warps' column sums RED_BYTES; a ring of 2 to MAX_STAGES
+# stages; one CTA an SM, asking for at most SMEM_MAX bytes
+TILE_M, TILE_N, CHUNK_K = 128, 128, 64
+CHUNK_BYTES, Y_BYTES, RED_BYTES = TILE_M * CHUNK_K * 2, 32768, 8192
+MAX_STAGES, SMEM_MAX = 8, 232448 - 1024
+H100_SMS = 132
+
+
+class K2Plan(NamedTuple):
+    """One launch of the kernel: its `Plan`, in its order. CTA (slot, n) of
+    the grid (slots, n_tiles) computes the tiles (m, n) for m = slot, slot +
+    slots, ... and writes row `slot` of the partials at its N-tile's
+    columns."""
+    m_tiles: int
+    n_tiles: int
+    k_chunks: int
+    slots: int
+    resident: int     # 1: W's K x TILE_N slice stays in shared memory
+    stages: int
+    stage_bytes: int  # the x chunk, and the W chunk when W is streamed
+    w_bytes: int      # the resident W slice, else 0
+    ss_bytes: int     # scale and shift in fp32 (the prologue), else 0
+    smem_bytes: int   # the layout + 1024 to align it
+
+
+@functools.lru_cache(maxsize=256)
+def k2_plan(M: int, K: int, N: int, bn_in: bool, sms: int = H100_SMS) -> K2Plan:
+    """The launch for x [M, K] and w [K, N] on a card of `sms` SMs: W's
+    slice resident when it fits beside two stages, then as many stages (up to
+    MAX_STAGES) as fit; one CTA an SM over all N-tiles, and as few rounds of
+    M-tiles per CTA as that allows, spread over as few slots as give them."""
+    m_tiles, n_tiles, k_chunks = -(-M // TILE_M), -(-N // TILE_N), -(-K // CHUNK_K)
+    ss = 2 * k_chunks * CHUNK_K * 4 if bn_in else 0
+    fixed = Y_BYTES + ss + RED_BYTES + 1024
+    w_res = k_chunks * CHUNK_BYTES
+    resident = int(w_res + 2 * CHUNK_BYTES + fixed <= SMEM_MAX)
+    stage = CHUNK_BYTES * (1 if resident else 2)
+    w_bytes = w_res if resident else 0
+    stages = min(MAX_STAGES, (SMEM_MAX - fixed - w_bytes) // stage)
+    rounds = -(-m_tiles // max(1, min(m_tiles, sms // n_tiles)))
+    return K2Plan(m_tiles, n_tiles, k_chunks, -(-m_tiles // rounds), resident, stages, stage,
+                  w_bytes, ss, w_bytes + stages * stage + fixed)
+
+
+class _Launch(ctypes.Structure):
+    """The C entry point's `Launch` (csrc/conv1x1_bn.cu), field by field:
+    what a call passes besides its tensors and stream; `_kernel` checks the
+    size against the library's."""
+    _fields_ = [("M", ctypes.c_longlong), ("K", ctypes.c_int), ("N", ctypes.c_int),
+                ("bn_in", ctypes.c_int), ("relu", ctypes.c_int), ("device", ctypes.c_int),
+                ("plan", ctypes.c_int * len(K2Plan._fields))]
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_args(M: int, K: int, N: int, bn_in: bool, relu: bool, device: int):
+    """(plan, its `_Launch`) for a call on `device`, cached: a shape seen
+    before costs one lookup. The call passes the `_Launch` itself (ctypes
+    hands C a pointer to it), which keeps it alive through the call."""
+    plan = k2_plan(M, K, N, bn_in, _build.sms(device))
+    return plan, _Launch(M, K, N, int(bn_in), int(relu), device,
+                         (ctypes.c_int * len(plan))(*plan))
 
 
 def conv1x1_bn_ref(x: torch.Tensor, w: torch.Tensor, prev_scale: Optional[torch.Tensor] = None,
@@ -70,9 +136,13 @@ def conv1x1_bn_ref(x: torch.Tensor, w: torch.Tensor, prev_scale: Optional[torch.
 @functools.cache
 def _kernel():
     lib = _build.load(KERNEL)
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.conv1x1_bn_launch_bytes.restype = ctypes.c_size_t
+    if lib.conv1x1_bn_launch_bytes() != ctypes.sizeof(_Launch):
+        raise RuntimeError("ops/conv1x1_bn.py `_Launch` does not match csrc/conv1x1_bn.cu "
+                           "`Launch`")
+    p = ctypes.c_void_p
     fn = lib.conv1x1_bn_stats
-    fn.argtypes = [p, p, p, p, p, p, p, ll, i, i, i, p]
+    fn.argtypes = [p] * 7 + [ctypes.POINTER(_Launch), p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -113,23 +183,23 @@ def _launch(x, w, prev_scale, prev_shift, relu_in: bool):
     check_kernel_inputs(x, w)
     (M, K), N = x.shape, w.shape[1]
     xa, wa = _build.aligned(x), _build.aligned(w)
+    bn_in = prev_scale is not None
     scale = shift = None
-    if prev_scale is not None:
+    if bn_in:
         scale = _build.aligned(prev_scale, torch.float32)
         shift = _build.aligned(prev_shift, torch.float32)
+    plan, launch = _launch_args(M, K, N, bn_in, bool(relu_in), x.get_device())
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    part = torch.empty((2, math.ceil(M / TILE_M), N), dtype=torch.float32, device=x.device)
+    part = torch.empty((plan.slots, 2 * N), dtype=torch.float32, device=x.device)
     stats = torch.empty((2, N), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _kernel()(xa.data_ptr(), wa.data_ptr(), None if scale is None else scale.data_ptr(),
-                        None if shift is None else shift.data_ptr(), y.data_ptr(),
-                        part.data_ptr(), stats.data_ptr(), M, K, N, int(relu_in),
-                        _build.stream(x))
+    err = _kernel()(xa.data_ptr(), wa.data_ptr(), scale.data_ptr() if bn_in else None,
+                    shift.data_ptr() if bn_in else None, y.data_ptr(), part.data_ptr(),
+                    stats.data_ptr(), launch, _build.stream(x))
     _build.raise_on(err, "conv1x1_bn_stats")
-    if scale is None:
-        conv1x1_bn_stats.launches += 1
-    else:
+    if bn_in:
         conv1x1_bn_stats.launches_bn_in += 1
+    else:
+        conv1x1_bn_stats.launches += 1
     return y, stats
 
 

@@ -14,15 +14,25 @@ zero padding 3, no bias, fp32 accumulation, the output and dx in x's dtype,
 dw in w's dtype.
 
 What bounds the kernels on an H100 and what the designs do about it: see the
-header of `csrc/dwconv7x7.cu` (operations on the fp32 CUDA cores: input tile
-and halo in shared memory, zero-filled by the copy instead of a padded
-tensor, 8 channels x 4 pixels of fp32 accumulators a thread; dw slides a
-7-pixel register window of x along a row, 7 x 4 accumulators a thread, over
-bands of 8 rows fed by TMA, from per-CTA partials summed by a second pass, no
-atomics).
-The host computes dw's work split and shared-memory layout (`dw_plan`) and
-passes them to the kernel, which checks and uses them, so the CPU tests check
-what is launched.
+header of `csrc/dwconv7x7.cu`. For bf16 the forward (and dx) is bound by
+bytes, since a tensor-core form exists; run on the fp32 CUDA cores, as here,
+its operations take longer than its bytes. Persistent CTAs walk over bands
+of output rows fed by a TMA ring of input bands with their halo (zero-filled
+by the copy, not by a padded tensor), the tile's weights in fp32 loaded once
+a CTA, and each thread slides along one output row with its accumulators in
+registers, so each input value is loaded and converted once for each kernel
+row it feeds. dw
+slides a 7-pixel register window of x along a row, 7 x 4 accumulators a
+thread, over bands of 8 rows fed by TMA, from per-CTA partials summed by a
+second pass, no atomics.
+The host computes both kernels' work splits and shared-memory layouts
+(`fwd_plan`, `dw_plan`) and passes them to the kernels, which check and use
+them, so the CPU tests check what is launched.
+
+The host path is kept short, as the LayerNorm wrapper's is: a call that needs
+no gradient launches without an autograd node, each launch's scalars are one
+`ctypes.Structure` cached by shape, and the C entry points make the tensors'
+device current themselves.
 
 Like the Pallas kernel this is an op of its own: the JAX ConvNeXt runs
 `lax.conv` and the port's ConvNeXt runs `F.conv2d(groups=C)`, not this op.
@@ -47,6 +57,17 @@ KERNEL = "dwconv7x7"
 K, PAD = 7, 3
 # the channel width of a thread: C must be a multiple of it
 CHANNEL_VECTOR = 8
+# the forward's work split (csrc/dwconv7x7.cu): tiles of FWD_CHANNELS
+# channels (8 threads of 4), bands of at most FWD_MAX_ROWS output rows (one
+# row an 8-thread group), segments of one of FWD_SEGMENTS columns, up to
+# FWD_STAGES stages a CTA; CTAs an SM as FWD_THREADS_PER_SM threads allow (at
+# most FWD_MAX_CTAS_PER_SM; the launch bounds give a thread 128 registers), each
+# within its share of shared memory (an H100 SM has SMEM_PER_SM bytes; each
+# CTA's runtime keeps 1 KB and its static part, the tile's fp32 weights and
+# the barriers, FWD_STATIC_BYTES), a CTA asking for at most FWD_SMEM_MAX
+FWD_CHANNELS, FWD_MAX_ROWS, FWD_SEGMENTS, FWD_STAGES = 32, 16, (14, 7), 4
+FWD_THREADS_PER_SM, FWD_MAX_CTAS_PER_SM = 512, 8
+SMEM_PER_SM, FWD_SMEM_MAX, FWD_STATIC_BYTES = 233472, 232448 - 8192, 49 * 32 * 4 + 64
 # the weight gradient's work split (csrc/dwconv7x7.cu): bands of DW_ROWS dy
 # rows, tiles of DW_CHANNELS channels, segments of at most DW_SEGMENT columns
 # (a multiple of 7), up to DW_STAGES shared-memory stages a CTA;
@@ -87,54 +108,56 @@ def dwconv7x7_dw_ref(x: torch.Tensor, dy: torch.Tensor, dtype: torch.dtype) -> t
         for ky in range(K)]).to(dtype)
 
 
-@functools.cache
-def _sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+class FwdPlan(NamedTuple):
+    """The forward kernel's work split and shared-memory layout: the
+    kernel's `FwdPlan`, in its order. Item i of the B * bands * segs items is
+    (batch i // (bands * segs), band (i // segs) % bands, segment i % segs);
+    CTA (slot, tile) computes the items slot, slot + slots, ... of channel
+    tile `tile`."""
+    rows: int        # output rows a band, 1 to FWD_MAX_ROWS
+    seg: int         # output columns a segment, one of FWD_SEGMENTS
+    bands: int
+    segs: int
+    tiles: int       # channel tiles of FWD_CHANNELS
+    items: int
+    slots: int       # CTAs a channel tile
+    stages: int      # shared-memory stages a CTA: the next stages - 1 items load ahead
+    row_px: int      # pixels a shared-memory row of a stage's tile (odd, >= seg + 6)
+    stage_bytes: int  # (rows + 6) x row_px pixels of FWD_CHANNELS channels, 128-aligned
+    smem_bytes: int  # dynamic shared memory a CTA: the stages + 128 to align them
+    threads: int     # 32 x ceil(rows / 4)
 
 
-@functools.cache
-def _kernels():
-    lib = _build.load(KERNEL)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fwd, dw = lib.dwconv7x7_fwd, lib.dwconv7x7_dw
-    fwd.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
-    dw.argtypes = [p, p, p, p] + [i] * 14 + [p]
-    fwd.restype = dw.restype = ctypes.c_int
-    return fwd, dw
-
-
-def check_kernel_inputs(x: torch.Tensor, w_shape, w_dtype: torch.dtype) -> None:
-    """Raise on what the kernels do not take, for x and a weight (or weight
-    gradient) of `w_shape` and `w_dtype`: NotImplementedError for dtypes and
-    channel counts not ported, ValueError for shapes that do not fit."""
-    if x.dtype not in _DTYPES or w_dtype not in _DTYPES:
-        raise NotImplementedError(
-            f"depthwise-conv kernels take float32 or bfloat16, got x {x.dtype}, w {w_dtype}")
-    if x.dim() != 4 or tuple(w_shape) != (K, K, x.shape[-1]):
-        raise ValueError(f"x must be [B, H, W, C] and w [7, 7, C], got {tuple(x.shape)}, "
-                         f"{tuple(w_shape)}")
-    if x.shape[-1] % CHANNEL_VECTOR:
-        raise NotImplementedError(
-            f"depthwise-conv kernels take C a multiple of {CHANNEL_VECTOR}, got {x.shape[-1]}")
-
-
-def _launch_fwd(x: torch.Tensor, w: torch.Tensor, flip: bool = False) -> torch.Tensor:
-    """Forward kernel (with `flip`, the input gradient's): out in x's dtype."""
-    check_kernel_inputs(x, w.shape, w.dtype)
-    if x.device != w.device:
-        raise ValueError("x and w must be on one device")
-    x, w = _build.aligned(x), _build.aligned(w)
-    B, H, W, C = x.shape
-    out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = _kernels()[0](x.data_ptr(), w.data_ptr(), out.data_ptr(), B, H, W, C, int(flip),
-                            _DTYPES[x.dtype], _DTYPES[w.dtype], _build.stream(x))
-    _build.raise_on(err, "dwconv7x7_fwd")
-    if flip:
-        depthwise_conv7x7.launches_dx += 1
-    else:
-        depthwise_conv7x7.launches += 1
-    return out
+@functools.lru_cache(maxsize=64)
+def fwd_plan(B: int, H: int, W: int, C: int, itemsize: int, sms: int = H100_SMS) -> FwdPlan:
+    """The forward's split for [B, H, W, C] inputs of `itemsize` bytes on a
+    card of `sms` SMs. Segments of the width in FWD_SEGMENTS that costs a
+    thread the fewest FMAs and loads along a row (a segment of s columns
+    takes 28 s FMAs and s + 6 loads, of 5 issue slots each with the bf16
+    conversion, a kernel row); bands of equal rows, as few as hold H at
+    FWD_MAX_ROWS; the CTAs an SM that FWD_THREADS_PER_SM threads allow, fewer
+    where two stages do not fit beside them; as many stages (up to
+    FWD_STAGES) as fit a CTA's share of shared memory; and as few rounds of
+    items per CTA as that many CTAs allow, spread over as few slots as give
+    them."""
+    seg = min(FWD_SEGMENTS, key=lambda s: math.ceil(W / s) * (33 * s + 30))
+    segs = math.ceil(W / seg)
+    bands = math.ceil(H / FWD_MAX_ROWS)
+    rows = math.ceil(H / bands)
+    tiles = math.ceil(C / FWD_CHANNELS)
+    items = B * bands * segs
+    threads = 32 * math.ceil(rows / 4)
+    row_px = (seg + 2 * PAD) | 1
+    stage = _round128((rows + 2 * PAD) * row_px * FWD_CHANNELS * itemsize)
+    # one CTA an SM always holds two stages: a stage is at most 59 KB
+    for per_sm in range(max(1, min(FWD_MAX_CTAS_PER_SM, FWD_THREADS_PER_SM // threads)), 0, -1):
+        budget = min(FWD_SMEM_MAX, SMEM_PER_SM // per_sm - 1024 - FWD_STATIC_BYTES) - 128
+        if budget // stage >= 2:
+            break
+    stages = min(FWD_STAGES, budget // stage)
+    rounds = math.ceil(items / max(1, min(items, per_sm * sms // tiles)))
+    return FwdPlan(rows, seg, bands, segs, tiles, items, math.ceil(items / rounds), stages,
+                   row_px, stage, stages * stage + 128, threads)
 
 
 class DwPlan(NamedTuple):
@@ -196,6 +219,96 @@ def dw_cta_work(plan: DwPlan, H: int, W: int, C: int, slot: int, tile: int):
     return work
 
 
+class _FwdLaunch(ctypes.Structure):
+    """The C entry point's `FwdLaunch` (csrc/dwconv7x7.cu), field by field:
+    what a forward call passes besides its tensors and stream; `_kernels`
+    checks the size against the library's."""
+    _fields_ = [("B", ctypes.c_int), ("H", ctypes.c_int), ("W", ctypes.c_int),
+                ("C", ctypes.c_int), ("flip", ctypes.c_int), ("x_dtype", ctypes.c_int),
+                ("w_dtype", ctypes.c_int), ("device", ctypes.c_int),
+                ("plan", ctypes.c_int * len(FwdPlan._fields))]
+
+
+class _DwLaunch(ctypes.Structure):
+    """The C entry point's `DwLaunch`, field by field, for the weight
+    gradient."""
+    _fields_ = [("B", ctypes.c_int), ("H", ctypes.c_int), ("W", ctypes.c_int),
+                ("C", ctypes.c_int), ("x_dtype", ctypes.c_int), ("w_dtype", ctypes.c_int),
+                ("device", ctypes.c_int), ("plan", ctypes.c_int * len(DwPlan._fields))]
+
+
+@functools.lru_cache(maxsize=256)
+def _fwd_launch(B: int, H: int, W: int, C: int, flip: bool, x_dtype: torch.dtype,
+                w_dtype: torch.dtype, device: int) -> _FwdLaunch:
+    """The forward's `_FwdLaunch` for a call on `device`, cached: a shape
+    seen before costs one lookup. The call passes it itself (ctypes hands C
+    a pointer to it), which keeps it alive through the call."""
+    plan = fwd_plan(B, H, W, C, x_dtype.itemsize, _build.sms(device))
+    return _FwdLaunch(B, H, W, C, int(flip), _DTYPES[x_dtype], _DTYPES[w_dtype], device,
+                      (ctypes.c_int * len(plan))(*plan))
+
+
+@functools.lru_cache(maxsize=256)
+def _dw_launch(B: int, H: int, W: int, C: int, x_dtype: torch.dtype, w_dtype: torch.dtype,
+               device: int):
+    """(plan, its `_DwLaunch`) for a weight-gradient call on `device`,
+    cached."""
+    plan = dw_plan(B, H, W, C, x_dtype.itemsize, _build.sms(device))
+    return plan, _DwLaunch(B, H, W, C, _DTYPES[x_dtype], _DTYPES[w_dtype], device,
+                           (ctypes.c_int * len(plan))(*plan))
+
+
+@functools.cache
+def _kernels():
+    lib = _build.load(KERNEL)
+    for name, struct in (("fwd", _FwdLaunch), ("dw", _DwLaunch)):
+        size = getattr(lib, f"dwconv7x7_{name}_launch_bytes")
+        size.restype = ctypes.c_size_t
+        if size() != ctypes.sizeof(struct):
+            raise RuntimeError(f"ops/dwconv.py `{struct.__name__}` does not match "
+                               f"csrc/dwconv7x7.cu `{struct.__name__[1:]}`")
+    p = ctypes.c_void_p
+    fwd, dw = lib.dwconv7x7_fwd, lib.dwconv7x7_dw
+    fwd.argtypes = [p, p, p, ctypes.POINTER(_FwdLaunch), p]
+    dw.argtypes = [p, p, p, p, ctypes.POINTER(_DwLaunch), p]
+    fwd.restype = dw.restype = ctypes.c_int
+    return fwd, dw
+
+
+def check_kernel_inputs(x: torch.Tensor, w_shape, w_dtype: torch.dtype) -> None:
+    """Raise on what the kernels do not take, for x and a weight (or weight
+    gradient) of `w_shape` and `w_dtype`: NotImplementedError for dtypes and
+    channel counts not ported, ValueError for shapes that do not fit."""
+    if x.dtype not in _DTYPES or w_dtype not in _DTYPES:
+        raise NotImplementedError(
+            f"depthwise-conv kernels take float32 or bfloat16, got x {x.dtype}, w {w_dtype}")
+    if x.dim() != 4 or tuple(w_shape) != (K, K, x.shape[-1]):
+        raise ValueError(f"x must be [B, H, W, C] and w [7, 7, C], got {tuple(x.shape)}, "
+                         f"{tuple(w_shape)}")
+    if x.shape[-1] % CHANNEL_VECTOR:
+        raise NotImplementedError(
+            f"depthwise-conv kernels take C a multiple of {CHANNEL_VECTOR}, got {x.shape[-1]}")
+
+
+def _launch_fwd(x: torch.Tensor, w: torch.Tensor, flip: bool = False) -> torch.Tensor:
+    """Forward kernel (with `flip`, the input gradient's): out in x's dtype."""
+    check_kernel_inputs(x, w.shape, w.dtype)
+    if x.device != w.device:
+        raise ValueError("x and w must be on one device")
+    x, w = _build.aligned(x), _build.aligned(w)
+    out = torch.empty_like(x)
+    if not out.numel():
+        return out
+    launch = _fwd_launch(*x.shape, flip, x.dtype, w.dtype, x.get_device())
+    err = _kernels()[0](x.data_ptr(), w.data_ptr(), out.data_ptr(), launch, _build.stream(x))
+    _build.raise_on(err, "dwconv7x7_fwd")
+    if flip:
+        depthwise_conv7x7.launches_dx += 1
+    else:
+        depthwise_conv7x7.launches += 1
+    return out
+
+
 def _launch_dw(x: torch.Tensor, dy: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Weight-gradient kernel (and its partial-sum pass): dw [7, 7, C] in
     `dtype`."""
@@ -203,15 +316,14 @@ def _launch_dw(x: torch.Tensor, dy: torch.Tensor, dtype: torch.dtype) -> torch.T
     if dy.shape != x.shape or dy.dtype != x.dtype:
         raise ValueError(f"dy must match x's shape and dtype, got {tuple(dy.shape)} {dy.dtype}")
     x, dy = _build.aligned(x), _build.aligned(dy)
-    B, H, W, C = x.shape
-    plan = dw_plan(B, H, W, C, x.element_size(), _sms(x.device))
+    C = x.shape[-1]
+    if not x.numel():
+        return torch.zeros((K, K, C), dtype=dtype, device=x.device)
+    plan, launch = _dw_launch(*x.shape, x.dtype, dtype, x.get_device())
     part = torch.empty((plan.slots, K * K * C), dtype=torch.float32, device=x.device)
     dw = torch.empty((K, K, C), dtype=dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _kernels()[1](x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(), B, H,
-                            W, C, plan.seg, plan.row_x, plan.row_dy, plan.x_bytes,
-                            plan.stage_bytes, plan.slots, plan.stages, plan.smem_bytes,
-                            _DTYPES[x.dtype], _DTYPES[dtype], _build.stream(x))
+    err = _kernels()[1](x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(), launch,
+                        _build.stream(x))
     _build.raise_on(err, "dwconv7x7_dw")
     depthwise_conv7x7.launches_dw += 1
     return dw
@@ -222,18 +334,20 @@ def dwconv7x7_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor):
     forward run on dy with the flipped w, dw the 49 shifted reductions; plain
     versions for CPU tensors, the kernels for CUDA tensors."""
     dy = dy.to(x.dtype)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return dwconv7x7_ref(dy, w, flip=True), dwconv7x7_dw_ref(x, dy, w.dtype)
     return _launch_fwd(dy, w, flip=True), _launch_dw(x, dy, w.dtype)
+
+
+def _forward(x, w):
+    return dwconv7x7_ref(x, w) if x.is_cpu else _launch_fwd(x, w)
 
 
 class _DepthwiseConv7x7(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
-        if x.device.type == "cpu":
-            return dwconv7x7_ref(x, w)
-        return _launch_fwd(x, w)
+        return _forward(x, w)
 
     @staticmethod
     def backward(ctx, dy):
@@ -246,12 +360,15 @@ def depthwise_conv7x7(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
     CPU tensors take the plain versions (`dwconv7x7_ref`,
     `dwconv7x7_dw_ref`); CUDA tensors launch the kernels (float32 or
-    bfloat16, C a multiple of 8). Counts, as plain integers on this
-    function: `launches` (forward kernel), `launches_dx` (the same kernel run
-    for dx) and `launches_dw` (weight-gradient kernel)."""
-    if x.device.type not in ("cpu", "cuda"):
+    bfloat16, C a multiple of 8). Only a call that needs a gradient builds
+    an autograd node. Counts, as plain integers on this function:
+    `launches` (forward kernel), `launches_dx` (the same kernel run for dx)
+    and `launches_dw` (weight-gradient kernel)."""
+    if not (x.is_cuda or x.is_cpu):
         raise NotImplementedError(f"depthwise_conv7x7 runs on cpu or cuda, not {x.device.type}")
-    return _DepthwiseConv7x7.apply(x, w)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _DepthwiseConv7x7.apply(x, w)
+    return _forward(x, w)
 
 
 def reset_launches() -> None:

@@ -116,11 +116,6 @@ def ln_plan(rows: int, C: int, itemsize: int, backward: bool, sms: int = H100_SM
                   max(stages * stage, cols) + 128, min(-(-rows // tile_rows), per_sm * sms))
 
 
-@functools.cache
-def _sms(device: int) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 class _Launch(ctypes.Structure):
     """The C entry points' `Launch` (csrc/layernorm.cu), field by field: what
     a call passes besides its tensors and stream. One pointer to it costs
@@ -137,7 +132,7 @@ def _launch_args(rows: int, C: int, dtype: torch.dtype, param_dtype: torch.dtype
     """(plan, its `_Launch`) for a call on `device`, cached: a shape seen
     before costs one lookup. The call passes the `_Launch` itself (ctypes
     hands C a pointer to it), which keeps it alive through the call."""
-    plan = ln_plan(rows, C, dtype.itemsize, backward, _sms(device))
+    plan = ln_plan(rows, C, dtype.itemsize, backward, _build.sms(device))
     return plan, _Launch(rows, C, _DTYPES[dtype], _DTYPES[param_dtype], device, eps,
                          (ctypes.c_int * len(plan))(*plan))
 

@@ -9,6 +9,9 @@ by chip_smoke.py). JAX is imported inside the tests that use it, so the
     python -m pytest --noconftest tests/test_torch_conv1x1_bn.py -m cuda
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -184,6 +187,79 @@ def test_kernel_input_checks(dtype, K, N, err):
             k2.check_kernel_inputs(x, w)
 
 
+# ResNet-50's nine 1x1 shapes at batch 64 (chip_smoke.py K2_SHAPES) and the
+# widest K of the port's ResNets
+RESNET50_SHAPES = [(200704, 64, 256, True), (200704, 256, 64, False), (50176, 128, 512, True),
+                   (50176, 512, 128, False), (12544, 256, 1024, True), (12544, 1024, 256, False),
+                   (3136, 512, 2048, True), (3136, 2048, 512, False), (3136, 1024, 2048, False)]
+
+
+@pytest.mark.parametrize("M", [1, 127, 3136, 200704])
+@pytest.mark.parametrize("K,N", [(64, 256), (2048, 512), (24, 136)])
+def test_k2_plan_covers_every_tile_once(M, K, N):
+    # CTA (slot, n) walks the M-tiles slot, slot + slots, ... of N-tile n,
+    # which covers each M-tile once, and gives each CTA one at least, when
+    # 1 <= slots <= m_tiles; the grid is slots x n_tiles, one CTA an SM, in
+    # as few rounds of M-tiles as that allows
+    plan = k2.k2_plan(M, K, N, bn_in=True)
+    assert plan.m_tiles * k2.TILE_M >= M > (plan.m_tiles - 1) * k2.TILE_M
+    assert plan.n_tiles * k2.TILE_N >= N > (plan.n_tiles - 1) * k2.TILE_N
+    assert 1 <= plan.slots <= plan.m_tiles
+    assert plan.slots * plan.n_tiles <= max(k2.H100_SMS, plan.n_tiles)
+    rounds = -(-plan.m_tiles // plan.slots)
+    assert rounds == -(-plan.m_tiles // max(1, min(plan.m_tiles, k2.H100_SMS // plan.n_tiles)))
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 8, 8), (3136, 512, 2048), (200704, 64, 256)])
+def test_k2_partial_rows_number_the_ctas(M, K, N):
+    # the partials are [slots, 2N], a row for each slot of CTAs: CTA (slot, n)
+    # writes row slot at its N-tile's columns of both halves (sums, sums of
+    # squares), so the grid's slots x n_tiles CTAs write each entry exactly
+    # once
+    plan = k2.k2_plan(M, K, N, bn_in=False)
+    written = np.zeros((plan.slots, 2 * N), np.int64)
+    for n in range(plan.n_tiles):
+        cols = np.arange(n * k2.TILE_N, min(N, (n + 1) * k2.TILE_N))
+        for slot in range(plan.slots):
+            written[slot, cols] += 1
+            written[slot, N + cols] += 1
+    assert (written == 1).all()
+
+
+@pytest.mark.parametrize("shape", RESNET50_SHAPES + [(3136, 1024, 2048, True), (64, 2048, 8, True),
+                                                     (1000, 72, 200, False)])
+def test_k2_plan_fits_shared_memory(shape):
+    # the layout the launch checks: W's slice resident exactly when it fits
+    # beside two stages, at least two stages, and the whole layout (+1024 of
+    # alignment) within the 227 KB a CTA may ask for, at K up to 2048
+    M, K, N, bn_in = shape
+    plan = k2.k2_plan(M, K, N, bn_in)
+    fixed = k2.Y_BYTES + plan.ss_bytes + k2.RED_BYTES + 1024
+    assert plan.ss_bytes == (2 * plan.k_chunks * k2.CHUNK_K * 4 if bn_in else 0)
+    assert plan.resident == int(plan.k_chunks * k2.CHUNK_BYTES + 2 * k2.CHUNK_BYTES + fixed
+                                <= k2.SMEM_MAX)
+    assert plan.stage_bytes == k2.CHUNK_BYTES * (1 if plan.resident else 2)
+    assert plan.w_bytes == (plan.k_chunks * k2.CHUNK_BYTES if plan.resident else 0)
+    assert 2 <= plan.stages <= k2.MAX_STAGES
+    assert plan.smem_bytes == plan.w_bytes + plan.stages * plan.stage_bytes + fixed
+    assert plan.smem_bytes <= k2.SMEM_MAX
+    assert plan.resident == int(K <= 512)  # at ResNet widths: W streamed from K = 1024
+
+
+def test_launch_structure_has_the_c_structs_fields_in_order():
+    # ctypes lays a Structure out by its _fields_ order: it must be the C
+    # struct's (the size check against the library runs on the card)
+    src = (Path(k2.__file__).parent.parent / "csrc" / "conv1x1_bn.cu").read_text()
+
+    def fields(name):
+        body = re.search(r"struct %s \{(.*?)\n\};" % name, src, re.S).group(1)
+        return re.findall(r"^\s*(?:long long|\w+)\s+(\w+);", body, re.M)
+
+    assert [f for f, _ in k2._Launch._fields_] == fields("Launch")
+    assert list(k2.K2Plan._fields) == fields("Plan")
+    assert k2._Launch._fields_[-1][1]._length_ == len(k2.K2Plan._fields)
+
+
 # (M, K, N, prologue): ragged M (3136 = ResNet-50's last stage at batch 64,
 # and tiles of 1 and 129 rows), K not a multiple of the 32-deep slice, N not
 # a multiple of the 128-wide tile, and two full-size ResNet-50 shapes
@@ -232,3 +308,44 @@ def test_kernel_takes_strided_inputs_on_card(cuda_device):
     ref_y, ref_stats = k2.conv1x1_bn_ref(xs.contiguous(), w)
     assert (y.float() - ref_y.float()).abs().max() <= 2.0 ** -7 * ref_y.float().abs().max()
     torch.testing.assert_close(stats, ref_stats, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn_in,relu", [(False, True), (True, True), (True, False)])
+@pytest.mark.parametrize("M", [1, 65, 3136])
+def test_kernel_takes_ragged_m_and_narrow_widths_on_card(cuda_device, launches, M, bn_in, relu):
+    # K = 24 and N = 136: multiples of 8 but not of the 64-deep chunk or the
+    # 128-wide tile; with the prologue the zero rows past M become
+    # relu(shift) != 0 in the kernel, and must stay out of the statistics
+    K, N = 24, 136
+    x, w, scale, shift = _inputs(M, K, N, seed=M + 7, bn_in=bn_in)
+    if bn_in:
+        shift = np.abs(shift) + 0.5  # relu(shift) > 0: a row past M would count
+    tx, tw = _torch(x, torch.bfloat16, cuda_device), _torch(w, torch.bfloat16, cuda_device)
+    ts, th = _torch(scale, device=cuda_device), _torch(shift, device=cuda_device)
+    y, stats = k2.conv1x1_bn_stats(tx, tw, ts, th, relu_in=relu)
+    torch.cuda.synchronize()
+    ref_y, ref_stats = k2.conv1x1_bn_ref(tx, tw, ts, th, relu_in=relu)
+    assert y.shape == (M, N)
+    tol = 2.0 ** -7 * ref_y.float().abs().max().item()
+    assert (y.float() - ref_y.float()).abs().max().item() <= tol
+    xin = tx.float()
+    if bn_in:
+        xin = xin * ts + th
+        xin = (torch.relu(xin) if relu else xin).bfloat16().float()
+    _assert_stats(stats.cpu().numpy(), ref_stats.cpu().numpy(),
+                  (xin @ tw.float()).abs().sum(0).cpu().numpy(), 1e-4, f"M={M}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(200704, 64, 256, True), (12544, 1024, 256, False),
+                                   (3136, 512, 2048, True)])
+def test_kernel_is_bitwise_repeatable_on_card(cuda_device, shape):
+    # no atomics, a fixed schedule and fixed summation orders: two runs give
+    # the same bits in y and in the statistics (W resident and streamed)
+    M, K, N, bn_in = shape
+    x, w, scale, shift = _inputs(M, K, N, seed=11, bn_in=bn_in)
+    args = (_torch(x, torch.bfloat16, cuda_device), _torch(w, torch.bfloat16, cuda_device),
+            _torch(scale, device=cuda_device), _torch(shift, device=cuda_device))
+    first, second = k2.conv1x1_bn_stats(*args), k2.conv1x1_bn_stats(*args)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])

@@ -9,6 +9,9 @@ so the `cuda` tests of this file also run where JAX is absent:
     python -m pytest --noconftest tests/test_torch_dwconv.py -m cuda
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -199,6 +202,95 @@ def test_dw_plan_layout_holds_the_tiles(hw, itemsize):
     assert plan.smem_bytes == plan.stages * plan.stage_bytes + 128
 
 
+def _fwd_cta_work(plan, H, W, C, slot, tile):
+    """What CTA (slot, tile) of the forward's `plan` stores, as
+    csrc/dwconv7x7.cu indexes it: a list of (batch, rows, columns, channels)
+    ranges, one per item."""
+    work = []
+    for i in range(slot, plan.items, plan.slots):
+        b, rem = divmod(i, plan.bands * plan.segs)
+        band, s = divmod(rem, plan.segs)
+        work.append((b, range(band * plan.rows, min(H, (band + 1) * plan.rows)),
+                     range(s * plan.seg, min(W, (s + 1) * plan.seg)),
+                     range(tile * dwconv.FWD_CHANNELS, min(C, (tile + 1) * dwconv.FWD_CHANNELS))))
+    return work
+
+
+@pytest.mark.parametrize("hw", [7, 13, 14, 28, 56, 224])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_fwd_plan_covers_every_output_pixel_once(hw, itemsize):
+    # the forward kernel's items, as it indexes them, store every (batch,
+    # row, column, channel) exactly once over all CTAs (slot, tile)
+    B, C = 3, 40  # two channel tiles, the last one ragged
+    plan = dwconv.fwd_plan(B, hw, hw, C, itemsize)
+    seen = np.zeros((B, hw, hw, C), np.int64)
+    for tile in range(plan.tiles):
+        for slot in range(plan.slots):
+            work = _fwd_cta_work(plan, hw, hw, C, slot, tile)
+            assert work, "every CTA computes at least one item"
+            for b, rows, cols, chans in work:
+                assert len(rows) <= plan.rows and len(cols) <= plan.seg
+                seen[b, rows.start:rows.stop, cols.start:cols.stop, chans.start:chans.stop] += 1
+    assert (seen == 1).all()
+    assert plan.seg in dwconv.FWD_SEGMENTS and plan.rows <= dwconv.FWD_MAX_ROWS
+    assert plan.threads == 32 * -(-plan.rows // 4)
+
+
+@pytest.mark.parametrize("shape", [(64, 56, 56, 96), (64, 28, 28, 192), (64, 14, 14, 384),
+                                   (64, 7, 7, 768)])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_fwd_plan_layout_holds_the_halo_tile_and_fits_the_ctas_of_an_sm(shape, itemsize):
+    # what the launch checks: odd rows at least seg + 6 pixels wide, a
+    # 128-byte aligned stage that holds the (rows + 6)-row TMA box, a
+    # request that holds every stage; and the CTAs the plan counts on an SM
+    # fit its shared memory beside their static parts and runtime reserve
+    B, H, W, C = shape
+    plan = dwconv.fwd_plan(*shape, itemsize)
+    assert plan.row_px % 2 == 1 and plan.row_px >= plan.seg + 2 * dwconv.PAD
+    assert plan.stage_bytes % 128 == 0
+    assert plan.stage_bytes >= ((plan.rows + 2 * dwconv.PAD) * plan.row_px
+                                * dwconv.FWD_CHANNELS * itemsize)
+    assert plan.smem_bytes == plan.stages * plan.stage_bytes + 128
+    assert plan.smem_bytes <= dwconv.FWD_SMEM_MAX
+    per_sm = -(-plan.slots * plan.tiles // dwconv.H100_SMS)
+    assert per_sm * (plan.smem_bytes + dwconv.FWD_STATIC_BYTES + 1024) <= dwconv.SMEM_PER_SM
+    assert per_sm * plan.threads <= dwconv.FWD_THREADS_PER_SM
+    assert plan.slots <= plan.items
+    assert plan.bands * plan.rows >= H and (plan.bands - 1) * plan.rows < H
+    assert plan.stages >= 2  # the next item loads while one computes
+    if itemsize == 2:
+        assert plan.seg * plan.segs == W  # no padded columns at ConvNeXt-T's widths
+
+
+def _c_struct_fields(name):
+    """The field names of `struct name` in csrc/dwconv7x7.cu, in order."""
+    src = (Path(dwconv.__file__).parent.parent / "csrc" / "dwconv7x7.cu").read_text()
+    body = re.search(r"struct %s \{(.*?)\n\};" % name, src, re.S).group(1)
+    return re.findall(r"^\s*\w+\s+(\w+);", body, re.M)
+
+
+@pytest.mark.parametrize("struct,plan,c_name,c_plan", [
+    (dwconv._FwdLaunch, dwconv.FwdPlan, "FwdLaunch", "FwdPlan"),
+    (dwconv._DwLaunch, dwconv.DwPlan, "DwLaunch", "DwPlan"),
+])
+def test_launch_structures_have_the_c_structs_fields_in_order(struct, plan, c_name, c_plan):
+    # ctypes lays a Structure out by its _fields_ order: it must be the C
+    # struct's (the size check against the library runs on the card)
+    assert [f for f, _ in struct._fields_] == _c_struct_fields(c_name)
+    assert list(plan._fields) == _c_struct_fields(c_plan)
+    assert struct._fields_[-1][1]._length_ == len(plan._fields)
+
+
+@pytest.mark.parametrize("needs_grad", [False, True])
+def test_autograd_node_only_when_an_input_requires_a_gradient(needs_grad):
+    x, w = (torch.from_numpy(a) for a in _xw((1, 7, 7, 8), seed=8))
+    y = dwconv.depthwise_conv7x7(x.requires_grad_(needs_grad), w)
+    assert (y.grad_fn is not None) == needs_grad
+    with torch.no_grad():
+        assert dwconv.depthwise_conv7x7(x, w).grad_fn is None
+    torch.testing.assert_close(y.detach(), dwconv.dwconv7x7_ref(x.detach(), w), rtol=0, atol=0)
+
+
 CARD_SHAPES = [(2, 12, 10, 8), (3, 9, 13, 40), (4, 28, 28, 192), (2, 56, 56, 96),
                (2, 7, 7, 768), (1, 1, 1, 16)]
 
@@ -257,3 +349,28 @@ def test_dw_kernel_matches_plain_version_and_repeats_on_card(cuda_device, hw, C)
     err = (first - want).abs().max().item()
     assert err <= 1e-4 * want.abs().max().item(), f"max|d| {err}"
     assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [8, 40, 96, 200, 768])
+@pytest.mark.parametrize("hw", [7, 13, 28, 56])
+def test_forward_and_dx_match_plain_version_on_card(cuda_device, launches, hw, C, dtype):
+    # the forward kernel at each segment width (7, 14, 28) and band height,
+    # ragged channel tiles (8, 40, 200) and full ones; fp32: 49-term sums in
+    # another order, 1e-5 of the largest value; bf16: one rounding, 2^-7
+    x, w = (torch.from_numpy(a).to(cuda_device, dtype) for a in _xw((2, hw, hw, C), seed=hw + C))
+    dy = torch.from_numpy(np.random.default_rng(hw * C).standard_normal(x.shape)
+                          .astype(np.float32)).to(cuda_device, dtype)
+    y = dwconv.depthwise_conv7x7(x, w)
+    dx = dwconv._launch_fwd(dy, w, flip=True)
+    torch.cuda.synchronize()
+    d = dwconv.depthwise_conv7x7
+    assert (d.launches, d.launches_dx) == (1, 1)
+    rel = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    for name, got, want in (("y", y, dwconv.dwconv7x7_ref(x, w)),
+                            ("dx", dx, dwconv.dwconv7x7_ref(dy, w, flip=True))):
+        assert got.dtype == dtype
+        tol = rel * want.float().abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= tol, f"{name}: max|d| {err} > {tol}"

@@ -536,6 +536,7 @@ def test_chip_smoke_convnext_training_and_replay_rehearsal_on_cpu(tmp_path):
     assert len(run["records"]) == 2 * run["steps_per_epoch"] == 12
     rep = chip_smoke.replay_convnext_ops(run, "cpu")
     assert (rep["n_ln"], rep["n_dw"]) == (1 + 3 + 12 + 1, 12)
+    assert sum(rep["dw_counts"].values()) == 12 and set(rep["dw_counts"]) == set(rep["dw_shapes"])
     assert rep["launches"] == {"ln_fwd": 0, "ln_bwd": 0, "dw_fwd": 0, "dw_dx": 0, "dw_dw": 0}
     assert rep["errs"]["layer_norm_fwd vs model"] > 0 or rep["errs"]["dwconv7x7_fwd vs model"] > 0
 
@@ -551,18 +552,36 @@ def test_chip_smoke_convnext_layout_is_the_jax_layout():
 def test_layernorm_and_dwconv_bound_numbers():
     # ConvNeXt-T stage 0 at batch 64, bf16: LayerNorm two passes (forward)
     # and three (backward) of 200,704 x 96 over 3.35 TB/s; the depthwise conv
-    # 2 * 49 flops per element over 66.9 TFLOP/s of fp32
+    # two passes over 3.35 TB/s (in bf16 its flops at the tensor-core rate
+    # take less)
     ms, by = chip_smoke.layernorm_bound(200704, 96, "fwd")
     assert by == "bytes" and ms == pytest.approx(
         (2 * 200704 * 96 * 2 + 2 * 96 * 4) / 3.35e12 * 1e3, rel=1e-12)
     assert ms == pytest.approx(0.0230, abs=1e-4)
     assert chip_smoke.layernorm_bound(200704, 96, "bwd")[0] == pytest.approx(0.0345, abs=1e-4)
     ms, by = chip_smoke.dwconv_bound(64, 56, 56, 96)
-    assert by == "operations" and ms == pytest.approx(
-        2 * 49 * 64 * 56 * 56 * 96 / 66.9e12 * 1e3, rel=1e-12)
-    assert ms == pytest.approx(0.0282, abs=1e-4)
-    assert chip_smoke.dwconv_bound(64, 7, 7, 768)[0] == pytest.approx(0.0035, abs=1e-4)
+    assert by == "bytes" and ms == pytest.approx(
+        (2 * 64 * 56 * 56 * 96 + 49 * 96) * 2 / 3.35e12 * 1e3, rel=1e-12)
+    assert ms == pytest.approx(0.0230, abs=1e-4)
+    assert chip_smoke.dwconv_bound(64, 7, 7, 768)[0] == pytest.approx(0.0029, abs=1e-4)
+    # in fp32, 2 * 49 flops per element over 66.9 TFLOP/s (0.0282 ms) take
+    # less than the bytes, twice bf16's
+    ms, by = chip_smoke.dwconv_bound(64, 56, 56, 96, itemsize=4)
+    assert by == "bytes" and ms == pytest.approx(
+        (2 * 64 * 56 * 56 * 96 + 49 * 96) * 4 / 3.35e12 * 1e3, rel=1e-12)
+    assert ms == pytest.approx(0.0460, abs=1e-4)
 
+
+
+def test_launch_gap_sums_the_timed_shapes_only():
+    # launches x (device - bound) over a replayed step: shapes with a timed
+    # row count, the others are counted apart and left out
+    rows = [{"shape": [8, 4], "device_ms": 0.5, "bound": (0.2, "bytes")},
+            {"shape": [2, 2], "device_ms": 0.1, "bound": (0.1, "bytes")}]
+    counts = {(8, 4): 3, (2, 2): 2, (9, 9): 5}
+    total, counted, left = chip_smoke.launch_gap(rows, counts, lambda r: tuple(r["shape"]),
+                                                 lambda r: r["device_ms"] - r["bound"][0])
+    assert total == pytest.approx(3 * 0.3, rel=1e-12) and (counted, left) == (5, 5)
 
 
 def test_device_ms_survives_dropped_launches(monkeypatch):
@@ -600,7 +619,7 @@ def test_dwconv_dw_bound_is_its_bytes_at_the_tensor_core_rate(shape, want):
     # dw is per channel a 7 x 7 product of depth B*H*W: its 98 flops per
     # element over 989 TFLOP/s of bf16 take less time than reading x and dy
     B, H, W, C = shape
-    ms, by = chip_smoke.dwconv_bound(*shape, part="dw")
+    ms, by = chip_smoke.dwconv_bound(*shape)
     assert by == "bytes" and ms == pytest.approx(
         (2 * B * H * W * C + 49 * C) * 2 / 3.35e12 * 1e3, rel=1e-12)
     assert ms == pytest.approx(want, abs=1e-4)
@@ -781,6 +800,7 @@ def test_chip_smoke_resnet_training_and_replay_rehearsal_on_cpu(tmp_path):
                 blk.bn3.weight.fill_(1.0)  # zero-initialised: make conv3's path count
     rep = chip_smoke.replay_resnet_convs(narrow, run["args"], batch, 3)
     assert rep["n"] == {"conv1": 4, "conv3": 4, "downsample": 4}
+    assert sum(rep["counts"].values()) == 12 and set(rep["counts"]) == set(rep["shapes"])
     assert rep["launches"] == {"k2": 0, "k2_bn_in": 0}
     assert rep["errs"]["y vs model"] <= 2.0 ** -6 and rep["errs"]["batch var vs model"] > 0
 
