@@ -34,28 +34,42 @@ exit before the last line:
    `x @ w` and the unfused chain as yardsticks, in kernel and device ms;
 4. the serving path: a seeded JAX-format ViT-B/16 checkpoint trained with
    --flash_attn (random weights) and a seeded 5-class image folder go through
-   `val_precision` and `val_move` on cuda at batch 64, with every kernel's
-   launch count read around each run; the probabilities are held against the
-   same model on the plain attention path; a torch.profiler trace of the
-   forward with the flash path on and off gives device time by kernel;
+   `val_precision` and `val_move` on cuda at batch 64 (predict captured as a
+   CUDA graph at its first batch); the probabilities are held against the
+   same model on the plain attention path and against the eager predict; a
+   torch.profiler trace shows 12 forward launches in each replayed batch,
+   and traces of the forward (captured and eager, flash and plain) give
+   device time by kernel and the idle share;
 5. the training path: `imageclassification_tpu_torch.train.main` trains
    ViT-B/16 --flash_attn at 224x224, batch 64, with the default training
-   flags, for 2 epochs of 10 steps on a seeded 5-class folder of 750 images;
-   every step's loss must be finite, each optimizer step must launch the
-   forward 12 times with lse, 12 times without (the exact-mode accuracy
-   forward) and each backward kernel 12 times, and checkpoint-1.pth must be
-   in the JAX layout and load in the port's val.py;
+   flags, for 2 epochs of 10 steps on a seeded 5-class folder of 750 images
+   (two eager steps, then the step captured and replayed); every step's
+   loss must be finite, the run's own captured step is replayed three more
+   times under a trace, which must show each replay launch the forward 12
+   times (with lse), the dQ and dK/dV kernels 12 times each and the forward
+   12 times (without lse, the exact-mode accuracy forward) in that order
+   (the wrappers' counters, which a replay does not advance, count only the
+   eager steps and the captures), and checkpoint-1.pth must be in the JAX
+   layout and load in the port's val.py;
    5b. on the trained weights: ms per train step and img/s (CUDA events over
-   one fixed batch), a torch.profiler trace of train steps with flash on and
-   off (with the backward kernels' device ms a step), and the flash path's
-   gradients of one step held against the plain attention path and fp32 on
-   the same weights, batch and draws;
+   one fixed batch) and a torch.profiler trace, captured and eager, with
+   flash on and off (with the backward kernels' device ms a step), and the
+   flash path's gradients of one step held against the plain attention path
+   and fp32 on the same weights, batch and draws;
+   5c. six ViT-B/16 --flash_attn steps at full width (drop path 0.1, the
+   default flags, the EMA with warmup) eager twice and captured once, each
+   from one seeded state and seeded generators: the captured run must equal
+   the eager one bitwise where the two eager runs are equal (else differ by
+   no more than they do); then a step with the head bias set to inf inside
+   the captured run's replays must leave parameters, EMA, moments and count
+   bitwise as they were, and the next step apply;
 6. the ConvNeXt-T training path: `train.main --model convnext_tiny` at
    224x224, batch 64, the default training flags, 2 epochs of 10 steps on the
    folder of phase 5; losses finite, no kernel launched (the model runs
    F.conv2d and its fp32 LayerNorm, as the JAX model runs lax.conv and
    nn.LayerNorm), checkpoint-1.pth in the JAX layout, reloaded exactly and
-   served by val_precision; ms per step, img/s and a trace of train steps;
+   served by val_precision; ms per step, img/s and a trace of train steps,
+   captured and eager;
    6b. one train step on the trained weights with every LayerNorm (23) and
    depthwise conv (18) captured, and each captured tensor run through the
    kernels (the launches of the new kernels' rows), held against the
@@ -66,14 +80,15 @@ exit before the last line:
    and its BatchNorm, as the JAX model runs lax.conv and nn.BatchNorm),
    checkpoint-1.pth in the JAX layout with batch_stats, reloaded exactly
    (weights and statistics) and served by val_precision; ms per step, img/s
-   and a trace of train steps;
+   and a trace of train steps, captured and eager;
    7b. one train step on the trained weights with every conv captured, and
    its 36 1x1 convs run through the fused kernel (20 plain: conv1 and the
    downsamples; 16 with the prologue: conv3 on relu(bn2(conv2 out))), held
    against the model's own conv outputs and BatchNorm batch statistics and
    against the plain version;
    7c. the port bench (`imageclassification_tpu_torch.bench`) at batch 128:
-   its JSON line, and a trace of its step;
+   its JSON line (the captured step), and ms per step and a trace of its
+   step, captured and eager;
 8. one JSON line with every kernel's numbers (at ConvNeXt-T's stage-0 shape
    for the LayerNorm and depthwise-conv kernels and ResNet-50's stage-1
    conv3 shape for the fused 1x1 conv; the other shapes are in the lines of
@@ -569,7 +584,9 @@ def run_main_path(work: str, device: str, model: dict, img: int, num_classes: in
         raise AssertionError(f"val_move moved {moved} of {n_images} images")
 
     # steady-state forward of one full batch; the flash path held against the
-    # plain attention path of the same weights, in bf16 and in fp32
+    # plain attention path of the same weights, in bf16 and in fp32; on a card
+    # the predict functions are captured, and the flash path's eager predict
+    # runs beside its captured one
     m_flash, _ = val.initialize_model(ckpt, True, device=device)
     predict = {"flash": val._predict_fn(m_flash)}
     for name, half in (("plain", True), ("fp32", False)):
@@ -577,6 +594,7 @@ def run_main_path(work: str, device: str, model: dict, img: int, num_classes: in
                          img_size=img).to(device).eval()
         m.load_state_dict(m_flash.state_dict())
         predict[name] = val._predict_fn(m)
+    eager = getattr(predict["flash"], "eager", predict["flash"])
     paths = [os.path.join(images, d, f) for d in sorted(os.listdir(images))
              for f in sorted(os.listdir(os.path.join(images, d)))][:batch]
     _, imgs = next(val._batched(paths, img, batch, torch.device(device)))
@@ -586,14 +604,19 @@ def run_main_path(work: str, device: str, model: dict, img: int, num_classes: in
     res["probs_flash_vs_plain"] = (p["flash"] - p["plain"]).abs().max().item()
     res["probs_flash_vs_fp32"] = (p["flash"] - p["fp32"]).abs().max().item()
     res["probs_plain_vs_fp32"] = (p["plain"] - p["fp32"]).abs().max().item()
+    res["probs_captured_vs_eager"] = (p["flash"] - eager(imgs)).abs().max().item()
     res["argmax_agree_fp32"] = (p["flash"].argmax(-1) == p["fp32"].argmax(-1)).float().mean().item()
     if res["probs_flash_vs_fp32"] > PROBS_ATOL:
         raise AssertionError(f"flash-path probabilities differ from fp32 by "
                              f"{res['probs_flash_vs_fp32']} > {PROBS_ATOL}")
     if device == "cuda":
-        res["ms_per_batch"] = time_ms(lambda: predict["flash"](imgs), iters=10)
-        res["img_per_s"] = batch / (res["ms_per_batch"] / 1e3)
-        res["trace"] = {name: trace(lambda: predict[name](imgs)) for name in ("flash", "plain")}
+        timed = {"flash captured": predict["flash"], "flash eager": eager,
+                 "plain captured": predict["plain"]}
+        res["ms_per_batch_captured"] = time_ms(lambda: timed["flash captured"](imgs), iters=10)
+        res["ms_per_batch_eager"] = time_ms(lambda: timed["flash eager"](imgs), iters=10)
+        res["trace"] = {name: trace(lambda: fn(imgs)) for name, fn in timed.items()}
+        res["per_replay"] = replay_launches(lambda: predict["flash"](imgs),
+                                            ["fwd"] * model["depth"])
     return res
 
 
@@ -612,11 +635,11 @@ def _launch_counts():
             "bwd_dq": f.launches_dq}
 
 
-def _train_main(work: str, images: str, flags: list, counts):
+def _train_main(work: str, images: str, flags: list):
     """train.main on the folder `images` with `flags`, every step's metrics
-    and the launch counts `counts()` around it recorded by wrapping the step
-    that main builds (the counts are set to 0 first by the caller). Returns
-    (state, args, records, wall seconds)."""
+    recorded by wrapping the step that the epoch loop is given (the captured
+    step on a card) and read after main returns. Returns (state, args,
+    records, wall seconds, the step)."""
     from imageclassification_tpu_torch import train as port_train
 
     args = port_train.parse_args([
@@ -624,35 +647,80 @@ def _train_main(work: str, images: str, flags: list, counts):
         "--output_dir", os.path.join(work, "train_cls", "output"),
         "--log_dir", os.path.join(work, "train_cls", "log_dir"), "--num_workers", "8",
     ])
-    records = []
-    build = port_train.build_train_step
+    metrics, steps = [], []
+    loop = port_train.train_one_epoch
 
-    def recording_build(*a, **kw):
-        step = build(*a, **kw)
+    def recording_loop(train_step, *a, **kw):
+        steps.append(train_step)
 
-        def recorded(state, batch, draws=None):
-            before = counts()
-            m = step(state, batch, draws)
-            after = counts()
-            records.append({"loss": float(m["loss"]), "skipped": m["skipped"],
-                            "launches": {k: after[k] - before[k] for k in after}})
+        def recorded(state, batch):
+            m = train_step(state, batch)
+            metrics.append(m)
             return m
 
-        recorded.__dict__.update(step.__dict__)
-        return recorded
+        return loop(recorded, *a, **kw)
 
-    port_train.build_train_step = recording_build
+    port_train.train_one_epoch = recording_loop
     try:
         t0 = time.perf_counter()
         state = port_train.main(args)
         wall_s = time.perf_counter() - t0
     finally:
-        port_train.build_train_step = build
+        port_train.train_one_epoch = loop
+    records = [{"loss": float(m["loss"]), "skipped": float(m["skipped"])} for m in metrics]
     losses = [r["loss"] for r in records]
     if not (losses and all(math.isfinite(x) for x in losses)
             and not any(r["skipped"] for r in records)):
         raise AssertionError(f"training losses not all finite: {losses}")
-    return state, args, records, wall_s
+    return state, args, records, wall_s, steps[-1]
+
+
+# the flash kernels of one ViT train step in the order the device runs them:
+# the forward with lse (12 blocks), the backward (per block the dQ kernel,
+# which writes di, then dK/dV), the exact-mode accuracy forward without lse
+FLASH_KINDS = {"flash_attention_fwd": "fwd", "flash_attention_bwd_dq": "dq",
+               "flash_attention_bwd_dkv": "dkv"}
+
+
+def flash_step_pattern(depth: int) -> list:
+    return ["fwd"] * depth + ["dq", "dkv"] * depth + ["fwd"] * depth
+
+
+def flash_kernel_sequence(fn, calls: int):
+    """The flash kernels of `calls` calls of fn() as a torch.profiler trace
+    holds them, in device order (one untraced call first)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    seq = []
+    for e in prof.events():
+        if e.device_type.name != "CUDA":
+            continue
+        kind = next((v for k, v in FLASH_KINDS.items() if k in e.name), None)
+        if kind is not None:
+            seq.append((e.time_range.start, kind))
+    return [kind for _, kind in sorted(seq)]
+
+
+def replay_launches(fn, pattern: list, calls: int = 3, traces: int = 5) -> list:
+    """The flash kernels each call of fn() launches, read from traces of
+    `calls` calls (not from the wrappers' counters, which a replay of a CUDA
+    graph does not advance): the first trace holding `pattern` once a call.
+    A trace may drop launches (`_device_ms`), so up to `traces` are taken;
+    raises when none holds the pattern, with what each held."""
+    seen = []
+    for _ in range(traces):
+        seq = flash_kernel_sequence(fn, calls)
+        if seq == pattern * calls:
+            return [Counter(seq[i * len(pattern):(i + 1) * len(pattern)]) for i in range(calls)]
+        seen.append(Counter(seq))
+    raise AssertionError(f"no trace of {calls} calls held {Counter(pattern)} a call: {seen}")
 
 
 def _train_images(work: str, num_classes: int, per_class: int, seed: int) -> str:
@@ -667,28 +735,29 @@ def run_training(work: str, device: str, model: dict, img: int, num_classes: int
                  images: str = None):
     """The training path through the port's train.main on `device`, on a
     seeded image folder (`images`, written when not given), with the default
-    training flags and --flash_attn. Every step's metrics and kernel launches
-    are recorded. Returns a dict: the trained state, the args, the per-step
-    records, the launch totals of the run, the checkpoint checks and
-    timings."""
+    training flags and --flash_attn. Every step's metrics are recorded, the
+    wrappers' launch counts read around the run (on a card: the eager
+    warm-up steps' and the captures'; a replay does not advance them), and
+    on a card the flash kernels of three more calls of the run's own step
+    read from a trace: every call must launch the forward 12 times with lse,
+    the backward's dQ and dK/dV kernels 12 times each and the forward 12
+    times without lse, in that order. Returns a dict: the trained state, the
+    args, the per-step records, the launch totals of the run, the launches a
+    replay made, the checkpoint checks and timings."""
     from imageclassification_tpu_torch import val
     from imageclassification_tpu_torch.ops.flash_attention import reset_launches
 
     images = images or _train_images(work, num_classes, per_class, seed)
     reset_launches()
-    state, args, records, wall_s = _train_main(
+    state, args, records, wall_s, step = _train_main(
         work, images, ["--model", model["name"], "--flash_attn", "true", "--input_size",
                        str(img), "--batch_size", str(batch), "--epochs", str(epochs),
-                       "--warmup_epochs", "1", "--device", device], _launch_counts)
+                       "--warmup_epochs", "1", "--device", device])
     totals = _launch_counts()
     out = args.output_dir
-    # per optimizer step: the forward with lse and the exact-mode accuracy
-    # forward without, one backward; on the CPU the plain versions, no kernel
-    depth = model["depth"] if device == "cuda" else 0
-    expected = {"fwd": 2 * depth, "fwd_lse": depth, "bwd_dkv": depth, "bwd_dq": depth}
-    for i, r in enumerate(records):
-        if r["launches"] != expected:
-            raise AssertionError(f"train step {i}: launches {r['launches']}, expected {expected}")
+    if not (all(totals.values()) if device == "cuda" else not any(totals.values())):
+        # on the CPU the plain versions run, no kernel
+        raise AssertionError(f"{device} training run, flash launches {totals}")
 
     # the last epoch's checkpoint: the JAX layout, and the port's val.py reads
     # it back to the very weights the run ended with
@@ -709,8 +778,13 @@ def run_training(work: str, device: str, model: dict, img: int, num_classes: int
                   for k, v in state.model.state_dict().items())
     if carried != 0.0:
         raise AssertionError(f"{path}: reloaded weights differ from the run's by {carried}")
+    per_replay = None
+    if device == "cuda":  # three more steps of the run's own (captured) step
+        fixed = _fixed_batch({"args": args, "images": images}, device)
+        per_replay = replay_launches(lambda: step(state, fixed),
+                                     flash_step_pattern(model["depth"]))
     return {"state": state, "args": args, "records": records, "totals": totals,
-            "wall_s": wall_s, "checkpoint": path, "images": images,
+            "per_replay": per_replay, "wall_s": wall_s, "checkpoint": path, "images": images,
             "steps_per_epoch": len(records) // epochs}
 
 
@@ -775,8 +849,93 @@ def train_step_checks(run: dict, model: dict, device: str, timed: bool = True):
     del grads, fp32
     if timed:
         for name, st, fn in (("flash", flash, step), ("plain", plain, plain_step)):
-            res[f"ms_per_step_{name}"] = time_ms(lambda: fn(st, batch), iters=10, reps=3)
-            res[f"trace_{name}"] = trace(lambda: fn(st, batch), steps=5)
+            res[name] = time_captured_and_eager(st, fn, batch)
+    return res
+
+
+def captured_vs_eager(model: dict, img: int, batch: int, num_classes: int, steps: int = 6):
+    """`steps` train steps of `model` with --flash_attn at full width (drop
+    path 0.1, the default training flags, the EMA with warmup), eager twice
+    and captured once, each from the same seeded state and seeded generators
+    on seeded batches: the largest difference over parameters, EMA, moments
+    and count between the eager runs and between the captured run and the
+    first eager one. The captured run must match the eager one bitwise where
+    the eager runs match each other, else differ by no more than they do.
+    Then, inside the captured run's replays, a step with the head bias set to
+    inf must leave that state unchanged bitwise, and the next step apply."""
+    import torch
+
+    from imageclassification_tpu_torch.config import parse_args
+    from imageclassification_tpu_torch.data.mixup import build_mixup
+    from imageclassification_tpu_torch.engine.compiled import CapturedTrainStep
+    from imageclassification_tpu_torch.engine.state import create_train_state
+    from imageclassification_tpu_torch.engine.step import build_train_step
+    from imageclassification_tpu_torch.models import create_model
+    from imageclassification_tpu_torch.optim.factory import create_optimizer
+
+    dev = torch.device("cuda")
+    args = parse_args(["--model", model["name"], "--flash_attn", "true", "--model_ema", "true",
+                       "--model_ema_warmup", "true", "--drop_path", "0.1"])
+    rng = np.random.default_rng(11)
+    batches = [{"image": torch.from_numpy(rng.integers(0, 256, (batch, img, img, 3),
+                                                       dtype=np.uint8)).to(dev),
+                "label": torch.from_numpy(rng.integers(0, num_classes, batch)).to(dev)}
+               for _ in range(steps)]
+
+    def build():
+        m = create_model(model["name"], num_classes=num_classes, half_precision=True,
+                         img_size=img, flash_attn=True, drop_path_rate=args.drop_path,
+                         generator=torch.Generator().manual_seed(0)).to(dev)
+        opt = create_optimizer(args.opt, m.parameters(), lr=args.lr,
+                               weight_decay=args.weight_decay)
+        step = build_train_step(m, args, num_classes, build_mixup(args, num_classes),
+                                np.linspace(args.lr, args.lr / 10, steps + 2),
+                                np.linspace(args.weight_decay, args.weight_decay / 10, steps + 2),
+                                ema_decay=args.model_ema_decay, seed=1)
+        return create_train_state(m, opt, use_ema=True), step
+
+    def snapshot(state):
+        opt = state.optimizer
+        return {**{f"p.{k}": v.detach().clone() for k, v in state.model.state_dict().items()},
+                **{f"ema.{k}": v.clone() for k, v in state.ema.items()},
+                **{f"{k}.{i}": t.clone() for k, ts in opt.moments.items()
+                   for i, t in enumerate(ts)}, "count": opt.count.clone()}
+
+    def gap(a, b):
+        return max((x.double() - b[k].double()).abs().max().item() for k, x in a.items())
+
+    runs, losses = [], []
+    for captured in (False, False, True):
+        state, step = build()
+        if captured:
+            step = CapturedTrainStep(step, dev)
+        metrics = [step(state, b) for b in batches]
+        losses.append([round(float(m["loss"]), 6) for m in metrics])
+        runs.append(snapshot(state))
+        if not captured:
+            del state, step
+    res = {"steps": steps, "losses": losses, "eager_gap": gap(runs[0], runs[1]),
+           "captured_gap": gap(runs[0], runs[2])}
+    if res["eager_gap"] == 0.0 and (res["captured_gap"] != 0.0 or losses[2] != losses[0]):
+        raise AssertionError(f"captured steps differ from bitwise-repeatable eager steps by "
+                             f"{res['captured_gap']}")
+    if res["captured_gap"] > res["eager_gap"] > 0.0:
+        raise AssertionError(f"captured steps differ from eager steps by {res['captured_gap']}, "
+                             f"more than two eager runs ({res['eager_gap']})")
+    bias = state.model.head.bias.detach()
+    keep = bias[0].item()
+    bias[0] = float("inf")  # in place: the graph reads the parameter's memory
+    before = snapshot(state)
+    res["skipped"] = float(step(state, batches[0])["skipped"])
+    after = snapshot(state)
+    changed = [k for k in before if not torch.equal(before[k], after[k])]
+    if res["skipped"] != 1.0 or changed:
+        raise AssertionError(f"a non-finite replayed step: skipped {res['skipped']}, "
+                             f"changed {changed[:5]}")
+    bias[0] = keep
+    if float(step(state, batches[1])["skipped"]) != 0.0 or \
+            state.optimizer.num_updates != int(before["count"]) + 1:
+        raise AssertionError("the step after a skipped one did not apply")
     return res
 
 
@@ -1111,10 +1270,10 @@ def run_convnext_training(work: str, device: str, model: dict, img: int, num_cla
     def counts():
         return {**_launch_counts(), **_op_launch_counts()}
 
-    state, args, records, wall_s = _train_main(
+    state, args, records, wall_s, _ = _train_main(
         work, images, ["--model", model["name"], "--input_size", str(img), "--batch_size",
                        str(batch), "--epochs", str(epochs), "--warmup_epochs", "1",
-                       "--device", device], counts)
+                       "--device", device])
     if any(counts().values()):
         raise AssertionError(f"the ConvNeXt training path launched a kernel: {counts()}")
     path = os.path.join(args.output_dir, f"checkpoint-{epochs - 1}.pth")
@@ -1152,20 +1311,41 @@ def _fixed_batch(run: dict, device: str):
                                  device=device, seed=args.seed, num_workers=8)))
 
 
+def time_captured_and_eager(state, step, batch) -> dict:
+    """ms per train step (CUDA events, back-to-back steps on one fixed batch)
+    and a torch.profiler trace of train steps, for the step captured as
+    train.main runs it (`CapturedTrainStep`) and for the eager `step`, on
+    `state` (the steps go on updating it): {"captured": (ms, trace),
+    "eager": (ms, trace)}."""
+    import torch
+
+    from imageclassification_tpu_torch.engine.compiled import CapturedTrainStep
+
+    captured = CapturedTrainStep(step, torch.device("cuda"))
+    return {name: (time_ms(lambda: fn(state, batch), iters=10, reps=3),
+                   trace(lambda: fn(state, batch), steps=5))
+            for name, fn in (("captured", captured), ("eager", step))}
+
+
+def log_step_timing(label: str, batch: int, timing: dict) -> None:
+    for name in ("captured", "eager"):
+        ms, tr = timing[name]
+        log(f"train step {label} batch {batch}, {name} step: {ms:.3f} ms/step, "
+            f"{batch / (ms / 1e3):.1f} img/s (CUDA events, one fixed batch, exact-mode accuracy "
+            f"forward included)")
+        log_trace(f"{label} batch {batch} train step, {name}", tr, "step")
+
+
 def step_timing(run: dict, device: str):
-    """ms per train step (CUDA events) on one fixed batch and a torch.profiler
-    trace of train steps, on the trained state of `run` (the steps go on
-    updating it)."""
+    """`time_captured_and_eager` on the trained state of `run`."""
     from imageclassification_tpu_torch.data.mixup import build_mixup
     from imageclassification_tpu_torch.engine.step import build_train_step
 
     args, state = run["args"], run["state"]
     num_classes = run["num_classes"]
-    batch = _fixed_batch(run, device)
     step = build_train_step(state.model, args, num_classes, build_mixup(args, num_classes),
                             [args.lr], [args.weight_decay], seed=args.seed)
-    return {"ms_per_step": time_ms(lambda: step(state, batch), iters=10, reps=3),
-            "trace": trace(lambda: step(state, batch), steps=5)}
+    return time_captured_and_eager(state, step, _fixed_batch(run, device))
 
 
 def _capture_convnext_ops(model):
@@ -1462,10 +1642,10 @@ def run_resnet_training(work: str, device: str, model: dict, img: int, num_class
 
     images = images or _train_images(work, num_classes, per_class, seed)
     _reset_all_launches()
-    state, args, records, wall_s = _train_main(
+    state, args, records, wall_s, _ = _train_main(
         work, images, ["--model", model["name"], "--input_size", str(img), "--batch_size",
                        str(batch), "--epochs", str(epochs), "--warmup_epochs", "1",
-                       "--device", device], _all_launch_counts)
+                       "--device", device])
     if any(_all_launch_counts().values()):
         raise AssertionError(f"the ResNet training path launched a kernel: {_all_launch_counts()}")
     path = os.path.join(args.output_dir, f"checkpoint-{epochs - 1}.pth")
@@ -1644,6 +1824,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
+    from imageclassification_tpu_torch.engine.compiled import TRAIN_WARMUP_STEPS as TRAIN_WARMUP
     from imageclassification_tpu_torch.ops import _build
     from imageclassification_tpu_torch.ops import conv1x1_bn as k2
     from imageclassification_tpu_torch.ops import dwconv as dw
@@ -1693,24 +1874,27 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:
         res = run_main_path(work, "cuda", VIT_B16, img=224, num_classes=5,
                             per_class=26, batch=64)
-    expected = VIT_B16["depth"] * res["n_batches"]
     for run in ("val_precision", "val_move"):
         got = res[f"launches_{run}"]
-        log(f"serving path {run}: flash_attention_fwd launches {got} "
-            f"(expected {VIT_B16['depth']} x {res['n_batches']} batches = {expected}), "
+        log(f"serving path {run}: flash_attention_fwd launches counted by the wrapper {got} "
+            f"(the first batch's eager run and its capture; {res['n_batches']} batches), "
             f"{res[f'{run}_s']:.2f} s for {res['n_images']} images incl. model load")
-        if got != expected:
-            raise AssertionError(f"{run}: {got} kernel launches, expected {expected}")
-    log(f"serving path ViT-B/16 224x224 bf16 batch 64: {res['ms_per_batch']:.3f} ms/batch, "
-        f"{res['img_per_s']:.1f} img/s (forward + softmax, CUDA events)")
+        if got <= 0:
+            raise AssertionError(f"{run}: the flash kernel was never launched")
+    log(f"serving path, launches per replayed batch (trace): {dict(res['per_replay'][0])} "
+        f"in each of {len(res['per_replay'])} traced batches")
+    for name in ("captured", "eager"):
+        ms = res[f"ms_per_batch_{name}"]
+        log(f"serving path ViT-B/16 224x224 bf16 batch 64, {name} predict: {ms:.3f} ms/batch, "
+            f"{64 / (ms / 1e3):.1f} img/s (forward + softmax, CUDA events)")
     log(f"serving path probabilities, max|d|: bf16 flash vs bf16 plain attention "
         f"{res['probs_flash_vs_plain']:.3e}; bf16 flash vs fp32 plain "
         f"{res['probs_flash_vs_fp32']:.3e} (tol {PROBS_ATOL}); bf16 plain vs fp32 "
         f"{res['probs_plain_vs_fp32']:.3e}; argmax agreement flash vs fp32 "
-        f"{res['argmax_agree_fp32']:.3f}")
+        f"{res['argmax_agree_fp32']:.3f}; captured vs eager predict {res['probs_captured_vs_eager']:.3e}")
     for name, tr in res["trace"].items():
-        log_trace(f"ViT-B/16 batch 64 bf16 forward, {name} attention", tr, "batch")
-    fa_ms, fa_n = next(v for k, v in res["trace"]["flash"][2].items()
+        log_trace(f"ViT-B/16 batch 64 bf16 forward, {name}", tr, "batch")
+    fa_ms, fa_n = next(v for k, v in res["trace"]["flash captured"][2].items()
                        if "flash_attention_fwd" in k)
     log(f"flash_attention_fwd device time from the trace: {fa_ms / fa_n:.4f} ms per launch "
         f"at {MAIN_SHAPE}, bound/kernel {main_row['bound_ms'] / (fa_ms / fa_n):.3f}")
@@ -1725,28 +1909,36 @@ def main() -> int:
         losses = [r["loss"] for r in run["records"]]
         log(f"training path: {len(losses)} steps ({cfg['epochs']} epochs x "
             f"{run['steps_per_epoch']}) of ViT-B/16 --flash_attn 224x224 batch "
-            f"{cfg['batch']}, {run['wall_s']:.1f} s for train.main (decode, evals and "
-            f"checkpoints included); losses {', '.join(f'{x:.4f}' for x in losses)}")
-        log(f"training path launches per optimizer step: {run['records'][0]['launches']} "
-            f"(every step the same); totals of the run {run['totals']} (the evals' "
-            f"forwards included); {run['checkpoint'].split('/')[-1]} in the JAX layout, "
-            f"reloaded by val.initialize_model to the run's exact weights")
+            f"{cfg['batch']}, captured after {TRAIN_WARMUP} eager steps, {run['wall_s']:.1f} s "
+            f"for train.main (decode, evals and checkpoints included); losses "
+            f"{', '.join(f'{x:.4f}' for x in losses)}")
+        log(f"training path launches per step of the run's captured step (trace, in device "
+            f"order: {VIT_B16['depth']} forwards with lse, the backward's dQ and dK/dV kernels, "
+            f"{VIT_B16['depth']} forwards without lse): "
+            f"{[dict(c) for c in run['per_replay']]}; counted by the wrappers over the run "
+            f"(the eager steps, the captures and the evals' first batches) {run['totals']}; "
+            f"{run['checkpoint'].split('/')[-1]} in the JAX layout, reloaded by "
+            f"val.initialize_model to the run's exact weights")
         # 5b. steady state, traces and gradient agreement on the trained weights
         chk = train_step_checks(run, VIT_B16, "cuda")
         for name in ("flash", "plain"):
-            ms = chk[f"ms_per_step_{name}"]
-            log(f"train step ViT-B/16 224x224 bf16 batch {cfg['batch']}, {name} attention: "
-                f"{ms:.3f} ms/step, {cfg['batch'] / (ms / 1e3):.1f} img/s (CUDA events, one "
-                f"fixed batch, exact-mode accuracy forward included)")
-            log_trace(f"ViT-B/16 batch {cfg['batch']} bf16 train step, {name} attention",
-                      chk[f"trace_{name}"], "step")
-        step_kernels = chk["trace_flash"][2]
-        log("flash backward in the ViT-B/16 train step (trace): " + ", ".join(
+            log_step_timing(f"ViT-B/16 224x224 bf16, {name} attention", cfg["batch"], chk[name])
+        step_kernels = chk["flash"]["captured"][1][2]
+        log("flash backward in the captured ViT-B/16 train step (trace): " + ", ".join(
             f"{kernel} {sum(ms for k, (ms, _) in step_kernels.items() if kernel in k):.4f} ms in "
             f"{sum(n for k, (_, n) in step_kernels.items() if kernel in k):.1f} launches a step"
             for kernel in BWD_KERNELS))
-        totals = run["totals"]
+        totals, per_replay = run["totals"], run["per_replay"][0]
         del run, chk
+        # 5c. captured steps against eager steps at full width, and a
+        # non-finite step inside the replays
+        eq = captured_vs_eager(VIT_B16, cfg["img"], cfg["batch"], cfg["num_classes"])
+        log(f"captured vs eager ViT-B/16 --flash_attn (drop_path 0.1, default flags, EMA with "
+            f"warmup), {eq['steps']} steps from one seeded state and seeded generators: max|d| "
+            f"over parameters, EMA, moments and count eager vs eager {eq['eager_gap']:.3e}, "
+            f"captured vs eager {eq['captured_gap']:.3e}; losses eager {eq['losses'][0]}, "
+            f"captured {eq['losses'][2]}; a non-finite step in the replays (head bias inf): "
+            f"skipped {eq['skipped']}, state unchanged bitwise; the next step applies")
 
         # 6. the ConvNeXt-T training path on the same folder
         cnx = run_convnext_training(os.path.join(work, "convnext"), "cuda", CONVNEXT_T,
@@ -1755,18 +1947,13 @@ def main() -> int:
         losses = [r["loss"] for r in cnx["records"]]
         log(f"training path: {len(losses)} steps ({cfg['epochs']} epochs x "
             f"{cnx['steps_per_epoch']}) of ConvNeXt-T 224x224 batch {cfg['batch']} (drop_path "
-            f"{cnx['args'].drop_path}), {cnx['wall_s']:.1f} s for train.main; losses "
+            f"{cnx['args'].drop_path}), captured, {cnx['wall_s']:.1f} s for train.main; losses "
             f"{', '.join(f'{x:.4f}' for x in losses)}; no kernel launched (the model runs "
             f"F.conv2d and its fp32 LayerNorm, as the JAX model runs lax.conv and "
             f"nn.LayerNorm); {cnx['checkpoint'].split('/')[-1]} in the JAX layout, reloaded "
             f"by val.initialize_model to the run's exact weights; val_precision top-1 "
             f"{cnx['val_top1']:.3f} on the training folder")
-        timing = step_timing(cnx, "cuda")
-        ms = timing["ms_per_step"]
-        log(f"train step ConvNeXt-T 224x224 bf16 batch {cfg['batch']}: {ms:.3f} ms/step, "
-            f"{cfg['batch'] / (ms / 1e3):.1f} img/s (CUDA events, one fixed batch, exact-mode "
-            f"accuracy forward included)")
-        log_trace(f"ConvNeXt-T batch {cfg['batch']} bf16 train step", timing["trace"], "step")
+        log_step_timing("ConvNeXt-T 224x224 bf16", cfg["batch"], step_timing(cnx, "cuda"))
         # 6b. the LayerNorm and depthwise-conv kernels on the step's own tensors
         replay = replay_convnext_ops(cnx, "cuda")
         del cnx
@@ -1794,23 +1981,18 @@ def main() -> int:
                                  cfg["epochs"], images=images)
         losses = [r["loss"] for r in rn["records"]]
         log(f"training path: {len(losses)} steps ({cfg['epochs']} epochs x "
-            f"{rn['steps_per_epoch']}) of ResNet-50 224x224 batch {cfg['batch']}, "
+            f"{rn['steps_per_epoch']}) of ResNet-50 224x224 batch {cfg['batch']}, captured, "
             f"{rn['wall_s']:.1f} s for train.main; losses {', '.join(f'{x:.4f}' for x in losses)}; "
             f"no kernel launched (the model runs F.conv2d and its BatchNorm, as the JAX model "
             f"runs lax.conv and nn.BatchNorm); {rn['checkpoint'].split('/')[-1]} in the JAX "
             f"layout with batch_stats, reloaded by val.initialize_model to the run's exact "
             f"weights and statistics; val_precision top-1 {rn['val_top1']:.3f} on the training "
             f"folder")
-        timing = step_timing(rn, "cuda")
-        rn_ms = timing["ms_per_step"]
-        log(f"train step ResNet-50 224x224 bf16 batch {cfg['batch']}: {rn_ms:.3f} ms/step, "
-            f"{cfg['batch'] / (rn_ms / 1e3):.1f} img/s (CUDA events, one fixed batch, exact-mode "
-            f"accuracy forward included)")
-        log_trace(f"ResNet-50 batch {cfg['batch']} bf16 train step", timing["trace"], "step")
+        log_step_timing("ResNet-50 224x224 bf16", cfg["batch"], step_timing(rn, "cuda"))
         # 7b. the fused 1x1 conv + BN statistics kernel on the step's own tensors
         k2_replay = replay_resnet_convs(rn["state"].model, rn["args"], _fixed_batch(rn, "cuda"),
                                         rn["num_classes"])
-        del rn, timing
+        del rn
     n_blocks = sum(RESNET50["stage_sizes"])
     want = {"k2": n_blocks + len(RESNET50["stage_sizes"]), "k2_bn_in": n_blocks}
     if k2_replay["launches"] != want:
@@ -1826,15 +2008,16 @@ def main() -> int:
         f"{k2_gap[0]:.4f} ms over {k2_gap[1]} launches on the shapes of 3e ({k2_gap[2]} on "
         f"others, left out)")
 
-    # 7c. the port bench at batch 128, and a trace of its step
+    # 7c. the port bench at batch 128 (its captured step), and the times and
+    # traces of its captured and eager steps
     from imageclassification_tpu_torch import bench
 
     bench_line = bench.run(batch=128)
     log(f"port bench (python -m imageclassification_tpu_torch.bench): {json.dumps(bench_line)}")
     step, state, data = bench.build(128, 224, torch.device("cuda"))
-    bench_trace = trace(lambda: step(state, data), steps=5)
+    log_step_timing("port bench: ResNet-50 224x224 bf16", 128,
+                    time_captured_and_eager(state, step.step, data))
     del step, state, data
-    log_trace("port bench: ResNet-50 batch 128 bf16 train step", bench_trace, "step")
 
     # results
     replaces_bwd = ("jax/experimental/pallas/ops/tpu/flash_attention.py:{} (the backward of "
@@ -1848,7 +2031,7 @@ def main() -> int:
         "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"], "library_ms": main_row["library_ms"],
         "device_ms": main_row["device_ms"], "library_device_ms": main_row["library_device_ms"],
-        "launches_lse": totals["fwd_lse"],
+        "launches_lse": totals["fwd_lse"], "launches_per_replay": per_replay["fwd"],
     }]
     for part, line, errs in (("dkv", 1121, ("dk", "dv")), ("dq", 1456, ("dq",))):
         kernels.append({
@@ -1861,6 +2044,7 @@ def main() -> int:
             "bound_ms": bwd_main["bounds"][part][0], "bound_by": bwd_main["bounds"][part][1],
             "library_ms": bwd_main["library_ms"], "device_ms": bwd_main[f"device_ms_{part}"],
             "library_device_ms": bwd_main["library_device_ms"],
+            "launches_per_replay": per_replay[part],
         })
     # the LayerNorm and depthwise-conv rows: the stage-0 shape (the largest),
     # launches counted over the replay of phase 6b

@@ -4,14 +4,16 @@ card, the same step that the root bench.py times for the JAX package.
     python -m imageclassification_tpu_torch.bench [--batch 128] [--size 224]
         [--device cuda|cpu]
 
-The step is `engine.step.build_train_step` as `train.py` builds it, driven
-from the host: ResNet-50, 1000 classes, bf16 compute with fp32 parameters,
+The step is `engine.step.build_train_step` as `train.py` builds and runs it:
+on a card replayed from a CUDA graph (`engine.compiled.CapturedTrainStep`),
+on the CPU eager. ResNet-50, 1000 classes, bf16 compute with fp32 parameters,
 AdamW, mixup 0.8, label smoothing 0.1, random erasing 0.25, colour jitter
 0.3, the exact-mode train accuracy (a second forward on the un-mixed batch),
 no drop path, a constant lr of 1e-3 and weight decay of 5e-4, on one seeded
-uint8 batch. It is timed with CUDA events after a warm-up: the median over
-5 reps of the mean of 10 back-to-back steps (each step reads its loss's
-finiteness on the host, as training does).
+uint8 batch. It is timed with CUDA events after a warm-up (which includes
+the eager steps before the capture): the median over 5 reps of the mean of
+10 back-to-back steps, with no host synchronisation inside a rep (a step
+reads nothing back from the device).
 
 Prints one JSON line shaped like bench.py's: `metric`, `value` (img/s),
 `unit`, `vs_baseline`, plus `ms_per_step` and the device. `vs_baseline` is
@@ -36,6 +38,7 @@ import torch
 from .config import TrainConfig
 from .data.mixup import build_mixup
 from .device import DEVICES, resolve_device
+from .engine.compiled import CapturedTrainStep
 from .engine.state import create_train_state
 from .engine.step import build_train_step
 from .models import create_model
@@ -66,7 +69,8 @@ TARGET_IMG_S = 0.9 * roofline_img_s(128)
 
 
 def build(batch: int, size: int, device: torch.device, seed: int = 0):
-    """(train_step, state, batch) of the benchmarked step."""
+    """(train_step, state, batch) of the benchmarked step: captured on a
+    card (its eager step is `train_step.step`)."""
     cfg = TrainConfig(model=MODEL, input_size=size, batch_size=batch, mixup=0.8, smoothing=0.1,
                       reprob=0.25, color_jitter=0.3, half_precision=True,
                       train_acc_mode="exact", drop_path=0.0, device=device.type)
@@ -79,6 +83,8 @@ def build(batch: int, size: int, device: torch.device, seed: int = 0):
     rng = np.random.default_rng(seed)
     data = {"image": torch.from_numpy(rng.integers(0, 255, (batch, size, size, 3), dtype=np.uint8)),
             "label": torch.from_numpy(rng.integers(0, NUM_CLASSES, (batch,)))}
+    if device.type == "cuda":
+        step = CapturedTrainStep(step, device)
     return step, state, {k: v.to(device) for k, v in data.items()}
 
 

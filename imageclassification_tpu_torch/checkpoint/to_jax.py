@@ -148,6 +148,11 @@ def carry_for(model: torch.nn.Module) -> Carry:
         f"weight carry for {type(model).__name__} is not ported yet (ROADMAP A13-A15)")
 
 
+# the port's moment names -> the JAX optax state's
+_JAX_MOMENTS = {"adamw": {"exp_avg": "mu", "exp_avg_sq": "nu"},
+                "sgd": {"momentum_buffer": "trace"}, "momentum": {"momentum_buffer": "trace"}}
+
+
 def _core_index(opt: Optimizer) -> int:
     return (0 if opt.name == "adamw" else 1) + (opt.clip_grad is not None)
 
@@ -156,51 +161,41 @@ def optimizer_to_jax(opt: Optimizer, model: torch.nn.Module,
                      carry: Carry) -> Dict[str, np.ndarray]:
     """The optimizer's state in the JAX optax layout (module docstring),
     mapped by the model's `carry`."""
-    named = list(model.named_parameters())
-    group = opt.inner.param_groups[0]
+    names = [k for k, _ in model.named_parameters()]
+    count = np.asarray(opt.num_updates, np.int32)
     i = _core_index(opt)
-    flat = {"count": np.asarray(opt.num_updates, np.int32),
-            "hyperparams/learning_rate": np.asarray(group["lr"], np.float32),
-            "hyperparams/weight_decay": np.asarray(group["weight_decay"], np.float32)}
-
-    def moments(field):
-        return {k: opt.inner.state.get(p, {}).get(field, torch.zeros_like(p)) for k, p in named}
-
+    flat = {"count": count,
+            "hyperparams/learning_rate": np.asarray(float(opt.lr), np.float32),
+            "hyperparams/weight_decay": np.asarray(float(opt.weight_decay), np.float32)}
     if opt.name == "adamw":
-        flat[f"inner_state/{i}/count"] = np.asarray(opt.num_updates, np.int32)
-        for field, jax_field in (("exp_avg", "mu"), ("exp_avg_sq", "nu")):
-            for k, v in carry.to_jax(moments(field)).items():
-                flat[f"inner_state/{i}/{jax_field}/{k}"] = v
-    else:
-        for k, v in carry.to_jax(moments("momentum_buffer")).items():
-            flat[f"inner_state/{i}/trace/{k}"] = v
+        flat[f"inner_state/{i}/count"] = count
+    for field, jax_field in _JAX_MOMENTS[opt.name].items():
+        for k, v in carry.to_jax(dict(zip(names, opt.moments[field]))).items():
+            flat[f"inner_state/{i}/{jax_field}/{k}"] = v
     return flat
 
 
 def optimizer_from_jax(flat: Dict[str, np.ndarray], opt: Optimizer,
                        model: torch.nn.Module, carry: Carry) -> int:
-    """Load a JAX-layout optimizer state into `opt`, keeping only the leaves
-    that match a parameter by name and shape, as the JAX resume does. Returns
-    the number of parameters whose state was loaded."""
-    named = dict(model.named_parameters())
+    """Load a JAX-layout optimizer state into `opt` in place, keeping only
+    the leaves that match a parameter by name and shape, as the JAX resume
+    does. Returns the number of parameters whose state was loaded."""
+    index = {k: j for j, (k, _) in enumerate(model.named_parameters())}
     i = _core_index(opt)
-    fields = ({"mu": "exp_avg", "nu": "exp_avg_sq"} if opt.name == "adamw"
-              else {"trace": "momentum_buffer"})
+    fields = _JAX_MOMENTS[opt.name]
     count = int(np.asarray(flat.get(f"inner_state/{i}/count", flat.get("count", 0))))
     loaded = {}
-    for jax_field, field in fields.items():
+    for field, jax_field in fields.items():
         prefix = f"inner_state/{i}/{jax_field}/"
         sub = {k[len(prefix):]: v for k, v in flat.items() if k.startswith(prefix)}
-        sd = carry.to_port(sub)[0]
-        for k, v in sd.items():
-            p = named.get(k)
-            if p is not None and tuple(v.shape) == tuple(p.shape):
-                loaded.setdefault(p, {})[field] = v.to(p.device, p.dtype)
-    for p, st in loaded.items():
-        if len(st) < len(fields):
-            continue
-        if opt.name == "adamw":
-            st["step"] = torch.tensor(float(count))
-        opt.inner.state[p] = st
+        for k, v in carry.to_port(sub)[0].items():
+            j = index.get(k)
+            if j is not None and tuple(v.shape) == tuple(opt.params[j].shape):
+                loaded.setdefault(j, {})[field] = v
+    with torch.no_grad():
+        for j, st in loaded.items():
+            if len(st) == len(fields):
+                for field, v in st.items():
+                    opt.moments[field][j].copy_(v)
     opt.num_updates = int(np.asarray(flat.get("count", count)))
     return len(loaded)

@@ -228,9 +228,6 @@ def check_ported(args: TrainConfig) -> None:
         (args.layer_decay < 1.0, f"--layer_decay {args.layer_decay}",
          "A16 (rest of the optimisers)"),
         (bool(args.aa), f"--aa {args.aa}", "A10 (remaining augmentation)"),
-        (args.enable_wandb, "--enable_wandb true", "A6 (engine: W&B logger)"),
-        (bool(args.profile_dir), "--profile_dir", "A6 (engine: profiler trace)"),
-        (args.check_nans, "--check_nans true", "A6 (engine: NaN checks)"),
         (args.opt.lower() not in PORTED_OPTIMIZERS, f"--opt {args.opt}",
          "A16 (rest of the optimisers)"),
     ]

@@ -622,31 +622,29 @@ int persistent_grid(const void* kernel, int smem_bytes, int (&cache)[64], long l
 
 }  // namespace
 
+extern "C" size_t flash_attention_bwd_launch_bytes() { return sizeof(FlashLaunch); }
+
 // q, k, v: [B, N, H, 64] bf16 with unit stride on the last axis and the byte
-// strides (stride_h, stride_n, stride_b), shared by the three; o and dout:
-// the same shape with their own byte strides (ostride_*, dstride_*); each
+// strides l->qkv_stride on H, N and B, shared by the three; o and dout: the
+// same shape with their own byte strides (l->o_stride, l->do_stride); each
 // stride a multiple of 16, each base pointer 16-byte aligned (the tensor maps
 // of dims (64, H, N, B)). lse: contiguous fp32 [B, H, N]. Writes dq
 // (contiguous [B, N, H, 64] bf16) and di = rowsum(dout * o) (contiguous fp32
-// [B, H, N]), which flash_attention_bwd_dkv_bf16 then reads. Launches on
-// `stream`, allocates nothing, and returns a tensor map's encoding error or
-// cudaGetLastError() after the launch.
+// [B, H, N]), which flash_attention_bwd_dkv_bf16 then reads. Makes l->device
+// current, launches on `stream`, allocates nothing, and returns a tensor
+// map's encoding error or cudaGetLastError() after the launch.
 extern "C" int flash_attention_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                            const void* o, const void* dout, const void* lse,
-                                           void* di, void* dq, int B, int N, int H,
-                                           long long stride_h, long long stride_n,
-                                           long long stride_b, long long ostride_h,
-                                           long long ostride_n, long long ostride_b,
-                                           long long dstride_h, long long dstride_n,
-                                           long long dstride_b, float sm_scale, void* stream) {
+                                           void* di, void* dq, const FlashLaunch* l,
+                                           void* stream) {
+  const int B = l->B, N = l->N, H = l->H;
   if (B == 0 || N == 0 || H == 0) return 0;
+  const hopper::DeviceGuard guard(l->device);
+  if (guard.err != 0) return guard.err;
   CUtensorMap maps[5];
   const void* bases[5] = {q, k, v, o, dout};
-  const long long strides[5][3] = {{stride_h, stride_n, stride_b},
-                                   {stride_h, stride_n, stride_b},
-                                   {stride_h, stride_n, stride_b},
-                                   {ostride_h, ostride_n, ostride_b},
-                                   {dstride_h, dstride_n, dstride_b}};
+  const long long* strides[5] = {l->qkv_stride, l->qkv_stride, l->qkv_stride, l->o_stride,
+                                 l->do_stride};
   for (int i = 0; i < 5; ++i) {
     const int err = encode_rows(&maps[i], bases[i], B, N, H, strides[i][0], strides[i][1],
                                 strides[i][2]);
@@ -662,28 +660,26 @@ extern "C" int flash_attention_bwd_dq_bf16(const void* q, const void* k, const v
   flash_attention_bwd_dq_kernel<<<blocks, kBwdThreads, kDqSmemBytes, (cudaStream_t)stream>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], static_cast<const float*>(lse),
       static_cast<float*>(di), static_cast<bf16*>(dq), N, H, num_m_blocks, (int)items,
-      sm_scale * kLog2e, sm_scale);
+      l->sm_scale * kLog2e, l->sm_scale);
   return (int)cudaGetLastError();
 }
 
-// q, k, v, dout, lse as for flash_attention_bwd_dq_bf16; di: the fp32
+// q, k, v, dout, lse and l as for flash_attention_bwd_dq_bf16; di: the fp32
 // [B, H, N] that it wrote. Writes dk and dv, contiguous [B, N, H, 64] bf16.
-// Launches on `stream`, allocates nothing, and returns a tensor map's
-// encoding error or cudaGetLastError() after the launch.
+// Makes l->device current, launches on `stream`, allocates nothing, and
+// returns a tensor map's encoding error or cudaGetLastError() after the
+// launch.
 extern "C" int flash_attention_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                                             const void* dout, const void* lse, const void* di,
-                                            void* dk, void* dv, int B, int N, int H,
-                                            long long stride_h, long long stride_n,
-                                            long long stride_b, long long dstride_h,
-                                            long long dstride_n, long long dstride_b,
-                                            float sm_scale, void* stream) {
+                                            void* dk, void* dv, const FlashLaunch* l,
+                                            void* stream) {
+  const int B = l->B, N = l->N, H = l->H;
   if (B == 0 || N == 0 || H == 0) return 0;
+  const hopper::DeviceGuard guard(l->device);
+  if (guard.err != 0) return guard.err;
   CUtensorMap maps[4];
   const void* bases[4] = {q, k, v, dout};
-  const long long strides[4][3] = {{stride_h, stride_n, stride_b},
-                                   {stride_h, stride_n, stride_b},
-                                   {stride_h, stride_n, stride_b},
-                                   {dstride_h, dstride_n, dstride_b}};
+  const long long* strides[4] = {l->qkv_stride, l->qkv_stride, l->qkv_stride, l->do_stride};
   for (int i = 0; i < 4; ++i) {
     const int err = encode_rows(&maps[i], bases[i], B, N, H, strides[i][0], strides[i][1],
                                 strides[i][2]);
@@ -699,6 +695,6 @@ extern "C" int flash_attention_bwd_dkv_bf16(const void* q, const void* k, const 
   flash_attention_bwd_dkv_kernel<<<blocks, kBwdThreads, kDkvSmemBytes, (cudaStream_t)stream>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
       static_cast<const float*>(di), static_cast<bf16*>(dk), static_cast<bf16*>(dv), N, H,
-      num_n_blocks, (int)items, sm_scale * kLog2e, sm_scale);
+      num_n_blocks, (int)items, l->sm_scale * kLog2e, l->sm_scale);
   return (int)cudaGetLastError();
 }

@@ -95,3 +95,22 @@ inline int encode_rows(CUtensorMap* map, const void* base, int B, int N, int H,
 }
 
 }  // namespace flash
+
+extern "C" {
+
+// What a call of an entry point passes besides its tensors and stream,
+// described once per shape and layout by ops/flash_attention.py
+// `_launch_args` (its `_Launch` mirrors this layout field by field and is
+// checked against flash_attention_{fwd,bwd}_launch_bytes at load).
+struct FlashLaunch {
+  int B;
+  int N;
+  int H;
+  int device;               // the tensors' device, made current for the launch
+  long long qkv_stride[3];  // byte strides of q, k and v on H, N, B
+  long long o_stride[3];    // of o (the backward's dQ kernel reads it)
+  long long do_stride[3];   // of dout (the backward)
+  float sm_scale;
+};
+
+}  // extern "C"

@@ -292,22 +292,26 @@ flash_attention_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 
 }  // namespace
 
-// q, k, v: [B, N, H, 64] bf16 with unit stride on the last axis and byte
-// strides stride_h, stride_n, stride_b on the others (the same for all three
-// tensors; each a multiple of 16, each base pointer 16-byte aligned): the
-// tensor maps of dims (64, H, N, B). o: contiguous [B, N, H, 64] bf16. lse:
-// contiguous fp32 [B, H, N], or null to skip it. Launches on `stream`,
-// allocates nothing, and returns a tensor map's encoding error or
+// q, k, v: [B, N, H, 64] bf16 with unit stride on the last axis and the byte
+// strides l->qkv_stride on H, N and B (the same for all three tensors; each a
+// multiple of 16, each base pointer 16-byte aligned): the tensor maps of dims
+// (64, H, N, B). o: contiguous [B, N, H, 64] bf16. lse: contiguous fp32
+// [B, H, N], or null to skip it. Makes l->device current, launches on
+// `stream`, allocates nothing, and returns a tensor map's encoding error or
 // cudaGetLastError() after the launch.
+extern "C" size_t flash_attention_fwd_launch_bytes() { return sizeof(FlashLaunch); }
+
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o,
-                                        void* lse, int B, int N, int H, long long stride_h,
-                                        long long stride_n, long long stride_b,
-                                        float sm_scale, void* stream) {
+                                        void* lse, const FlashLaunch* l, void* stream) {
+  const int B = l->B, N = l->N, H = l->H;
   if (B == 0 || N == 0 || H == 0) return 0;
+  const hopper::DeviceGuard guard(l->device);
+  if (guard.err != 0) return guard.err;
   CUtensorMap maps[3];
   const void* bases[3] = {q, k, v};
   for (int i = 0; i < 3; ++i) {
-    const int err = encode_rows(&maps[i], bases[i], B, N, H, stride_h, stride_n, stride_b);
+    const int err = encode_rows(&maps[i], bases[i], B, N, H, l->qkv_stride[0],
+                                l->qkv_stride[1], l->qkv_stride[2]);
     if (err != 0) return err;
   }
   const int num_m_blocks = (N + kRowsPerCta - 1) / kRowsPerCta;
@@ -322,6 +326,6 @@ extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void
   const int blocks = (int)(items < 2LL * n_sms ? items : 2LL * n_sms);
   flash_attention_fwd_kernel<<<blocks, kFwdThreads, kSmemBytes, (cudaStream_t)stream>>>(
       maps[0], maps[1], maps[2], static_cast<bf16*>(o), static_cast<float*>(lse), N, H,
-      num_m_blocks, (int)items, sm_scale * kLog2e);
+      num_m_blocks, (int)items, l->sm_scale * kLog2e);
   return (int)cudaGetLastError();
 }

@@ -13,6 +13,7 @@ give different numbers, never different semantics.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict
 
@@ -24,10 +25,18 @@ ERASE_AREA = (0.02, 1 / 3)
 ERASE_ASPECT = (0.3, 10 / 3)
 
 
+@functools.lru_cache(maxsize=None)
+def _mean_std(device: torch.device):
+    """The normalisation constants on `device`, made once: a copy from the
+    host at every call would wait for the device, and a captured step may
+    not copy from pageable host memory."""
+    return (torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device),
+            torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device))
+
+
 def normalize(images_01: torch.Tensor) -> torch.Tensor:
     """(x - mean) / std on [0,1]-scaled float NHWC images."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=images_01.device)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=images_01.device)
+    mean, std = _mean_std(images_01.device)
     return (images_01 - mean) / std
 
 

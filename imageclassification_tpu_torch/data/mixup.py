@@ -11,9 +11,11 @@
   [min, max] instead;
 * targets: one-hot with label smoothing, mixed with the same lam.
 
-`mixup_cutmix` takes its draws as tensors and `sample_mixup` makes them; the
-Beta draw goes through numpy (torch's Beta sampler takes no generator),
-seeded from the explicit CPU `torch.Generator` it is given.
+`mixup_cutmix` takes its draws as device tensors and `sample_mixup` makes
+them on the host; the Beta draw goes through numpy (torch's Beta sampler
+takes no generator), seeded from the explicit CPU `torch.Generator` it is
+given. The train step moves them to the device packed in one vector
+(`pack_draws`, `unpack_draws`).
 """
 
 from __future__ import annotations
@@ -119,38 +121,56 @@ def sample_mixup(cfg: MixupConfig, B: int, H: int, W: int,
     return {k: torch.as_tensor(np.asarray(v)) for k, v in draws.items()}
 
 
-def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
-    """A host draw on `device` without waiting for the device: a scalar is
-    filled in place, a vector goes through pinned memory (a copy from pageable
-    memory would first drain the stream)."""
-    if device.type != "cuda":
-        return t.to(device)
-    if t.dim() == 0:
-        return torch.full((), t.item(), dtype=t.dtype, device=device)
-    return t.pin_memory().to(device, non_blocking=True)
+def draw_keys(cfg: MixupConfig):
+    """The names of `sample_mixup`'s draws under `cfg`, in packing order."""
+    box = ("cut_h", "cut_w", "yl", "xl") if cfg.cutmix_minmax is not None else ("cy", "cx")
+    return ("lam", "use_cutmix") + box
+
+
+def pack_draws(cfg: MixupConfig, draws: Dict[str, torch.Tensor]) -> np.ndarray:
+    """The draws of `sample_mixup` (or the same keys from elsewhere) as one
+    float64 vector, each draw's values in turn: the train step copies it to
+    the device in one transfer. Exact: every value is a float32, a bool or
+    an integer below 2^53."""
+    return np.concatenate([np.asarray(draws[k], np.float64).reshape(-1)
+                           for k in draw_keys(cfg)])
+
+
+def unpack_draws(cfg: MixupConfig, flat: torch.Tensor, B: int) -> Dict[str, torch.Tensor]:
+    """`pack_draws` undone on flat's device: scalars in 'batch' mode, [B]
+    otherwise; lam float32, use_cutmix bool, the box int64."""
+    n = 1 if cfg.mode == "batch" else B
+    out = {}
+    for i, k in enumerate(draw_keys(cfg)):
+        v = flat[i * n:(i + 1) * n]
+        v = v[0] if cfg.mode == "batch" else v
+        out[k] = (v.to(torch.float32) if k == "lam" else v != 0 if k == "use_cutmix"
+                  else v.to(torch.int64))
+    return out
 
 
 def mixup_cutmix(images: torch.Tensor, labels: torch.Tensor, draws: Dict[str, torch.Tensor],
                  cfg: MixupConfig):
     """(mixed images, soft targets [B, C]) from float NHWC images, int labels
-    [B] and the draws of `sample_mixup`."""
+    [B] and the draws of `sample_mixup` as tensors on the images' device
+    (`unpack_draws`). Reads no draw on the host, so it can be captured."""
     B, H, W, _ = images.shape
-    d = {k: _to_device(v, images.device) for k, v in draws.items()}
     dev = images.device
     y = one_hot_smooth(labels, cfg.num_classes, cfg.label_smoothing)
     flipped = images.flip(0)
     if cfg.cutmix_minmax is not None:
-        box, lam_cut = _rand_bbox_minmax(H, W, d["cut_h"], d["cut_w"], d["yl"], d["xl"])
+        box, lam_cut = _rand_bbox_minmax(H, W, draws["cut_h"], draws["cut_w"], draws["yl"],
+                                         draws["xl"])
     else:
-        box, lam_cut = _rand_bbox(H, W, d["lam"], d["cy"], d["cx"])
-    lam, cut = d["lam"], d["use_cutmix"]
+        box, lam_cut = _rand_bbox(H, W, draws["lam"], draws["cy"], draws["cx"])
+    lam, cut = draws["lam"], draws["use_cutmix"]
     per_sample = lam.dim() == 1
     if per_sample:
         lam, cut, lam_cut = lam[:, None, None, None], cut[:, None, None, None], lam_cut
     cut_imgs = torch.where(_box_mask(H, W, box, dev), flipped, images)
     mix_lam = torch.where(cut, torch.ones_like(lam), lam)  # pixel mixing for mixup only
     mixed = torch.where(cut, cut_imgs, mix_lam * images + (1.0 - mix_lam) * flipped)
-    lam_final = torch.where(d["use_cutmix"], lam_cut, d["lam"])
+    lam_final = torch.where(draws["use_cutmix"], lam_cut, draws["lam"])
     if per_sample:
         lam_final = lam_final[:, None]
     return mixed, lam_final * y + (1.0 - lam_final) * y.flip(0)

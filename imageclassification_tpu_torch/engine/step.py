@@ -7,18 +7,33 @@ arrays at step // update_freq -> grad norm -> optimizer update (clip inside)
 -> EMA -> metrics, the train accuracy in 'exact' mode from a second no-grad
 forward on the un-mixed batch with the post-update weights.
 
-A non-finite loss skips the update: parameters, optimizer state and EMA stay
-as they were and grad_norm reads 0. JAX gates this branchlessly inside one
-compiled step; here the step reads the loss's finiteness on the host, one
-synchronisation per step. With update_freq > 1 a non-finite micro-gradient
-never enters the accumulator, and a window whose boundary step is non-finite
-is discarded.
+A non-finite loss skips the update, gated on the device as JAX gates it,
+with no branch and no host read: the loss's finiteness is a device bool
+that the optimizer (`Optimizer.step(keep=...)`: parameters, moments and the
+update count stay exactly as they were), the BatchNorm commit and the EMA
+(selects on the device) take, and grad_norm reads 0 and `skipped` 1. With
+update_freq > 1 a non-finite micro-gradient is zeroed before it enters the
+accumulator, and a window whose boundary step is non-finite is discarded.
+Whether a step ends a window is known on the host from the step counter, so
+it picks the micro-step or the boundary step, as JAX's `lax.cond` picks a
+branch.
+
+The step is split where a CUDA graph needs it (`engine/compiled.py`):
+`host_inputs` draws the mixup scalars on the host and packs them with the
+schedule index t = step // update_freq into one float64 vector, and
+`device_step` does the rest on the device from tensors alone: the pixel
+draws and the dropout masks come from the step's CUDA generators, the lr,
+wd and EMA warmup decay are read from device tables at t, and the metrics
+are one packed vector. `train_step` chains the two eagerly and returns the
+metrics as a `StepMetrics`, copied to the host without waiting for the
+device.
 
 BatchNorm (models with `layers.BatchNorm`): the forward's batch statistics
-advance the running statistics on every finite micro-step, at that step's
-finiteness read (`commit_batch_stats`), and the EMA of the statistics moves
-toward the new statistics at each real update; the exact-mode accuracy
-forward normalises with its own batch statistics and throws them away.
+advance the running statistics on every finite micro-step
+(`commit_batch_stats`, gated by the same device bool), and the EMA of the
+statistics moves toward the new statistics at each real update; the
+exact-mode accuracy forward normalises with its own batch statistics and
+throws them away.
 
 Distillation, prune masks and AdaHessian are not ported yet (ROADMAP A16,
 A17) and raise.
@@ -27,17 +42,77 @@ A17) and raise.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional
+from collections.abc import Mapping
+from typing import Callable, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..data.augment import AugmentPipeline, eval_preprocess
-from ..data.mixup import MixupConfig, mixup_cutmix, one_hot_smooth, sample_mixup
+from ..data.mixup import (MixupConfig, mixup_cutmix, one_hot_smooth, pack_draws,
+                          sample_mixup, unpack_draws)
 from ..models.layers import clear_batch_stats, commit_batch_stats
 from ..optim.ema import ema_update, warmup_decay
 from .state import TrainState
+
+# the packed metric vectors: scalars first, then the per-class counts
+TRAIN_SCALARS = ("loss", "class_acc", "grad_norm", "lr", "min_lr", "weight_decay", "skipped")
+EVAL_SCALARS = ("loss_sum", "n", "top1_sum", "top5_sum")
+COUNTS = ("tp", "fp", "fn")
+
+
+class StepMetrics(Mapping):
+    """A step's metrics from its packed fp32 vector `flat` (`scalars`, then
+    the `COUNTS` of `num_classes` each). On a card the vector is copied into
+    pinned host memory behind the step's work, and the first read waits for
+    that copy alone, not for work queued after it; a graph's output buffer
+    may be overwritten by the next replay as soon as the copy is queued.
+    Values read as CPU tensors: 0-d for the scalars, [num_classes] for the
+    counts."""
+
+    def __init__(self, flat: torch.Tensor, scalars: Sequence[str], num_classes: int):
+        self._keys, self._num_classes = tuple(scalars), num_classes
+        if flat.is_cuda:
+            self._host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+            self._host.copy_(flat, non_blocking=True)
+            self._ready = torch.cuda.Event()
+            self._ready.record()
+        else:
+            self._host, self._ready = flat.detach().clone(), None
+        self._values = None
+
+    def _read(self) -> Dict:
+        if self._values is None:
+            if self._ready is not None:
+                self._ready.synchronize()
+            a, n, c = self._host, len(self._keys), self._num_classes
+            self._values = {k: a[i] for i, k in enumerate(self._keys)}
+            self._values.update({k: a[n + i * c:n + (i + 1) * c] for i, k in enumerate(COUNTS)})
+        return self._values
+
+    def __getitem__(self, key):
+        return self._read()[key]
+
+    def __iter__(self):
+        return iter(self._read())
+
+    def __len__(self) -> int:
+        return len(self._keys) + len(COUNTS)
+
+
+def _pack(scalars: Sequence[torch.Tensor], tp, fp, fn) -> torch.Tensor:
+    return torch.cat([torch.stack([s.float() for s in scalars]), tp, fp, fn])
+
+
+def to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor on `device` without waiting for the device: through
+    pinned memory onto a card (a copy from pageable memory would first drain
+    the stream)."""
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def _per_class_counts(preds, labels, num_classes, weights):
@@ -63,13 +138,16 @@ def build_train_step(model: nn.Module, args, num_classes: int,
                      mixup_cfg: Optional[MixupConfig], lr_schedule, wd_schedule,
                      ema_decay: float = 0.9995, seed: int = 0, teacher=None,
                      prune_masks=None) -> Callable:
-    """Returns train_step(state, batch, draws=None) -> metrics.
+    """Returns train_step(state, batch, draws=None) -> StepMetrics.
 
     `batch` holds "image" (uint8 NHWC) and "label" (int64) on the model's
     device. `draws` holds the step's random draws ({"augment": ...,
     "mixup": ...}, see `train_step.sample_draws`); without them the step
     draws its own from generators seeded by `seed`. The step runs on
-    `state.model` and `state.optimizer`; `model` fixes the device."""
+    `state.model` and `state.optimizer`; `model` fixes the device. Its parts
+    are attributes for `engine/compiled.py`: `host_inputs`, `device_step`,
+    `is_boundary`, `generators` (the CUDA generators the device step draws
+    from) and `num_classes`."""
     if teacher is not None or prune_masks is not None:
         raise NotImplementedError(
             "distillation and prune masks are not ported to imageclassification_tpu_torch "
@@ -82,8 +160,10 @@ def build_train_step(model: nn.Module, args, num_classes: int,
     ema_warmup = bool(getattr(args, "model_ema_warmup", False))
     norm_type = float(getattr(args, "grad_norm_type", 2.0))
     exact_acc = getattr(args, "train_acc_mode", "exact") != "mixed"
-    lr_schedule = [float(x) for x in lr_schedule]
-    wd_schedule = [float(x) for x in wd_schedule]
+    # fp32 tables on the device, read at the schedule index (as JAX reads
+    # its fp32 schedule arrays inside the step)
+    lr_table = torch.tensor(np.asarray(lr_schedule, np.float32), device=device)
+    wd_table = torch.tensor(np.asarray(wd_schedule, np.float32), device=device)
     # pixel draws on the device; the few mixup scalars on the host; dropout
     # and stochastic depth (ConvNeXt's drop_path) on the device
     aug_gen = torch.Generator(device=device).manual_seed(seed)
@@ -94,17 +174,31 @@ def build_train_step(model: nn.Module, args, num_classes: int,
         return {"augment": augment.sample(B, H, W, aug_gen),
                 "mixup": sample_mixup(mixup_cfg, B, H, W, mix_gen) if mixup_cfg else None}
 
-    def loss_and_grads(model: nn.Module, batch, draws):
+    def is_boundary(step: int) -> bool:
+        """Whether micro-step `step` ends an accumulation window."""
+        return (step + 1) % update_freq == 0
+
+    def host_inputs(step: int, B: int, H: int, W: int, mixup_draws=None) -> torch.Tensor:
+        """The step's host-side inputs as one float64 CPU vector: the schedule
+        index t = step // update_freq, then the mixup draws (`pack_draws`),
+        drawn here unless given."""
+        parts = [np.asarray([step // update_freq], np.float64)]
+        if mixup_cfg is not None:
+            if mixup_draws is None:
+                mixup_draws = sample_mixup(mixup_cfg, B, H, W, mix_gen)
+            parts.append(pack_draws(mixup_cfg, mixup_draws))
+        return torch.from_numpy(np.concatenate(parts))
+
+    def forward_backward(model: nn.Module, image, label, aug, mix):
         """(loss, logits, augmented un-mixed images, gradients of the
         parameters in order) of one forward and backward."""
-        images = augment(batch["image"], draws["augment"])
-        labels = batch["label"]
+        images = augment(image, aug)
         if mixup_cfg is not None:
-            mixed, targets = mixup_cutmix(images, labels, draws["mixup"], mixup_cfg)
+            mixed, targets = mixup_cutmix(images, label, mix, mixup_cfg)
         elif smoothing > 0:
-            mixed, targets = images, one_hot_smooth(labels, num_classes, smoothing)
+            mixed, targets = images, one_hot_smooth(label, num_classes, smoothing)
         else:
-            mixed, targets = images, labels
+            mixed, targets = images, label
         logits = model(mixed, generator=drop_gen).float()
         if targets.dim() == 2:  # soft targets: SoftTargetCrossEntropy
             loss = -(targets * F.log_softmax(logits, dim=-1)).sum(-1).mean()
@@ -113,109 +207,116 @@ def build_train_step(model: nn.Module, args, num_classes: int,
         grads = torch.autograd.grad(loss, list(model.parameters()))
         return loss.detach(), logits.detach(), images, grads
 
-    def train_step(state: TrainState, batch, draws: Optional[Dict] = None):
+    def loss_and_grads(model: nn.Module, batch, draws):
+        """`forward_backward` on `batch` with the draws of `sample_draws`."""
+        image = batch["image"]
+        mix = None
+        if mixup_cfg is not None:
+            flat = to_device(torch.from_numpy(pack_draws(mixup_cfg, draws["mixup"])), device)
+            mix = unpack_draws(mixup_cfg, flat, image.shape[0])
+        return forward_backward(model, image, batch["label"], draws["augment"], mix)
+
+    def device_step(state: TrainState, image: torch.Tensor, label: torch.Tensor,
+                    inputs: torch.Tensor, boundary: bool, aug: Optional[Dict] = None):
+        """One step on the device from `host_inputs`' vector on the device;
+        `aug` the pixel draws, drawn from the step's generator when None.
+        Updates the state's tensors in place (not `state.step`) and returns
+        the packed metrics (`TRAIN_SCALARS`, then the counts). Reads nothing
+        back to the host, so a CUDA graph can capture it."""
         model, opt = state.model, state.optimizer
         model.train()
-        step = state.step
-        if draws is None:
-            draws = sample_draws(*batch["image"].shape[:3])
-        loss, logits, images, grads = loss_and_grads(model, batch, draws)
-        labels = batch["label"]
-        finite = bool(torch.isfinite(loss))  # the step's one host synchronisation
-        if finite:
-            commit_batch_stats(model)
-        else:
-            clear_batch_stats(model)
+        B, H, W = image.shape[:3]
+        t = inputs[0].to(torch.int64)
+        mix = unpack_draws(mixup_cfg, inputs[1:], B) if mixup_cfg is not None else None
+        if aug is None:
+            aug = augment.sample(B, H, W, aug_gen)
+        loss, logits, images, grads = forward_backward(model, image, label, aug, mix)
+        finite = torch.isfinite(loss)
+        commit_batch_stats(model, finite)
 
-        if update_freq > 1:
-            if finite:
-                torch._foreach_add_(state.grad_accum, torch._foreach_mul(grads, 1.0 / update_freq))
-            accum = state.grad_accum
-            boundary = (step + 1) % update_freq == 0
-        else:
-            accum, boundary = list(grads), True
+        with torch.no_grad():
+            if update_freq > 1:
+                # a non-finite micro-gradient never enters the accumulator
+                torch._foreach_add_(state.grad_accum, [
+                    torch.where(finite, g * (1.0 / update_freq), torch.zeros_like(g))
+                    for g in grads])
+                accum = state.grad_accum
+            else:
+                accum = list(grads)
+            it = t.clamp(max=lr_table.numel() - 1)
+            lr, wd = torch.take(lr_table, it), torch.take(wd_table, it)
+            opt.set_hyperparams(lr, wd)
+            grad_norm = torch.where(finite, global_norm(accum, norm_type), 0.0)
+            if boundary:
+                opt.step(accum, keep=finite)
+                if use_ema:
+                    d = warmup_decay(ema_decay, t) if ema_warmup else ema_decay
+                    ema_update(state.ema, model, d, finite)
+                    if state.ema_stats is not None:
+                        ema_update(state.ema_stats, model, d, finite)
+                if update_freq > 1:
+                    # every window ends at its boundary, applied or discarded
+                    torch._foreach_zero_(state.grad_accum)
 
-        it = min(step // update_freq, len(lr_schedule) - 1)
-        lr, wd = lr_schedule[it], wd_schedule[it]
-        opt.set_hyperparams(lr, wd)
-        grad_norm = (global_norm(accum, norm_type) if finite
-                     else torch.zeros((), device=device))
-
-        if boundary and finite:
-            for p, g in zip(opt.params, accum):
-                p.grad = g
-            opt.step()
-            for p in opt.params:
-                p.grad = None
-            if use_ema:
-                d = warmup_decay(ema_decay, step // update_freq) if ema_warmup else ema_decay
-                ema_update(state.ema, model, d)
-                if state.ema_stats is not None:
-                    ema_update(state.ema_stats, model, d)
-        if update_freq > 1 and boundary:
-            # every window ends at its boundary, applied or discarded
-            torch._foreach_zero_(state.grad_accum)
-
-        if mixup_cfg is not None and exact_acc:
-            with torch.no_grad():
+            if mixup_cfg is not None and exact_acc:
                 acc_logits = model(images, generator=drop_gen).float()
-            clear_batch_stats(model)
-        else:
-            acc_logits = logits
-        preds = acc_logits.argmax(-1)
-        tp, fp, fn = _per_class_counts(preds, labels, num_classes,
-                                       torch.ones_like(preds, dtype=torch.float32))
-        state.step = step + 1
-        return {
-            "loss": loss,
-            "class_acc": (preds == labels).float().mean(),
-            "grad_norm": grad_norm,
-            "lr": lr,
-            "min_lr": lr,
-            "weight_decay": wd,
-            "tp": tp,
-            "fp": fp,
-            "fn": fn,
-            "skipped": 0.0 if finite else 1.0,
-        }
+                clear_batch_stats(model)
+            else:
+                acc_logits = logits
+            preds = acc_logits.argmax(-1)
+            tp, fp, fn = _per_class_counts(preds, label, num_classes,
+                                           torch.ones_like(preds, dtype=torch.float32))
+            class_acc = (preds == label).float().mean()
+            return _pack((loss, class_acc, grad_norm, lr, lr, wd, ~finite), tp, fp, fn)
+
+    def train_step(state: TrainState, batch, draws: Optional[Dict] = None) -> StepMetrics:
+        image = batch["image"]
+        inputs = host_inputs(state.step, *image.shape[:3],
+                             mixup_draws=draws["mixup"] if draws else None)
+        flat = device_step(state, image, batch["label"], to_device(inputs, device),
+                           is_boundary(state.step), draws["augment"] if draws else None)
+        state.step += 1
+        return StepMetrics(flat, TRAIN_SCALARS, num_classes)
 
     train_step.sample_draws = sample_draws
     train_step.loss_and_grads = loss_and_grads
+    train_step.host_inputs = host_inputs
+    train_step.device_step = device_step
+    train_step.is_boundary = is_boundary
+    train_step.generators = (aug_gen, drop_gen)
+    train_step.num_classes = num_classes
     return train_step
 
 
 def build_eval_step(model: nn.Module, num_classes: int) -> Callable:
-    """Returns eval_step(batch) -> metric sums, where batch holds "image"
-    (uint8 NHWC) and "label" (int64, -1 for the padded tail) on the model's
-    device. Plain cross-entropy; the padded tail is masked out of every
-    statistic. Puts the model in eval mode."""
+    """Returns eval_step(batch) -> StepMetrics of metric sums, where batch
+    holds "image" (uint8 NHWC) and "label" (int64, -1 for the padded tail)
+    on the model's device. Plain cross-entropy; the padded tail is masked
+    out of every statistic. Puts the model in eval mode. Its device part,
+    `eval_step.device_step(image, label)` -> the packed sums
+    (`EVAL_SCALARS`, then the counts), is what `engine/compiled.py`
+    captures."""
 
     @torch.inference_mode()
-    def eval_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def device_step(image: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
         model.eval()
-        images = eval_preprocess(batch["image"])
-        labels = batch["label"]
-        logits = model(images).float()
-
-        valid = labels >= 0
-        safe_labels = labels.clamp(min=0)
+        logits = model(eval_preprocess(image)).float()
+        valid = label >= 0
+        safe_labels = label.clamp(min=0)
         losses = F.cross_entropy(logits, safe_labels, reduction="none")
         w = valid.float()
-
         preds = logits.argmax(-1)
         top1 = ((preds == safe_labels) & valid).float()
         k = min(5, logits.shape[-1])
         topk = logits.topk(k, dim=-1).indices
         top5 = ((topk == safe_labels[:, None]).any(-1) & valid).float()
         tp, fp, fn = _per_class_counts(preds, safe_labels, num_classes, w)
-        return {
-            "loss_sum": (losses * w).sum(),
-            "n": w.sum(),
-            "top1_sum": top1.sum(),
-            "top5_sum": top5.sum(),
-            "tp": tp,
-            "fp": fp,
-            "fn": fn,
-        }
+        return _pack(((losses * w).sum(), w.sum(), top1.sum(), top5.sum()), tp, fp, fn)
 
+    def eval_step(batch: Dict[str, torch.Tensor]) -> StepMetrics:
+        return StepMetrics(device_step(batch["image"], batch["label"]), EVAL_SCALARS,
+                           num_classes)
+
+    eval_step.device_step = device_step
+    eval_step.num_classes = num_classes
     return eval_step

@@ -9,7 +9,8 @@ Convolutions take NHWC activations, as the JAX models do, and run on a
 channels-first view of them (`conv2d_nhwc`). BatchNorm (`BatchNorm`) keeps
 flax's semantics: fp32 batch statistics with the biased variance, a running
 average with momentum 0.9, and no buffer update inside the forward (the
-train step commits the statistics, `commit_batch_stats`).
+train step commits the statistics, `commit_batch_stats`, gated on the
+device by the loss's finiteness).
 
 Randomness (dropout, stochastic depth, init) takes an explicit
 `torch.Generator`; a training-mode forward that needs random draws and has
@@ -114,18 +115,23 @@ def batch_norm_stats(model: nn.Module) -> Dict[str, torch.Tensor]:
 
 
 @torch.no_grad()
-def commit_batch_stats(model: nn.Module) -> None:
+def commit_batch_stats(model: nn.Module, finite: Optional[torch.Tensor] = None) -> None:
     """running <- momentum * running + (1 - momentum) * batch for every
     BatchNorm of `model` that holds the statistics of a train-mode forward
-    (flax's update), then drop them."""
+    (flax's update), then drop them. With a 0-d bool `finite` the new
+    statistics are taken only where it holds, on the device (the train
+    step's gate on a non-finite loss, as JAX's select): no host read."""
     bns = [m for m in _batch_norms(model) if m.batch_stats is not None]
     if not bns:
         return
     running = [t for m in bns for t in (m.running_mean, m.running_var)]
     batch = [t for m in bns for t in m.batch_stats]
     momentum = bns[0].momentum  # 0.9 in every BatchNorm of the registry's models
-    torch._foreach_mul_(running, momentum)
-    torch._foreach_add_(running, torch._foreach_mul(batch, 1.0 - momentum))
+    new = torch._foreach_mul(running, momentum)
+    torch._foreach_add_(new, torch._foreach_mul(batch, 1.0 - momentum))
+    if finite is not None:
+        new = [torch.where(finite, n, r) for n, r in zip(new, running)]
+    torch._foreach_copy_(running, new)
     clear_batch_stats(model)
 
 

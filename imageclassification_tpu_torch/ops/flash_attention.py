@@ -26,6 +26,15 @@ tensor maps of q, k, v, o and dO as they lie, products on wgmma. The
 forward writes the row log-sum-exp (fp32 [B, H, N]) only when autograd will
 run the backward, which recomputes P from it.
 
+The host path is the other wrappers' (the LayerNorm wrapper's): a call that
+needs no gradient launches without an autograd node, the call's scalars go
+to C as one cached `ctypes.Structure` (`_Launch`, its size checked against
+both libraries at load), and the C entry points make the tensors' device
+current themselves. The kernels launch on torch's current stream and
+allocate nothing, so a CUDA graph captures them (the captured ViT steps,
+`engine/compiled.py`): their tensor maps are encoded on the host at capture,
+over the graph pool's fixed addresses, and travel in the captured launches.
+
 `flash_attention` takes the plain version only for tensors on the CPU (where
 autograd differentiates it as plain torch code). For a CUDA tensor it
 launches the kernels or raises; it never falls back.
@@ -132,27 +141,44 @@ def tensor_map_layout(t: torch.Tensor):
     return (D, H, N, B), (sh, sn, sb)
 
 
-def _fn(lib: str, name: str, n_ptrs: int, n_ints: int, n_strides: int):
-    fn = getattr(_build.load(lib), name)
-    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                   + [ctypes.c_longlong] * n_strides + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+class _Launch(ctypes.Structure):
+    """The C entry points' `FlashLaunch` (csrc/flash_attention_common.cuh),
+    field by field: what a call passes besides its tensors and stream.
+    `_kernels` checks its size against both libraries'."""
+    _fields_ = [("B", ctypes.c_int), ("N", ctypes.c_int), ("H", ctypes.c_int),
+                ("device", ctypes.c_int), ("qkv_stride", ctypes.c_longlong * 3),
+                ("o_stride", ctypes.c_longlong * 3), ("do_stride", ctypes.c_longlong * 3),
+                ("sm_scale", ctypes.c_float)]
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_args(B: int, N: int, H: int, D: int, device: int, qkv_strides: tuple,
+                 o_strides: tuple = (0, 0, 0), do_strides: tuple = (0, 0, 0)) -> _Launch:
+    """The `_Launch` of a call on `device`, cached: a shape and layout seen
+    before cost one lookup. The call passes it itself (ctypes hands C a
+    pointer to it), which keeps it alive through the call."""
+    three = ctypes.c_longlong * 3
+    return _Launch(B, N, H, device, three(*qkv_strides), three(*o_strides), three(*do_strides),
+                   D ** -0.5)
 
 
 @functools.cache
-def _kernel():
-    return _fn(KERNEL, "flash_attention_fwd_bf16", 5, 3, 3)
-
-
-@functools.cache
-def _kernel_dq():
-    return _fn(KERNEL_BWD, "flash_attention_bwd_dq_bf16", 8, 3, 9)
-
-
-@functools.cache
-def _kernel_dkv():
-    return _fn(KERNEL_BWD, "flash_attention_bwd_dkv_bf16", 8, 3, 6)
+def _kernels():
+    """(forward, dQ, dK/dV) C entry points, their argument types set."""
+    fwd_lib, bwd_lib = _build.load(KERNEL), _build.load(KERNEL_BWD)
+    for lib, name in ((fwd_lib, KERNEL), (bwd_lib, KERNEL_BWD)):
+        size = getattr(lib, f"{name}_launch_bytes")
+        size.restype = ctypes.c_size_t
+        if size() != ctypes.sizeof(_Launch):
+            raise RuntimeError(f"ops/flash_attention.py `_Launch` does not match "
+                               f"csrc/flash_attention_common.cuh `FlashLaunch` ({name})")
+    p, launch = ctypes.c_void_p, ctypes.POINTER(_Launch)
+    fwd = fwd_lib.flash_attention_fwd_bf16
+    dq, dkv = bwd_lib.flash_attention_bwd_dq_bf16, bwd_lib.flash_attention_bwd_dkv_bf16
+    fwd.argtypes = [p] * 5 + [launch, p]
+    dq.argtypes = dkv.argtypes = [p] * 8 + [launch, p]
+    fwd.restype = dq.restype = dkv.restype = ctypes.c_int
+    return fwd, dq, dkv
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool = False):
@@ -161,12 +187,10 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool = 
     B, N, H, D = q.shape
     out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device) if with_lse else None
-    with torch.cuda.device(q.device):
-        err = _kernel()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if with_lse else None,
-            B, N, H, *strides, D ** -0.5, _build.stream(q),
-        )
+    err = _kernels()[0](
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if with_lse else None,
+        _launch_args(B, N, H, D, q.get_device(), strides), _build.stream(q))
     _build.raise_on(err, KERNEL)
     flash_attention.launches += 1
     if with_lse:
@@ -215,13 +239,10 @@ def _launch_dq(q, k, v, o, do, lse, strides):
     B, N, H, D = q.shape
     dq = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
     di = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
-    qkv_strides, o_strides, do_strides = strides
-    with torch.cuda.device(q.device):
-        err = _kernel_dq()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), di.data_ptr(), dq.data_ptr(), B, N, H, *qkv_strides, *o_strides,
-            *do_strides, D ** -0.5, _build.stream(q),
-        )
+    err = _kernels()[1](
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+        _launch_args(B, N, H, D, q.get_device(), *strides), _build.stream(q))
     _build.raise_on(err, "flash_attention_bwd_dq")
     flash_attention.launches_dq += 1
     return dq, di
@@ -233,13 +254,10 @@ def _launch_dkv(q, k, v, do, lse, di, strides):
     B, N, H, D = q.shape
     dk = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    qkv_strides, _, do_strides = strides
-    with torch.cuda.device(q.device):
-        err = _kernel_dkv()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            di.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, N, H, *qkv_strides, *do_strides,
-            D ** -0.5, _build.stream(q),
-        )
+    err = _kernels()[2](
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        _launch_args(B, N, H, D, q.get_device(), *strides), _build.stream(q))
     _build.raise_on(err, "flash_attention_bwd_dkv")
     flash_attention.launches_dkv += 1
     return dk, dv
@@ -272,14 +290,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     """softmax(q k^T * D^-0.5) v over [B, N, H, D] tensors, differentiable.
 
     CPU tensors take `flash_attention_ref`; CUDA tensors launch the kernels
-    (bf16, D = 64). Counts, as plain integers on this function: `launches`
+    (bf16, D = 64); only a call that needs a gradient builds an autograd
+    node. Counts, as plain integers on this function: `launches`
     (forward kernel), `launches_lse` (of those, the ones that wrote lse for a
     backward), `launches_dkv` and `launches_dq` (one each per backward)."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v)
     if q.device.type != "cuda":
         raise NotImplementedError(f"flash_attention runs on cpu or cuda, not {q.device.type}")
-    return _FlashAttention.apply(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v)
+    return _launch(q, k, v)[0]
 
 
 def reset_launches() -> None:

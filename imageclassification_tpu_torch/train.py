@@ -10,9 +10,13 @@
 The JAX train.py's flags, artifacts and epoch flow: `class_indices.json`
 and `checkpoint-{N,best,best-ema}.pth` under --output_dir (JAX layout, so
 either package resumes them and either val.py reads them), JSON lines in
-log.txt beside it, TensorBoard scalars under --log_dir, auto-resume,
---eval, --pretrained_path with a repo checkpoint, and a checkpoint on
-SIGTERM/SIGUSR1 before a clean exit. One process on one device; the ViT,
+log.txt beside it, TensorBoard scalars under --log_dir (and W&B with
+--enable_wandb), auto-resume, --eval, --pretrained_path with a repo
+checkpoint, a torch.profiler trace with --profile_dir, and a checkpoint on
+SIGTERM/SIGUSR1 before a clean exit. On a card the train and eval steps run
+as CUDA graphs (`engine/compiled.py`, the counterpart of the JAX step's
+`jax.jit`); on the CPU, and with --check_nans (eager, with NaN checks, as
+JAX's jax_debug_nans), they run eagerly. One process on one device; the ViT,
 ConvNeXt, ConvNeXt-V2 and ResNet (ResNeXt, wide ResNet) families are built
 (other names raise NotImplementedError), and the flags of features not
 ported yet raise (config.check_ported).
@@ -37,6 +41,7 @@ from .data.loader import BatchLoader
 from .data.mixup import build_mixup
 from .data.sampler import epoch_batch_indices, eval_batches, ra_epoch_batch_indices
 from .device import resolve_device
+from .engine.compiled import CapturedTrainStep, captured_eval_step, nan_checked
 from .engine.loop import evaluate, train_one_epoch
 from .engine.state import create_train_state, num_params
 from .engine.step import build_eval_step, build_train_step
@@ -44,7 +49,7 @@ from .models import create_model, model_kwargs_for
 from .optim.ema import init_ema, init_ema_stats
 from .optim.factory import create_optimizer
 from .optim.schedules import build_schedules
-from .utils.loggers import TensorboardLogger
+from .utils.loggers import TensorboardLogger, WandbLogger
 
 
 class _EmaWeights:
@@ -106,6 +111,7 @@ def main(args: TrainConfig):
     dataset_train, dataset_val, num_classes = build_dataset(args)
     os.makedirs(args.log_dir, exist_ok=True)
     log_writer = TensorboardLogger(log_dir=args.log_dir)
+    wandb_logger = WandbLogger(args) if args.enable_wandb else None
 
     total_batch_size = args.batch_size * args.update_freq
     num_training_steps_per_epoch = len(dataset_train) // total_batch_size
@@ -164,6 +170,11 @@ def main(args: TrainConfig):
                                   wd_schedule_values, ema_decay=args.model_ema_decay,
                                   seed=seed)
     eval_step = build_eval_step(model, num_classes)
+    if args.check_nans:
+        train_step = nan_checked(train_step, model)
+    elif device.type == "cuda":
+        train_step = CapturedTrainStep(train_step, device)
+        eval_step = captured_eval_step(eval_step, device)
     eval_bs = int(1.5 * args.batch_size)
 
     def make_val_loader():
@@ -194,20 +205,38 @@ def main(args: TrainConfig):
             pass  # not the main thread
     try:
         return _train(args, state, train_step, eval_step, make_val_loader, log_writer,
-                      dataset_train, dataset_val, num_classes, num_training_steps_per_epoch,
-                      input_shape, model_spec, preempted)
+                      wandb_logger, dataset_train, dataset_val, num_classes,
+                      num_training_steps_per_epoch, input_shape, model_spec, preempted)
     finally:
         for sig, handler in previous.items():
             signal.signal(sig, handler)
 
 
-def _train(args, state, train_step, eval_step, make_val_loader, log_writer, dataset_train,
-           dataset_val, num_classes, num_training_steps_per_epoch, input_shape, model_spec,
-           preempted):
+def _start_profiler(profile_dir: str, device: torch.device):
+    """A torch.profiler trace of the host and (on a card) the device, written
+    as a TensorBoard trace file into `profile_dir` when it stops."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if device.type == "cuda" else [])
+    prof = profile(activities=activities, on_trace_ready=tensorboard_trace_handler(profile_dir))
+    prof.start()
+    return prof
+
+
+def _train(args, state, train_step, eval_step, make_val_loader, log_writer, wandb_logger,
+           dataset_train, dataset_val, num_classes, num_training_steps_per_epoch, input_shape,
+           model_spec, preempted):
     """The epoch loop of `main`."""
     model, device, seed = state.model, next(state.model.parameters()).device, args.seed
     max_accuracy = 0.0
     max_accuracy_ema = 0.0
+    profiler = None
+    if args.profile_dir:
+        try:
+            profiler = _start_profiler(args.profile_dir, device)
+        except RuntimeError as e:  # a build or host that cannot trace
+            print(f"profiler unavailable: {e}")
     print("Start training for %d epochs" % args.epochs)
     start_time = time.time()
     for epoch in range(args.start_epoch, args.epochs):
@@ -218,9 +247,12 @@ def _train(args, state, train_step, eval_step, make_val_loader, log_writer, data
                                    device=device, seed=seed + epoch,
                                    num_workers=args.num_workers)
         log_writer.set_step(epoch * num_training_steps_per_epoch * args.update_freq)
+        if wandb_logger:
+            wandb_logger.set_steps()
         state, train_stats = train_one_epoch(
             train_step, state, train_loader, num_classes, num_training_steps_per_epoch,
-            update_freq=args.update_freq, log_writer=log_writer,
+            update_freq=args.update_freq, log_writer=log_writer, wandb_logger=wandb_logger,
+            start_steps=epoch * num_training_steps_per_epoch,
         )
 
         saved_this_epoch = False
@@ -264,6 +296,8 @@ def _train(args, state, train_step, eval_step, make_val_loader, log_writer, data
         log_writer.flush()
         with open(Path(args.output_dir).parent / "log.txt", mode="a", encoding="utf-8") as f:
             f.write(json.dumps(log_stats) + "\n")
+        if wandb_logger:
+            wandb_logger.log_epoch_metrics(log_stats)
 
         if preempted["flag"]:
             if args.save_ckpt and not saved_this_epoch:
@@ -272,6 +306,11 @@ def _train(args, state, train_step, eval_step, make_val_loader, log_writer, data
                   f"(auto_resume continues at epoch {epoch + 1})")
             break
 
+    if profiler is not None:
+        profiler.stop()
+        print(f"profiler trace written to {args.profile_dir}")
+    if wandb_logger and args.wandb_ckpt and args.save_ckpt:
+        wandb_logger.log_checkpoints()
     total_time = time.time() - start_time
     print("Training time {}".format(str(datetime.timedelta(seconds=int(total_time)))))
     return state

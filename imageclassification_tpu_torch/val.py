@@ -13,7 +13,8 @@
   `Empty/` (class 0) or `NonEmpty/` (any other class) directory.
 
 The eval transform is the squash resize (bilinear) on the host, then the
-ImageNet normalisation on the device. A ViT, ConvNeXt or ResNet checkpoint
+ImageNet normalisation on the device; on a card the forward is replayed from
+a CUDA graph (`engine/compiled.py`). A ViT, ConvNeXt or ResNet checkpoint
 written by the JAX `train.py` loads and runs unchanged; a ViT trained with
 --flash_attn runs the flash-attention kernel.
 """
@@ -33,6 +34,7 @@ from .data.augment import eval_preprocess
 from .data.folder import IMG_EXTENSIONS, scan_folder
 from .data.loader import decode_image
 from .device import DEVICES, resolve_device
+from .engine.compiled import captured_predict
 from .models import create_model
 from .utils.metrics import per_class_precision_recall
 
@@ -83,14 +85,17 @@ def initialize_model(model_weight_path: str, model_ema: bool, half_precision=Tru
 
 
 def _predict_fn(model):
-    """images_u8 [B, H, W, 3] on the model's device -> fp32 class probabilities."""
+    """images_u8 [B, H, W, 3] on the model's device -> fp32 class
+    probabilities; on a card replayed from a CUDA graph for each batch shape
+    (`_batched` pads every chunk to one shape), as JAX jits it."""
 
     @torch.inference_mode()
     def predict(images_u8):
         logits = model(eval_preprocess(images_u8)).float()
         return torch.softmax(logits, dim=-1)
 
-    return predict
+    device = next(model.parameters()).device
+    return captured_predict(predict, device) if device.type == "cuda" else predict
 
 
 def _batched(paths, img_size, batch, device):

@@ -10,6 +10,9 @@ uses it, so the `cuda` tests of this file also run where JAX is absent:
     python -m pytest --noconftest tests/test_torch_flash_attention.py -m cuda
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -274,6 +277,43 @@ def test_backward_input_checks():
         fa._bwd_inputs(q, k, v, q, lse, do[:, :-1])
     with pytest.raises(NotImplementedError):
         fa._bwd_inputs(q.float(), k.float(), v.float(), q, lse, do)
+
+
+def test_launch_structure_has_the_c_structs_fields_in_order():
+    # ctypes lays a Structure out by its _fields_ order: it must be the C
+    # struct's, arrays of the same lengths (the size check against both
+    # libraries runs on the card)
+    src = (Path(fa.__file__).parent.parent / "csrc" / "flash_attention_common.cuh").read_text()
+    body = re.search(r"struct FlashLaunch \{(.*?)\n\};", src, re.S).group(1)
+    fields = re.findall(r"^\s*(?:long long|int|float)\s+(\w+)(?:\[(\d+)\])?;", body, re.M)
+    assert [f for f, _ in fa._Launch._fields_] == [name for name, _ in fields]
+    for (_, ctype), (_, n) in zip(fa._Launch._fields_, fields):
+        assert getattr(ctype, "_length_", None) == (int(n) if n else None)
+
+
+def test_launch_arguments_are_cached_by_shape_and_layout():
+    fa._launch_args.cache_clear()
+    a = fa._launch_args(2, 197, 12, 64, 0, (128, 4608, 907776))
+    assert fa._launch_args(2, 197, 12, 64, 0, (128, 4608, 907776)) is a
+    assert (a.B, a.N, a.H, a.device, list(a.qkv_stride), list(a.o_stride)) == \
+        (2, 197, 12, 0, [128, 4608, 907776], [0, 0, 0])
+    assert a.sm_scale == pytest.approx(0.125)
+    assert fa._launch_args(2, 197, 12, 64, 1, (128, 4608, 907776)) is not a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("needs_grad", [False, True])
+def test_autograd_node_only_when_an_input_requires_a_gradient_on_card(cuda_device, launches,
+                                                                       needs_grad):
+    q, k, v = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+               for a in _qkv((2, 65, 12, 64), seed=4))
+    out = fa.flash_attention(q.requires_grad_(needs_grad), k, v)
+    assert (out.grad_fn is not None) == needs_grad
+    with torch.no_grad():
+        assert fa.flash_attention(q, k, v).grad_fn is None
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == 2
+    assert fa.flash_attention.launches_lse == int(needs_grad)
 
 
 @pytest.mark.cuda

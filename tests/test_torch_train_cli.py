@@ -77,8 +77,7 @@ def test_flags_and_defaults_match_jax():
     (["--teacher_path", "t.pth", "--distillation_alpha", "0.5"], "A17"),
     (["--prune_mask", "true"], "A17"), (["--remat", "true"], "A17"),
     (["--layer_decay", "0.75"], "A16"), (["--aa", "rand-m9-mstd0.5-inc1"], "A10"),
-    (["--enable_wandb", "true"], "A6"), (["--profile_dir", "p"], "A6"),
-    (["--check_nans", "true"], "A6"), (["--opt", "lamb"], "A16"),
+    (["--opt", "lamb"], "A16"),
 ])
 def test_unported_flags_raise(argv, item):
     args = config.parse_args(argv)
@@ -90,7 +89,8 @@ def test_unported_flags_raise(argv, item):
 
 def test_ported_flags_pass():
     for argv in ([], ["--opt", "sgd", "--mesh_shape", "data:1", "--teacher_path", "t.pth"],
-                 ["--opt", "momentum", "--clip_grad", "1.0", "--layer_decay", "1.0"]):
+                 ["--opt", "momentum", "--clip_grad", "1.0", "--layer_decay", "1.0"],
+                 ["--enable_wandb", "true", "--profile_dir", "p", "--check_nans", "true"]):
         config.check_ported(config.parse_args(argv))
 
 
@@ -353,6 +353,23 @@ def test_chip_smoke_training_rehearsal_on_cpu(tmp_path):
     assert run["totals"] == {"fwd": 0, "fwd_lse": 0, "bwd_dkv": 0, "bwd_dq": 0}
     chk = chip_smoke.train_step_checks(run, model, "cpu", timed=False)
     assert chk["grad_flash_vs_fp32"] <= chip_smoke.GRAD_RTOL
+
+
+def test_replay_launches_reads_each_call_and_retraces_a_dropped_launch(monkeypatch):
+    # chip_smoke.py reads a captured step's flash launches from traces: the
+    # kinds in device order, once a call; a trace that dropped a launch is
+    # taken again, and no trace holding the pattern fails the phase
+    from collections import Counter
+
+    pattern = chip_smoke.flash_step_pattern(2)
+    assert pattern == ["fwd", "fwd", "dq", "dkv", "dq", "dkv", "fwd", "fwd"]
+    traces = iter([(pattern * 3)[1:], pattern * 3])
+    monkeypatch.setattr(chip_smoke, "flash_kernel_sequence", lambda fn, calls: next(traces))
+    assert chip_smoke.replay_launches(None, pattern) == [Counter(fwd=4, dq=2, dkv=2)] * 3
+    swapped = pattern[:2] + ["dkv", "dq"] + pattern[4:]
+    monkeypatch.setattr(chip_smoke, "flash_kernel_sequence", lambda fn, calls: swapped * calls)
+    with pytest.raises(AssertionError, match="no trace"):
+        chip_smoke.replay_launches(None, pattern)
 
 
 def test_backward_bound_numbers():
@@ -825,3 +842,115 @@ def test_conv1x1_bound_numbers():
     ms, _ = chip_smoke.conv1x1_bound(200704, 64, 256, True)
     assert ms == pytest.approx(((200704 * 64 + 64 * 256 + 200704 * 256) * 2 + 2 * 256 * 4
                                 + 2 * 64 * 4) / 3.35e12 * 1e3, rel=1e-12)
+
+
+def _tiny_train_args(toy_dataset, tmp_path, *extra):
+    return config.parse_args([
+        "--device", "cpu", "--data_path", toy_dataset, "--model", "vit_tiny_patch16",
+        "--input_size", "32", "--batch_size", "8", "--epochs", "1", "--warmup_epochs", "1",
+        "--num_workers", "2", "--output_dir", str(tmp_path / "out"),
+        "--log_dir", str(tmp_path / "log"), *extra])
+
+
+def test_check_nans_raises_naming_the_first_module_with_a_nan(toy_dataset, tmp_path):
+    # a NaN in the first block's MLP weights: the JAX step under
+    # jax_debug_nans raises FloatingPointError, and so does train.main with
+    # --check_nans, naming the module whose output first holds the NaN
+    from imageclassification_tpu.config import TrainConfig as JaxConfig
+    from imageclassification_tpu.data.mixup import build_mixup as jax_build_mixup
+    from imageclassification_tpu.engine.step import build_train_step as jax_build_train_step
+
+    state = _port_state(seed=2)
+    with torch.no_grad():
+        state.model.blocks[0].mlp.fc1.weight[0, 0] = float("nan")
+    ck = port_io.save_model(config.TrainConfig(output_dir=str(tmp_path / "ck"), device="cpu"),
+                            INPUT_SHAPE, 0, state, 3, SPEC)
+
+    jmodel = jax_create_model("vit_tiny_patch16", num_classes=3)
+    jargs = JaxConfig(model="vit_tiny_patch16", half_precision=False)
+    tx = jax_create_optimizer("adamw", 0.01, 0.05)
+    jstate = jax_create_state(jmodel, tx, jax.random.key(1), INPUT_SHAPE)
+    with open(ck, "rb") as f:
+        jstate = jstate.replace(params=_nest(pickle.load(f)["model"]))
+    jstep = jax.jit(jax_build_train_step(jmodel, tx, jargs, 3, jax_build_mixup(jargs, 3),
+                                         np.full(4, 0.01), np.full(4, 0.05)))
+    batch = {"image": jnp.zeros((4, 32, 32, 3), jnp.uint8), "label": jnp.zeros(4, jnp.int32)}
+    jax.config.update("jax_debug_nans", True)
+    try:
+        with pytest.raises(FloatingPointError):
+            jax.block_until_ready(jstep(jstate, batch, jax.random.key(0)))
+    finally:
+        jax.config.update("jax_debug_nans", False)
+
+    args = _tiny_train_args(toy_dataset, tmp_path, "--check_nans", "true", "--pretrained",
+                            "true", "--pretrained_path", ck)
+    with pytest.raises(FloatingPointError, match=r"blocks\.0\.mlp \(Mlp\)"):
+        train.main(args)
+
+
+def test_profile_dir_writes_a_trace(toy_dataset, tmp_path, capsys):
+    prof = tmp_path / "prof"
+    state = train.main(_tiny_train_args(toy_dataset, tmp_path, "--profile_dir", str(prof)))
+    assert state.step > 0
+    assert f"profiler trace written to {prof}" in capsys.readouterr().out
+    traces = list(prof.glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert any("aten::" in str(e.get("name", "")) for e in events)  # the steps' ops
+
+
+def test_enable_wandb_logs_the_jax_keys(toy_dataset, tmp_path, monkeypatch):
+    # a fake wandb module (the package is not installed): the port logs the
+    # keys the JAX loop logs batch by batch, numbered by the global step, the
+    # epoch metrics under Global Train/Test, and the checkpoint artifact
+    import types
+
+    from imageclassification_tpu.engine import loop as jax_loop
+
+    def fake_wandb():
+        m = types.ModuleType("wandb")
+        m.run, m.logged, m.defined, m.artifacts = None, [], [], []
+
+        class Artifact:
+            def __init__(self, name, type):
+                self.name, self.type, self.dirs = name, type, []
+
+            def add_dir(self, d):
+                self.dirs.append(d)
+
+        def init(project=None, config=None):
+            m.run = types.SimpleNamespace(id="run0", summary={})
+
+        m.init, m.Artifact = init, Artifact
+        m.log = lambda payload, commit=True: m.logged.append(dict(payload))
+        m.define_metric = lambda name, step_metric=None: m.defined.append((name, step_metric))
+        m.log_artifact = lambda art, aliases=None: m.artifacts.append((art, aliases))
+        return m
+
+    jax_wandb = fake_wandb()
+    monkeypatch.setitem(sys.modules, "wandb", jax_wandb)
+    from imageclassification_tpu.utils.loggers import WandbLogger as JaxWandbLogger
+
+    metrics = {"loss": 1.0, "class_acc": 0.5, "lr": 1e-3, "min_lr": 1e-3, "weight_decay": 0.05,
+               "grad_norm": 2.0, "tp": np.zeros(3), "fp": np.zeros(3), "fn": np.zeros(3),
+               "skipped": 0.0}
+    jax_loop._drain((metrics, 0), jax_loop.MetricLogger(), np.zeros(3), np.zeros(3),
+                    np.zeros(3), None, JaxWandbLogger(jax_config.TrainConfig()))
+    want_keys = set(jax_wandb.logged[-1])
+
+    port_wandb = fake_wandb()
+    monkeypatch.setitem(sys.modules, "wandb", port_wandb)
+    args = _tiny_train_args(toy_dataset, tmp_path, "--enable_wandb", "true", "--wandb_ckpt",
+                            "true", "--epochs", "2")
+    state = train.main(args)
+    batch_wise = [p for p in port_wandb.logged if "Rank-0 Batch Wise/train_loss" in p]
+    assert batch_wise and all(set(p) == want_keys for p in batch_wise)
+    assert [p["Rank-0 Batch Wise/global_train_step"] for p in batch_wise] == \
+        list(range(state.step))
+    assert all(np.isfinite(p["Rank-0 Batch Wise/train_loss"]) for p in batch_wise)
+    keys = {k for p in port_wandb.logged for k in p}
+    assert {"Global Train/train_loss", "Global Test/test_acc1", "epoch"} <= keys
+    assert ("Rank-0 Batch Wise/*", "Rank-0 Batch Wise/global_train_step") in port_wandb.defined
+    (art, aliases), = port_wandb.artifacts
+    assert art.name == "run0_model" and art.dirs == [args.output_dir]
+    assert aliases == ["latest", "best"]

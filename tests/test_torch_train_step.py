@@ -21,6 +21,7 @@ import jax.numpy as jnp
 
 import chip_smoke
 import jax_draws
+from imageclassification_tpu.checkpoint.io import _flatten
 from imageclassification_tpu.config import TrainConfig as JaxConfig
 from imageclassification_tpu.data.mixup import build_mixup as jax_build_mixup
 from imageclassification_tpu.engine.state import create_train_state as jax_create_state
@@ -32,7 +33,7 @@ from imageclassification_tpu.models.resnet import ResNet as JaxResNet
 from imageclassification_tpu.models.vit import ViT as JaxViT
 from imageclassification_tpu.optim.factory import create_optimizer as jax_create_optimizer
 from imageclassification_tpu_torch.checkpoint.from_jax import vit_state_dict_from_jax
-from imageclassification_tpu_torch.checkpoint.to_jax import carry_for
+from imageclassification_tpu_torch.checkpoint.to_jax import carry_for, optimizer_to_jax
 from imageclassification_tpu_torch.config import TrainConfig
 from imageclassification_tpu_torch.data.mixup import build_mixup
 from imageclassification_tpu_torch.engine.state import create_train_state
@@ -141,16 +142,14 @@ def _flat_of(tree):
             jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_train_step_matches_jax(interpret_mode, case):
-    kw, steps = CASES[case]
+def _both(kw, family, n_steps):
+    """(JAX state and jitted step, port state and step, the flat parameters
+    and statistics they start from) of `family` under the config overrides
+    `kw`, with schedules of `n_steps` entries."""
     jargs, pargs = _configs(**kw)
-    jmodel, flat, stats, pmodel = _family(case.split("_")[0] if case.startswith(("convnext",
-                                                                                 "resnet"))
-                                          else "vit")
-    images, labels = _batch()
-    lr_sched = np.linspace(jargs.lr, jargs.lr / 2, steps)
-    wd_sched = np.linspace(jargs.weight_decay, jargs.weight_decay / 2, steps)
+    jmodel, flat, stats, pmodel = _family(family)
+    lr_sched = np.linspace(jargs.lr, jargs.lr / 2, n_steps)
+    wd_sched = np.linspace(jargs.weight_decay, jargs.weight_decay / 2, n_steps)
 
     tx = jax_create_optimizer(jargs.opt, jargs.lr, jargs.weight_decay, opt_eps=jargs.opt_eps,
                               clip_grad=jargs.clip_grad)
@@ -170,6 +169,19 @@ def test_train_step_matches_jax(interpret_mode, case):
     pstate = create_train_state(pmodel, popt, use_ema=True, update_freq=pargs.update_freq)
     pstep = build_train_step(pmodel, pargs, 5, build_mixup(pargs, 5), lr_sched, wd_sched,
                              ema_decay=pargs.model_ema_decay)
+    return jargs, jmix, jstate, jstep, pstate, pstep, flat, stats
+
+
+def _family_of(case):
+    return case.split("_")[0] if case.startswith(("convnext", "resnet")) else "vit"
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_train_step_matches_jax(interpret_mode, case):
+    kw, steps = CASES[case]
+    jargs, jmix, jstate, jstep, pstate, pstep, flat, stats = _both(kw, _family_of(case), steps)
+    pmodel = pstate.model
+    images, labels = _batch()
 
     rng = jax.random.key(42)
     jbatch = {"image": jnp.asarray(images), "label": jnp.asarray(labels, jnp.int32)}
@@ -217,6 +229,96 @@ def test_train_step_matches_jax(interpret_mode, case):
                                        err_msg=f"ema {k}")
 
 
+NON_FINITE = {
+    # name: (family, update_freq); each runs finite steps (an update, and
+    # with update_freq 2 a finite micro-step after it), then a step whose
+    # loss is non-finite (with update_freq 2 the window's boundary)
+    "vit_update_freq_1": ("vit", 1),
+    "vit_update_freq_2": ("vit", 2),
+    "resnet_update_freq_1": ("resnet", 1),
+    "resnet_update_freq_2": ("resnet", 2),
+}
+
+
+def _port_flat(pstate):
+    """The port state in the JAX layout: parameters, optimizer (as a
+    checkpoint carries it), EMA and, for BatchNorm, the statistics and their
+    EMA; keys prefixed by the part."""
+    model = pstate.model
+    carry = carry_for(model)
+    parts = {"params": carry.to_jax(dict(model.named_parameters())),
+             "opt": optimizer_to_jax(pstate.optimizer, model, carry),
+             "ema": carry.to_jax(pstate.ema)}
+    if pstate.ema_stats is not None:
+        parts["stats"] = carry.to_jax(dict(model.named_buffers()))
+        parts["ema_stats"] = carry.to_jax(pstate.ema_stats)
+    return {f"{p}/{k}": np.asarray(v) for p, d in parts.items() for k, v in d.items()}
+
+
+def _jax_flat_state(jstate):
+    parts = {"params": jstate.params, "opt": jstate.opt_state, "ema": jstate.ema_params}
+    if jstate.batch_stats:
+        parts.update(stats=jstate.batch_stats, ema_stats=jstate.ema_batch_stats)
+    return {f"{p}/{k}": np.asarray(v) for p, t in parts.items() for k, v in _flatten(t).items()}
+
+
+@pytest.mark.parametrize("case", list(NON_FINITE))
+def test_non_finite_step_matches_jax(interpret_mode, case):
+    # the device gate against JAX's selects: a non-finite loss leaves the
+    # parameters, both moments, the update count, the EMA, the BatchNorm
+    # statistics and their EMA exactly as they were, as the JAX step leaves
+    # its state; the state carried in the JAX layout (what a checkpoint
+    # holds, the optimizer's count included) is the JAX state's
+    family, update_freq = NON_FINITE[case]
+    kw = dict(RESNET if family == "resnet" else {}, opt="adamw", opt_eps=1.0, lr=0.01,
+              update_freq=update_freq)
+    n_finite = 2 * update_freq - 1
+    jargs, jmix, jstate, jstep, pstate, pstep, flat, stats = _both(kw, family, n_finite + 1)
+    images, labels = _batch()
+    rng = jax.random.key(42)
+    jbatch = {"image": jnp.asarray(images), "label": jnp.asarray(labels, jnp.int32)}
+    pbatch = {"image": torch.from_numpy(images), "label": torch.from_numpy(labels)}
+    for s in range(n_finite + 1):
+        if s == n_finite:  # logits inf - inf: a NaN loss
+            head = pstate.model.fc if family == "resnet" else pstate.model.head
+            with torch.no_grad():
+                head.bias[0] = float("inf")
+            p = jstate.params
+            jstate = jstate.replace(params={**p, "head": {
+                **p["head"], "bias": p["head"]["bias"].at[0].set(jnp.inf)}})
+            before = _port_flat(pstate)
+        jstate, jm = jstep(jstate, jbatch, rng)
+        pm = pstep(pstate, pbatch, jax_draws.step_draws(rng, s, B, 32, 32, jargs, jmix))
+        assert float(pm["skipped"]) == float(jm["skipped"]) == float(s == n_finite)
+    assert float(pm["grad_norm"]) == float(jm["grad_norm"]) == 0.0
+    after, want = _port_flat(pstate), _jax_flat_state(jstate)
+    assert set(after) == set(before)
+    for k in before:
+        if "hyperparams" not in k:  # lr and wd follow the schedule, as in JAX
+            np.testing.assert_array_equal(after[k], before[k], err_msg=k)
+    if update_freq > 1:  # the window is discarded
+        assert all(not a.any() for a in pstate.grad_accum)
+        assert all(not np.asarray(a).any() for a in jax.tree.leaves(jstate.grad_accum))
+    want = {k: v for k, v in want.items() if "hyperparams" not in k}
+    assert set(want) == {k for k in after if "hyperparams" not in k}
+    assert after["opt/count"] == want["opt/count"] == 1
+    # the finite steps' tolerances: 1e-4 of the largest update (parameters,
+    # EMA) and of the largest first or second moment, 1e-5 for the statistics
+    scale = max(np.abs(np.nan_to_num(want[f"params/{k}"]) - flat[k]).max() for k in flat)
+    moment = {m: max(np.abs(v).max() for k, v in want.items() if f"/{m}/" in k)
+              for m in ("mu", "nu")}
+    for k, v in want.items():
+        part = k.split("/")[0]
+        if part in ("stats", "ema_stats"):
+            tol = 1e-5
+        elif part == "opt":
+            tol = 1e-4 * moment[k.split("/")[3]] if "/mu/" in k or "/nu/" in k else 0.0
+        else:
+            tol = 1e-4 * scale
+        np.testing.assert_allclose(after[k], v, atol=tol, rtol=1e-5 if tol == 1e-5 else 0,
+                                   err_msg=k)
+
+
 def _port_state(update_freq=1, **kw):
     _, pargs = _configs(opt="adamw", update_freq=update_freq, **kw)
     model = port_vit.ViT(**SMALL, img_size=32, flash_attn=True)
@@ -234,6 +336,10 @@ def _snapshot(state):
             {k: v.clone() for k, v in state.ema.items()})
 
 
+def _moments(opt):
+    return {f"{k}.{i}": t.clone() for k, ts in opt.moments.items() for i, t in enumerate(ts)}
+
+
 def _assert_same(a, b):
     for k in a:
         torch.testing.assert_close(a[k], b[k], rtol=0, atol=0, equal_nan=True)
@@ -244,12 +350,16 @@ def test_non_finite_loss_skips_the_update():
     with torch.no_grad():
         state.model.head.bias[0] = float("inf")  # logits inf - inf: a NaN loss
     params, ema_before = _snapshot(state)
+    moments = _moments(state.optimizer)
     m = step(state, batch)
     assert not np.isfinite(float(m["loss"]))
     assert m["skipped"] == 1.0 and float(m["grad_norm"]) == 0.0
     _assert_same(params, _snapshot(state)[0])
     _assert_same(ema_before, state.ema)
-    assert state.optimizer.num_updates == 0 and not state.optimizer.inner.state
+    # the optimizer's state exists from the start (the captured step needs
+    # it at fixed addresses): its moments and count are as before the step
+    _assert_same(moments, _moments(state.optimizer))
+    assert state.optimizer.num_updates == 0
     assert state.step == 1
 
 
