@@ -89,10 +89,34 @@ exit before the last line:
    7c. the port bench (`imageclassification_tpu_torch.bench`) at batch 128:
    its JSON line (the captured step), and ms per step and a trace of its
    step, captured and eager;
-8. one JSON line with every kernel's numbers (at ConvNeXt-T's stage-0 shape
-   for the LayerNorm and depthwise-conv kernels and ResNet-50's stage-1
-   conv3 shape for the fused 1x1 conv; the other shapes are in the lines of
-   phases 3c, 3d and 3e), then the result line
+8. the fine-tuning path: a seeded port vit_base_patch16_224 of 1000
+   classes saved with torch.save (timm names, zip) stands in for a hub file,
+   and `train.main --model vit_base_patch16_224 --flash_attn true
+   --input_size 384 --pretrained_path <file>` trains from it with the
+   default flags, batch 64, 2 epochs of 10 steps on the folder of phase 5:
+   the load prints the pos_embed resample 14x14 -> 24x24 and `Skipping
+   mismatched key:` for the head alone, every other parameter equals the
+   file's and pos_embed a plain fp32 antialiased bicubic resample of the
+   file's; losses finite; three replays of the run's captured step launch
+   the flash kernels at N = 577 as in phase 5 (24 forwards, 12 dQ, 12
+   dK/dV); checkpoint-1.pth holds input_shape 384 and val_precision serves
+   it at 384 (predict captured: 12 forward launches a replayed batch);
+   ms per batch, ms per step and img/s, captured and eager, with traces;
+   then the flash kernels against their plain versions and SDPA at the
+   path's shape, 64 x 577 x 12 x 64, as in 3a and 3b;
+9. the CLI's default model: `train.main` with no --model (EfficientViT-M0,
+   its head's dropout from --drop_path) at 224x224, batch 64, the default
+   flags, 2 epochs of 10 steps on the folder of phase 5; losses finite, no
+   kernel launched (the model runs F.conv2d, its BatchNorm and plain
+   attention, as the JAX model runs lax.conv, nn.BatchNorm and einsums),
+   checkpoint-1.pth in the JAX layout with batch_stats, reloaded exactly and
+   served by val_precision; ms per step, img/s and a trace, captured and
+   eager;
+10. one JSON line with every kernel's numbers (at ConvNeXt-T's stage-0
+   shape for the LayerNorm and depthwise-conv kernels and ResNet-50's
+   stage-1 conv3 shape for the fused 1x1 conv; the other shapes are in the
+   lines of phases 3c, 3d and 3e; the flash kernels' numbers on the
+   fine-tuning path under "at_577"), then the result line
    {"ok": true, "device": {...}}.
 
 It exits non-zero without the result line when no CUDA device is visible.
@@ -184,6 +208,17 @@ VIT_B16 = dict(name="vit_base_patch16", dim=768, depth=12, heads=12, patch=16)
 CONVNEXT_T = dict(name="convnext_tiny", depths=(3, 3, 9, 3), dims=(96, 192, 384, 768))
 # torchvision resnet50: Bottleneck blocks 3/4/6/3, width 64
 RESNET50 = dict(name="resnet50", stage_sizes=(3, 4, 6, 3), block="Bottleneck", width=64)
+# MSRA efficientvit_m0, the CLI's default model
+EFFICIENTVIT_M0 = dict(name="efficientvit_m0", embed_dims=(64, 128, 192), depths=(1, 2, 3),
+                       num_heads=(4, 4, 4))
+# fine-tuning: timm vit_base_patch16_224 saved at 224x224 and trained at
+# 384x384, batch 64: 24 x 24 patches and the cls token, N = 577 in every
+# flash launch
+FINETUNE = dict(name="vit_base_patch16_224", src_img=224, img=384, batch=64)
+# pos_embed after the load against a plain fp32 antialiased bicubic resample
+# of the file's on the card (the load resamples on the CPU): the same
+# function in another order, on values of magnitude ~0.04; fp32 rounding
+POS_EMBED_ATOL = 1e-6
 
 # ResNet-50 at batch 64, 224x224: (M, K, N, prologue) of the fused 1x1 conv +
 # BN statistics kernel at each stage, conv3 (its input relu(bn2(conv2 out)):
@@ -517,7 +552,9 @@ def check_backward(shape, device):
 def trace(fn, steps: int = 10):
     """Trace `steps` calls of fn() with torch.profiler, after one untraced
     call. Returns (wall ms per call from CUDA events, device ms per call
-    summed over kernels, {kernel name: (ms per call, launches per call)})."""
+    summed over kernels, {kernel name: (ms per call, launches per call)},
+    busy ms per call: the union of the kernels' intervals, which is less than
+    their sum where kernels overlap, as some of a CUDA graph's do)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -530,16 +567,27 @@ def trace(fn, steps: int = 10):
             fn()
         end.record()
         torch.cuda.synchronize()
-    kernels = {}
+    kernels, spans = {}, []
     for e in prof.events():
         # device-side ranges of user annotations (Optimizer.step#AdamW.step)
         # span kernels that are counted on their own
         if e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False):
             us, n = kernels.get(e.name, (0.0, 0))
             kernels[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+            spans.append((e.time_range.start, e.time_range.end))
     per_call = {name: (us / 1e3 / steps, n / steps) for name, (us, n) in kernels.items()}
     return (start.elapsed_time(end) / steps, sum(ms for ms, _ in per_call.values()),
-            per_call)
+            per_call, busy_us(spans) / 1e3 / steps)
+
+
+def busy_us(spans) -> float:
+    """The length of the union of (start, end) intervals."""
+    total, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total
 
 
 def run_main_path(work: str, device: str, model: dict, img: int, num_classes: int,
@@ -621,9 +669,10 @@ def run_main_path(work: str, device: str, model: dict, img: int, num_classes: in
 
 
 def log_trace(label: str, tr, per: str) -> None:
-    wall_ms, device_ms, kernels = tr
+    wall_ms, device_ms, kernels, busy_ms = tr
     log(f"trace, {label}: wall {wall_ms:.3f} ms/{per} (profiler on), device {device_ms:.3f} "
-        f"ms/{per}, idle share {1 - device_ms / wall_ms:.3f}; device time by kernel per {per}:")
+        f"ms/{per} (summed over kernels), busy {busy_ms:.3f} ms/{per} (their union), idle "
+        f"share {1 - busy_ms / wall_ms:.3f}; device time by kernel per {per}:")
     for k, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:14]:
         log(f"  {ms:8.4f} ms {ms / device_ms:6.1%} {n:5.1f} launches  {k[:100]}")
 
@@ -643,7 +692,7 @@ def _train_main(work: str, images: str, flags: list):
     from imageclassification_tpu_torch import train as port_train
 
     args = port_train.parse_args([
-        "--data_path", images, *flags, "--pretrained", "false",
+        "--data_path", images, "--pretrained", "false", *flags,
         "--output_dir", os.path.join(work, "train_cls", "output"),
         "--log_dir", os.path.join(work, "train_cls", "log_dir"), "--num_workers", "8",
     ])
@@ -732,7 +781,7 @@ def _train_images(work: str, num_classes: int, per_class: int, seed: int) -> str
 
 def run_training(work: str, device: str, model: dict, img: int, num_classes: int,
                  per_class: int, batch: int, epochs: int, seed: int = 0,
-                 images: str = None):
+                 images: str = None, pretrained_path: str = None):
     """The training path through the port's train.main on `device`, on a
     seeded image folder (`images`, written when not given), with the default
     training flags and --flash_attn. Every step's metrics are recorded, the
@@ -741,18 +790,21 @@ def run_training(work: str, device: str, model: dict, img: int, num_classes: int
     on a card the flash kernels of three more calls of the run's own step
     read from a trace: every call must launch the forward 12 times with lse,
     the backward's dQ and dK/dV kernels 12 times each and the forward 12
-    times without lse, in that order. Returns a dict: the trained state, the
-    args, the per-step records, the launch totals of the run, the launches a
-    replay made, the checkpoint checks and timings."""
+    times without lse, in that order. With `pretrained_path` the run starts
+    from that file (--pretrained_path). Returns a dict: the trained state,
+    the args, the per-step records, the launch totals of the run, the
+    launches a replay made, the checkpoint checks and timings."""
     from imageclassification_tpu_torch import val
     from imageclassification_tpu_torch.ops.flash_attention import reset_launches
 
     images = images or _train_images(work, num_classes, per_class, seed)
+    flags = ["--model", model["name"], "--flash_attn", "true", "--input_size", str(img),
+             "--batch_size", str(batch), "--epochs", str(epochs), "--warmup_epochs", "1",
+             "--device", device]
+    if pretrained_path:
+        flags += ["--pretrained", "true", "--pretrained_path", pretrained_path]
     reset_launches()
-    state, args, records, wall_s, step = _train_main(
-        work, images, ["--model", model["name"], "--flash_attn", "true", "--input_size",
-                       str(img), "--batch_size", str(batch), "--epochs", str(epochs),
-                       "--warmup_epochs", "1", "--device", device])
+    state, args, records, wall_s, step = _train_main(work, images, flags)
     totals = _launch_counts()
     out = args.output_dir
     if not (all(totals.values()) if device == "cuda" else not any(totals.values())):
@@ -785,7 +837,8 @@ def run_training(work: str, device: str, model: dict, img: int, num_classes: int
                                      flash_step_pattern(model["depth"]))
     return {"state": state, "args": args, "records": records, "totals": totals,
             "per_replay": per_replay, "wall_s": wall_s, "checkpoint": path, "images": images,
-            "steps_per_epoch": len(records) // epochs}
+            "steps_per_epoch": len(records) // epochs, "num_classes": num_classes,
+            "input_shape": ck["input_shape"]}
 
 
 def _rel_l2(grads, ref):
@@ -998,7 +1051,7 @@ def _device_ms(fn, launches: dict) -> float:
     a kernel missing from a trace is traced again, up to five traces (three
     in a row have dropped every launch of a kernel)."""
     for _ in range(5):
-        _, _, kernels = trace(fn)
+        kernels = trace(fn)[2]
         seen = {name: [(ms, n) for k, (ms, n) in kernels.items() if name in k]
                 for name in launches}
         if all(sum(n for _, n in got) for got in seen.values()):
@@ -1010,14 +1063,26 @@ def _device_ms(fn, launches: dict) -> float:
 def _library_device_ms(fn, traces: int = 3) -> float:
     """Device ms per call of a library call fn(), whose kernels are not known
     by name: every kernel of `traces` traces at its mean time per launch,
-    times the most launches per call one trace kept, as `_device_ms` reads a
-    kernel that a trace may have dropped launches of."""
-    seen = {}
-    for _ in range(traces):
-        for name, (ms, n) in trace(fn)[2].items():
+    times the most launches per call one trace kept, rounded up to a whole
+    launch (a call launches each of its kernels a whole number of times), as
+    `_device_ms` reads a kernel that a trace may have dropped launches of. A
+    trace that kept no kernel at all (seen at 64 x 577 x 12 x 64 after the
+    training phases) is taken again, up to five times `traces`."""
+    seen, kept = {}, 0
+    for _ in range(5 * traces):
+        kernels = trace(fn)[2]
+        if not kernels:
+            continue
+        for name, (ms, n) in kernels.items():
             total, launches, most = seen.get(name, (0.0, 0.0, 0.0))
             seen[name] = (total + ms, launches + n, max(most, n))
-    return sum(total / launches * most for total, launches, most in seen.values())
+        kept += 1
+        if kept == traces:
+            break
+    if not seen:
+        raise AssertionError(f"{5 * traces} traces held no kernel of the library call")
+    return sum(total / launches * math.ceil(most - 1e-9)
+               for total, launches, most in seen.values())
 
 
 def check_layernorm(rows: int, C: int, device, constant: bool = False, timed: bool = True):
@@ -1628,31 +1693,30 @@ def _reset_all_launches() -> None:
     conv1x1_bn.reset_launches()
 
 
-def run_resnet_training(work: str, device: str, model: dict, img: int, num_classes: int,
-                        per_class: int, batch: int, epochs: int, seed: int = 0,
-                        images: str = None):
-    """The ResNet training path through the port's train.main on `device`
-    with the default training flags (AdamW, mixup, exact-mode accuracy), on
-    a seeded image folder. The model runs F.conv2d and its BatchNorm, no
-    kernel of the port: every launch count must stay 0. Checks the
-    checkpoint's JAX layout (parameters, batch statistics, optimizer), its
-    exact reload (weights and statistics) by the port's val.initialize_model,
-    and val_precision on it."""
+def _bn_training(work: str, device: str, flags: list, shapes: tuple, what: str, img: int,
+                 num_classes: int, per_class: int, batch: int, epochs: int, seed: int = 0,
+                 images: str = None):
+    """The training path of a BatchNorm model through the port's train.main
+    on `device` with the default training flags (AdamW, mixup, exact-mode
+    accuracy) and `flags`, on a seeded image folder. The model runs F.conv2d
+    and its BatchNorm, no kernel of the port: every launch count must stay
+    0. Checks the checkpoint's JAX layout (parameters and batch statistics
+    as `shapes` gives them, optimizer), its exact reload (weights and
+    statistics) by the port's val.initialize_model, and val_precision on
+    it."""
     from imageclassification_tpu_torch import val
 
     images = images or _train_images(work, num_classes, per_class, seed)
     _reset_all_launches()
     state, args, records, wall_s, _ = _train_main(
-        work, images, ["--model", model["name"], "--input_size", str(img), "--batch_size",
-                       str(batch), "--epochs", str(epochs), "--warmup_epochs", "1",
-                       "--device", device])
+        work, images, flags + ["--input_size", str(img), "--batch_size", str(batch), "--epochs",
+                               str(epochs), "--warmup_epochs", "1", "--device", device])
     if any(_all_launch_counts().values()):
-        raise AssertionError(f"the ResNet training path launched a kernel: {_all_launch_counts()}")
+        raise AssertionError(f"the {what} training path launched a kernel: {_all_launch_counts()}")
     path = os.path.join(args.output_dir, f"checkpoint-{epochs - 1}.pth")
     with open(path, "rb") as f:
         ck = pickle.load(f)
-    want, want_stats = jax_resnet_shapes(model["stage_sizes"], model["block"], model["width"],
-                                         num_classes)
+    want, want_stats = shapes
     if {k: v.shape for k, v in ck["model"].items()} != want:
         raise AssertionError(f"{path}: parameters not in the JAX layout")
     if {k: v.shape for k, v in ck["batch_stats"].items()} != want_stats:
@@ -1668,7 +1732,8 @@ def run_resnet_training(work: str, device: str, model: dict, img: int, num_class
         raise AssertionError(f"{path}: reloaded weights or statistics differ from the run's by "
                              f"{carried}")
     moved = max((v - (1.0 if k.endswith("running_var") else 0.0)).abs().max().item()
-                for k, v in state.model.named_buffers())
+                for k, v in state.model.state_dict().items()
+                if k.endswith(("running_mean", "running_var")))
     if not moved > 0:
         raise AssertionError("the running statistics never moved from their initial values")
     n_images = num_classes * per_class
@@ -1679,6 +1744,193 @@ def run_resnet_training(work: str, device: str, model: dict, img: int, num_class
     return {"state": state, "args": args, "records": records, "wall_s": wall_s,
             "checkpoint": path, "images": images, "steps_per_epoch": len(records) // epochs,
             "val_top1": float(tp.sum() / n_images), "num_classes": num_classes}
+
+
+def run_resnet_training(work: str, device: str, model: dict, img: int, num_classes: int,
+                        per_class: int, batch: int, epochs: int, seed: int = 0,
+                        images: str = None):
+    """`_bn_training` of `--model {model name}`, a ResNet."""
+    shapes = jax_resnet_shapes(model["stage_sizes"], model["block"], model["width"], num_classes)
+    return _bn_training(work, device, ["--model", model["name"]], shapes, "ResNet", img,
+                        num_classes, per_class, batch, epochs, seed, images)
+
+
+def jax_efficientvit_shapes(model: dict, img: int, num_classes: int):
+    """The JAX EfficientViT's flat parameter and batch-statistics names and
+    shapes at `img` x `img` (`imageclassification_tpu/models/efficientvit.py`:
+    key_dim 16, kernels 5, windows 7), written out here: the layout a
+    checkpoint of the port must have. Returns (params, batch_stats)."""
+    params, stats = {}, {}
+
+    def cbn(name, cin, cout, k=1, groups=1):
+        params[f"{name}/Conv_0/kernel"] = (k, k, cin // groups, cout)
+        for leaf in ("scale", "bias"):
+            params[f"{name}/BatchNorm_0/{leaf}"] = (cout,)
+        for leaf in ("mean", "var"):
+            stats[f"{name}/BatchNorm_0/{leaf}"] = (cout,)
+
+    def ffn(name, d):
+        cbn(f"{name}/ConvBN_0", d, 2 * d)
+        cbn(f"{name}/ConvBN_1", 2 * d, d)
+
+    dims, key_dim = model["embed_dims"], 16
+    cin, res = 3, img
+    for i, f in enumerate((dims[0] // 8, dims[0] // 4, dims[0] // 2, dims[0])):
+        cbn(f"patch_embed{i}", cin, f, 3)
+        cin, res = f, (res - 1) // 2 + 1
+    for s, (dim, depth, heads) in enumerate(zip(dims, model["depths"], model["num_heads"])):
+        if s:
+            prev, merge = dims[s - 1], f"sub{s}_merge"
+            hid = 4 * prev
+            cbn(f"sub{s}_dw0", prev, prev, 3, prev)
+            ffn(f"sub{s}_ffn0", prev)
+            cbn(f"{merge}/ConvBN_0", prev, hid)
+            cbn(f"{merge}/ConvBN_1", hid, hid, 3, hid)
+            for j, (a, b) in enumerate(((hid, hid // 4), (hid // 4, hid))):
+                params[f"{merge}/SqueezeExcite_0/Conv_{j}/kernel"] = (1, 1, a, b)
+                params[f"{merge}/SqueezeExcite_0/Conv_{j}/bias"] = (b,)
+            cbn(f"{merge}/ConvBN_2", hid, dim)
+            cbn(f"sub{s}_dw1", dim, dim, 3, dim)
+            ffn(f"sub{s}_ffn1", dim)
+            res = (res - 1) // 2 + 1
+        window = min(7, res)
+        for b in range(depth):
+            blk = f"stage{s}_block{b}"
+            attn = f"{blk}/mixer/attn"
+            cbn(f"{blk}/dw0", dim, dim, 3, dim)
+            ffn(f"{blk}/ffn0", dim)
+            params[f"{attn}/attention_biases"] = (heads, window * window)  # |dx|, |dy| offsets
+            for i in range(heads):
+                cbn(f"{attn}/qkv{i}", dim // heads, 2 * key_dim + dim // heads)
+                cbn(f"{attn}/dw_q{i}", key_dim, key_dim, 5, key_dim)
+            cbn(f"{attn}/proj", dim, dim)
+            cbn(f"{blk}/dw1", dim, dim, 3, dim)
+            ffn(f"{blk}/ffn1", dim)
+    params.update({"head_bn/scale": (dims[-1],), "head_bn/bias": (dims[-1],),
+                   "head/kernel": (dims[-1], num_classes), "head/bias": (num_classes,)})
+    stats.update({"head_bn/mean": (dims[-1],), "head_bn/var": (dims[-1],)})
+    return params, stats
+
+
+def run_default_model_training(work: str, device: str, img: int, num_classes: int,
+                               per_class: int, batch: int, epochs: int, seed: int = 0,
+                               images: str = None):
+    """`_bn_training` with no --model: the CLI's default, EfficientViT-M0
+    (its head's dropout from the default --drop_path)."""
+    shapes = jax_efficientvit_shapes(EFFICIENTVIT_M0, img, num_classes)
+    run = _bn_training(work, device, [], shapes, "EfficientViT-M0", img, num_classes,
+                       per_class, batch, epochs, seed, images)
+    if run["args"].model != EFFICIENTVIT_M0["name"]:
+        raise AssertionError(f"the CLI's default model is {run['args'].model}")
+    return run
+
+
+class _Tee:
+    """A text stream that writes to `stream` and keeps a copy (`text()`)."""
+
+    def __init__(self, stream):
+        self.stream, self.parts = stream, []
+
+    def write(self, s: str) -> int:
+        self.parts.append(s)
+        return self.stream.write(s)
+
+    def __getattr__(self, name):
+        return getattr(self.stream, name)
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def run_finetune(work: str, device: str, model: dict, cfg: dict, num_classes: int,
+                 per_class: int, epochs: int, images: str = None):
+    """Fine-tuning from a torch/timm state_dict at another input size: a
+    seeded port `cfg["name"]` of 1000 classes at cfg["src_img"] saved with
+    torch.save (timm names, zip) stands in for a hub file, and `run_training`
+    starts from it at cfg["img"] with --flash_attn and the default flags.
+    The load must print the pos_embed resample and `Skipping mismatched
+    key:` for the head alone, leave every other parameter equal to the
+    file's and pos_embed within POS_EMBED_ATOL of a plain fp32 antialiased
+    bicubic resample of the file's; the checkpoint must hold input_shape
+    cfg["img"], and val_precision serves it at that size (on a card with
+    predict captured: the flash forward launched once a block in each
+    replayed batch, read from a trace)."""
+    import contextlib
+
+    import torch
+    import torch.nn.functional as F
+
+    from imageclassification_tpu_torch import train as port_train
+    from imageclassification_tpu_torch import val
+    from imageclassification_tpu_torch.models import create_model
+    from imageclassification_tpu_torch.ops.flash_attention import flash_attention, reset_launches
+
+    os.makedirs(work, exist_ok=True)
+    src_path = os.path.join(work, f"{cfg['name']}.pth")
+    src = create_model(cfg["name"], num_classes=1000, img_size=cfg["src_img"],
+                       generator=torch.Generator().manual_seed(10))
+    torch.save(src.state_dict(), src_path)
+    del src
+    file_sd = torch.load(src_path, map_location=device, weights_only=True)
+    loaded = {}
+    load = port_train._load_pretrained
+
+    def load_and_keep(args, state):
+        load(args, state)
+        loaded.update({k: v.detach().clone() for k, v in state.model.state_dict().items()})
+
+    tee = _Tee(sys.stdout)
+    port_train._load_pretrained = load_and_keep
+    try:
+        with contextlib.redirect_stdout(tee):
+            run = run_training(work, device, model, cfg["img"], num_classes, per_class,
+                               cfg["batch"], epochs, images=images, pretrained_path=src_path)
+    finally:
+        port_train._load_pretrained = load
+    printed = tee.text()
+    g_src, g = cfg["src_img"] // model["patch"], cfg["img"] // model["patch"]
+    resized = f"Resized pos_embed grid {g_src}x{g_src} -> {g}x{g}"
+    if resized not in printed:
+        raise AssertionError(f"the load did not print {resized!r}")
+    skipped = sorted(line.split(":", 1)[1].strip() for line in printed.splitlines()
+                     if line.startswith("Skipping mismatched key:"))
+    if skipped != ["head/bias", "head/kernel"]:
+        raise AssertionError(f"the load skipped {skipped}, expected the head alone")
+    changed = [k for k, v in file_sd.items()
+               if k not in ("head.weight", "head.bias", "pos_embed") and not torch.equal(loaded[k], v)]
+    if changed or set(loaded) != set(file_sd):
+        raise AssertionError(f"parameters after the load differ from the file's: {changed[:5]}")
+    pos = file_sd["pos_embed"].float()
+    grid = pos[:, 1:].reshape(1, g_src, g_src, -1).permute(0, 3, 1, 2)
+    grid = F.interpolate(grid, size=(g, g), mode="bicubic", align_corners=False, antialias=True)
+    want = torch.cat([pos[:, :1], grid.permute(0, 2, 3, 1).reshape(1, g * g, -1)], dim=1)
+    pos_err = (loaded["pos_embed"] - want).abs().max().item()
+    if not pos_err <= POS_EMBED_ATOL:
+        raise AssertionError(f"pos_embed after the load differs from the resample of the file's "
+                             f"by {pos_err} > {POS_EMBED_ATOL}")
+    if run["input_shape"] != [1, cfg["img"], cfg["img"], 3]:
+        raise AssertionError(f"{run['checkpoint']}: input_shape {run['input_shape']}")
+    del file_sd, loaded
+
+    n_images, batch = num_classes * per_class, cfg["batch"]
+    reset_launches()
+    tp, fp, fn = val.val_precision(run["images"], run["checkpoint"], cfg["img"], model_ema=True,
+                                   batch_size=batch, device=device)
+    res = {**run, "pos_err": pos_err, "skipped": skipped, "resized": resized,
+           "serve_launches": flash_attention.launches, "val_top1": float(tp.sum() / n_images)}
+    if not (tp.sum() + fp.sum() == n_images and tp.sum() + fn.sum() == n_images):
+        raise AssertionError(f"val_precision at {cfg['img']} does not cover {n_images} images")
+    if device == "cuda":
+        m, _ = val.initialize_model(run["checkpoint"], True, device=device)
+        predict = val._predict_fn(m)
+        paths = [os.path.join(run["images"], d, f) for d in sorted(os.listdir(run["images"]))
+                 for f in sorted(os.listdir(os.path.join(run["images"], d)))][:batch]
+        _, imgs = next(val._batched(paths, cfg["img"], batch, torch.device(device)))
+        res["serve_per_replay"] = replay_launches(lambda: predict(imgs), ["fwd"] * model["depth"])
+        res["serve_ms_captured"] = time_ms(lambda: predict(imgs), iters=10)
+        res["serve_ms_eager"] = time_ms(lambda: predict.eager(imgs), iters=10)
+        res["serve_trace"] = trace(lambda: predict(imgs))
+    return res
 
 
 def _capture_resnet_convs(model):
@@ -1993,31 +2245,90 @@ def main() -> int:
         k2_replay = replay_resnet_convs(rn["state"].model, rn["args"], _fixed_batch(rn, "cuda"),
                                         rn["num_classes"])
         del rn
-    n_blocks = sum(RESNET50["stage_sizes"])
-    want = {"k2": n_blocks + len(RESNET50["stage_sizes"]), "k2_bn_in": n_blocks}
-    if k2_replay["launches"] != want:
-        raise AssertionError(f"ResNet-50 replay launches {k2_replay['launches']}, expected {want}")
-    log(f"replay of one ResNet-50 train step: {k2_replay['n']} 1x1 convs (M, K, N, prologue "
-        f"{k2_replay['shapes']}) through the fused kernel, launches {k2_replay['launches']}; "
-        f"largest max|d| " + ", ".join(f"{k} {e:.3e}" for k, e in k2_replay["errs"].items())
-        + f" (tolerances: vs model 2^-6 of max|ref| (batch mean: of the largest column mean of "
-        f"|y|); vs plain 2^-7, column sums {SUM_RTOL})")
-    k2_gap = launch_gap(k2_rows, k2_replay["counts"], lambda r: (*r["shape"], r["bn_in"]),
-                        lambda r: r["device_ms"] - r["bound"][0])
-    log(f"launches x (device - bound) over one ResNet-50 train step: conv1x1_bn_stats "
-        f"{k2_gap[0]:.4f} ms over {k2_gap[1]} launches on the shapes of 3e ({k2_gap[2]} on "
-        f"others, left out)")
+        n_blocks = sum(RESNET50["stage_sizes"])
+        want = {"k2": n_blocks + len(RESNET50["stage_sizes"]), "k2_bn_in": n_blocks}
+        if k2_replay["launches"] != want:
+            raise AssertionError(f"ResNet-50 replay launches {k2_replay['launches']}, expected {want}")
+        log(f"replay of one ResNet-50 train step: {k2_replay['n']} 1x1 convs (M, K, N, prologue "
+            f"{k2_replay['shapes']}) through the fused kernel, launches {k2_replay['launches']}; "
+            f"largest max|d| " + ", ".join(f"{k} {e:.3e}" for k, e in k2_replay["errs"].items())
+            + f" (tolerances: vs model 2^-6 of max|ref| (batch mean: of the largest column mean of "
+            f"|y|); vs plain 2^-7, column sums {SUM_RTOL})")
+        k2_gap = launch_gap(k2_rows, k2_replay["counts"], lambda r: (*r["shape"], r["bn_in"]),
+                            lambda r: r["device_ms"] - r["bound"][0])
+        log(f"launches x (device - bound) over one ResNet-50 train step: conv1x1_bn_stats "
+            f"{k2_gap[0]:.4f} ms over {k2_gap[1]} launches on the shapes of 3e ({k2_gap[2]} on "
+            f"others, left out)")
 
-    # 7c. the port bench at batch 128 (its captured step), and the times and
-    # traces of its captured and eager steps
-    from imageclassification_tpu_torch import bench
+        # 7c. the port bench at batch 128 (its captured step), and the times and
+        # traces of its captured and eager steps
+        from imageclassification_tpu_torch import bench
 
-    bench_line = bench.run(batch=128)
-    log(f"port bench (python -m imageclassification_tpu_torch.bench): {json.dumps(bench_line)}")
-    step, state, data = bench.build(128, 224, torch.device("cuda"))
-    log_step_timing("port bench: ResNet-50 224x224 bf16", 128,
-                    time_captured_and_eager(state, step.step, data))
-    del step, state, data
+        bench_line = bench.run(batch=128)
+        log(f"port bench (python -m imageclassification_tpu_torch.bench): {json.dumps(bench_line)}")
+        step, state, data = bench.build(128, 224, torch.device("cuda"))
+        log_step_timing("port bench: ResNet-50 224x224 bf16", 128,
+                        time_captured_and_eager(state, step.step, data))
+        del step, state, data
+
+        # 8. fine-tuning ViT-B/16 --flash_attn at 384x384 from a 224x224
+        # state_dict, on the same folder; the launches counted from 0 over
+        # its run
+        ft = run_finetune(os.path.join(work, "finetune"), "cuda", VIT_B16, FINETUNE,
+                          cfg["num_classes"], cfg["per_class"], cfg["epochs"], images=images)
+        ft_b, ft_img = FINETUNE["batch"], FINETUNE["img"]
+        losses = [r["loss"] for r in ft["records"]]
+        log(f"fine-tuning path: {FINETUNE['name']} state_dict (1000 classes, {FINETUNE['src_img']}"
+            f"x{FINETUNE['src_img']}, torch zip) through --pretrained_path at {ft_img}x{ft_img}, "
+            f"--flash_attn, batch {ft_b}: the load printed {ft['resized']!r} and skipped "
+            f"{ft['skipped']}; every other parameter equals the file's; pos_embed max|d| vs a "
+            f"plain fp32 antialiased bicubic resample {ft['pos_err']:.3e} (tol {POS_EMBED_ATOL}); "
+            f"{len(losses)} steps ({cfg['epochs']} epochs x {ft['steps_per_epoch']}), "
+            f"{ft['wall_s']:.1f} s for train.main; losses {', '.join(f'{x:.4f}' for x in losses)}")
+        log(f"fine-tuning path launches per step of the run's captured step at N = "
+            f"{(ft_img // 16) ** 2 + 1} (trace, in device order): "
+            f"{[dict(c) for c in ft['per_replay']]}; counted by the wrappers over the run "
+            f"{ft['totals']}; {ft['checkpoint'].split('/')[-1]} in the JAX layout, input_shape "
+            f"{ft['input_shape']}, reloaded to the run's exact weights")
+        log(f"fine-tuned checkpoint served by val_precision at {ft_img}x{ft_img}: top-1 "
+            f"{ft['val_top1']:.3f}, flash_attention_fwd launches counted by the wrapper "
+            f"{ft['serve_launches']} (the first batch's eager run and its capture); per replayed "
+            f"batch (trace) {dict(ft['serve_per_replay'][0])} in each of "
+            f"{len(ft['serve_per_replay'])} traced batches")
+        for name in ("captured", "eager"):
+            ms = ft[f"serve_ms_{name}"]
+            log(f"serving ViT-B/16 {ft_img}x{ft_img} bf16 batch {ft_b}, {name} predict: {ms:.3f} "
+                f"ms/batch, {ft_b / (ms / 1e3):.1f} img/s (forward + softmax, CUDA events)")
+        log_trace(f"ViT-B/16 {ft_img}x{ft_img} batch {ft_b} bf16 forward, flash captured",
+                  ft["serve_trace"], "batch")
+        log_step_timing(f"ViT-B/16 {ft_img}x{ft_img} bf16 fine-tune, flash attention", ft_b,
+                        step_timing(ft, "cuda"))
+        ft_totals, ft_replay = ft["totals"], ft["per_replay"][0]
+        ft_serve_replay = ft["serve_per_replay"][0]
+        del ft
+
+        # 9. the CLI's default model: train.main with no --model
+        dm = run_default_model_training(os.path.join(work, "default"), "cuda", cfg["img"],
+                                        cfg["num_classes"], cfg["per_class"], cfg["batch"],
+                                        cfg["epochs"], images=images)
+        losses = [r["loss"] for r in dm["records"]]
+        log(f"default-model path: train.main with no --model ({dm['args'].model}, drop_rate "
+            f"{dm['args'].drop_path} from --drop_path) {cfg['img']}x{cfg['img']} batch "
+            f"{cfg['batch']}, {len(losses)} steps ({cfg['epochs']} epochs x "
+            f"{dm['steps_per_epoch']}), captured, {dm['wall_s']:.1f} s for train.main; losses "
+            f"{', '.join(f'{x:.4f}' for x in losses)}; no kernel launched (the model runs "
+            f"F.conv2d, its BatchNorm and plain attention, as the JAX model runs lax.conv, "
+            f"nn.BatchNorm and einsums); {dm['checkpoint'].split('/')[-1]} in the JAX layout "
+            f"with batch_stats, reloaded to the run's exact weights and statistics; "
+            f"val_precision top-1 {dm['val_top1']:.3f} on the training folder")
+        log_step_timing(f"EfficientViT-M0 {cfg['img']}x{cfg['img']} bf16 (default flags)",
+                        cfg["batch"], step_timing(dm, "cuda"))
+        del dm
+    # 8 (cont.). the flash kernels against their plain versions at the
+    # fine-tuning path's shape
+    ft_shape = (FINETUNE["batch"], (FINETUNE["img"] // VIT_B16["patch"]) ** 2 + 1,
+                VIT_B16["heads"], VIT_B16["dim"] // VIT_B16["heads"])
+    ft_fwd, ft_bwd = check_attention(ft_shape, "cuda"), check_backward(ft_shape, "cuda")
 
     # results
     replaces_bwd = ("jax/experimental/pallas/ops/tpu/flash_attention.py:{} (the backward of "
@@ -2046,6 +2357,24 @@ def main() -> int:
             "library_device_ms": bwd_main["library_device_ms"],
             "launches_per_replay": per_replay[part],
         })
+    # the flash kernels on the fine-tuning path (phase 8): launches counted
+    # from 0 over its run, per replayed step and per served batch, and the
+    # kernels at its shape against their plain versions and SDPA
+    ft_path = {"shape": list(ft_shape),
+               "path": "fine-tuning ViT-B/16 at 384x384 from a state_dict (chip_smoke.py phase 8)"}
+    kernels[0]["at_577"] = {
+        **ft_path, "launches": ft_totals["fwd"], "launches_lse": ft_totals["fwd_lse"],
+        "launches_per_replay": ft_replay["fwd"], "launches_per_served_batch": ft_serve_replay["fwd"],
+        **{k: ft_fwd[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms", "device_ms", "library_device_ms")}}
+    for entry, (part, errs) in zip(kernels[1:3], (("dkv", ("dk", "dv")), ("dq", ("dq",)))):
+        entry["at_577"] = {
+            **ft_path, "launches": ft_totals[f"bwd_{part}"], "launches_per_replay": ft_replay[part],
+            "max_abs_err": max(ft_bwd["errs"][e][0] for e in errs), "ms": ft_bwd[f"ms_{part}"],
+            "plain_ms": ft_bwd["plain_ms"], "bound_ms": ft_bwd["bounds"][part][0],
+            "bound_by": ft_bwd["bounds"][part][1], "library_ms": ft_bwd["library_ms"],
+            "device_ms": ft_bwd[f"device_ms_{part}"],
+            "library_device_ms": ft_bwd["library_device_ms"]}
     # the LayerNorm and depthwise-conv rows: the stage-0 shape (the largest),
     # launches counted over the replay of phase 6b
     ln0, dw0 = ln_rows[0], dw_rows[0]
@@ -2113,6 +2442,8 @@ def main() -> int:
         if k["launches"] <= 0:
             where = "in the replay" if "path" in k else "on the training path"
             raise AssertionError(f"{k['name']} was not launched {where}")
+        if "at_577" in k and k["at_577"]["launches"] <= 0:
+            raise AssertionError(f"{k['name']} was not launched on the fine-tuning path")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,8 @@
 
 The JAX package stores parameters as a flat {"a/b/c": ndarray} dict (flax
 tree paths joined by "/"). The functions here are the inverses of that
-package's `checkpoint/torch_convert.py::convert_vit`, `convert_convnext` and
-`convert_resnet`, written here on their own.
+package's `checkpoint/torch_convert.py::convert_vit`, `convert_convnext`,
+`convert_resnet` and `convert_efficientvit`, written here on their own.
 
 ViT:
 
@@ -43,6 +43,21 @@ batch statistics map with the parameters):
     {Block}_{k}/BatchNorm_{c}/*                         layer{s}.{b}.bn{c+1}.*
     {Block}_{k}/{Conv,BatchNorm}_{n} (downsample)       layer{s}.{b}.downsample.{0,1}.*
     head/{kernel,bias}                                  fc.{weight,bias}
+
+EfficientViT (`efficientvit_modules`; the inverse of
+`torch_convert.convert_efficientvit`; batch statistics with the parameters):
+
+    JAX flat key                                        port state_dict key
+    patch_embed{i}/{Conv_0,BatchNorm_0}/*               patch_embed.{2i}.{c,bn}.*
+    sub{s}_{dw0,ffn0,merge,dw1,ffn1}/...                blocks{s+1}.{0.0.m,0.1.m,1,2.0.m,2.1.m}...
+    stage{s}_block{b}/{dw0,ffn0,dw1,ffn1}/...           blocks{s+1}.{k}.{dw0,ffn0,dw1,ffn1}.m...
+    stage{s}_block{b}/mixer/attn/{qkv,dw_q}{i}/...      blocks{s+1}.{k}.mixer.m.attn.{qkvs,dws}.{i}...
+    stage{s}_block{b}/mixer/attn/attention_biases       blocks{s+1}.{k}.mixer.m.attn.attention_biases
+    head_bn/*, head/{kernel,bias}                       head.bn.*, head.l.{weight,bias}
+
+with k = b (+ 3 from stage 1 on), ConvBN_{0,1} the FFN's pw{1,2}, and
+merge's ConvBN_{0,1,2} and SqueezeExcite_0/Conv_{0,1} its conv{1,2,3} and
+se.conv_{reduce,expand}.
 """
 
 from __future__ import annotations
@@ -258,6 +273,53 @@ def resnet_modules(stage_sizes, block_name: str):
             modules += [(f"{jax_block}/Conv_{n_convs}", f"{port_block}.downsample.0", _CONV_KERNEL),
                         (f"{jax_block}/BatchNorm_{n_convs}", f"{port_block}.downsample.1", _BN)]
             k += 1
+    return modules
+
+
+def efficientvit_modules(depths, num_heads):
+    """The module table of an EfficientViT of `depths` and `num_heads` a
+    stage: the inverse of `torch_convert.convert_efficientvit` (the JAX
+    ConvBN's Conv_0/BatchNorm_0 are the port's ConvBN `c`/`bn`, the JAX
+    subsample sandwich sub{s}_* sits at indices 0-2 of the port's stage
+    blocks{s+1}, and the stage's blocks follow it)."""
+    modules = [("head_bn", "head.bn", _BN), ("head", "head.l", _DENSE)]
+
+    def cbn(jax_name: str, port_name: str) -> None:
+        modules.extend([(f"{jax_name}/Conv_0", f"{port_name}.c", _CONV_KERNEL),
+                        (f"{jax_name}/BatchNorm_0", f"{port_name}.bn", _BN)])
+
+    def ffn(jax_name: str, port_name: str) -> None:
+        cbn(f"{jax_name}/ConvBN_0", f"{port_name}.pw1")
+        cbn(f"{jax_name}/ConvBN_1", f"{port_name}.pw2")
+
+    for i in range(4):
+        cbn(f"patch_embed{i}", f"patch_embed.{2 * i}")
+    for s, (depth, heads) in enumerate(zip(depths, num_heads)):
+        stage, offset = f"blocks{s + 1}", 0
+        if s > 0:
+            merge, port_merge = f"sub{s}_merge", f"{stage}.1"
+            cbn(f"sub{s}_dw0", f"{stage}.0.0.m")
+            ffn(f"sub{s}_ffn0", f"{stage}.0.1.m")
+            for j in range(3):
+                cbn(f"{merge}/ConvBN_{j}", f"{port_merge}.conv{j + 1}")
+            for j, name in enumerate(("conv_reduce", "conv_expand")):
+                modules.append((f"{merge}/SqueezeExcite_0/Conv_{j}", f"{port_merge}.se.{name}",
+                                _CONV))
+            cbn(f"sub{s}_dw1", f"{stage}.2.0.m")
+            ffn(f"sub{s}_ffn1", f"{stage}.2.1.m")
+            offset = 3
+        for b in range(depth):
+            jax_block, port_block = f"stage{s}_block{b}", f"{stage}.{offset + b}"
+            attn, port_attn = f"{jax_block}/mixer/attn", f"{port_block}.mixer.m.attn"
+            cbn(f"{jax_block}/dw0", f"{port_block}.dw0.m")
+            ffn(f"{jax_block}/ffn0", f"{port_block}.ffn0.m")
+            modules.append((attn, port_attn, {"attention_biases": ("attention_biases", "same")}))
+            for i in range(heads):
+                cbn(f"{attn}/qkv{i}", f"{port_attn}.qkvs.{i}")
+                cbn(f"{attn}/dw_q{i}", f"{port_attn}.dws.{i}")
+            cbn(f"{attn}/proj", f"{port_attn}.proj.1")
+            cbn(f"{jax_block}/dw1", f"{port_block}.dw1.m")
+            ffn(f"{jax_block}/ffn1", f"{port_block}.ffn1.m")
     return modules
 
 

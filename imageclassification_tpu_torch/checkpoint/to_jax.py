@@ -6,12 +6,13 @@ checkpoints in the JAX package's layout.
 `from_jax.vit_state_dict_with_sources`: it splits the fused qkv Linear back
 into the query/key/value projections ([E, H, hd] kernels, [H, hd] biases).
 `flat_from_state_dict` is the inverse of `from_jax.state_dict_with_sources`
-by a module table (ConvNeXt's, a ResNet's). Each maps any dict of tensors
-shaped like the parameters, so it carries the optimizer's moments too, and a
-ResNet's carry maps its BatchNorm buffers to the JAX batch statistics the
-same way: applied to the parameters it gives the JAX "model" tree, applied
-to the buffers the "batch_stats" tree. `carry_for(model)` gives a model's
-pair of carry functions (`Carry`); the optimizer functions take it.
+by a module table (ConvNeXt's, a ResNet's, an EfficientViT's). Each maps any
+dict of tensors shaped like the parameters, so it carries the optimizer's
+moments too, and a BatchNorm model's carry maps its BatchNorm buffers to
+the JAX batch statistics the same way: applied to the parameters it gives
+the JAX "model" tree, applied to the buffers the "batch_stats" tree.
+`carry_for(model)` gives a model's pair of carry functions (`Carry`); the
+optimizer functions take it.
 
 The optimizer state is stored as the JAX `create_optimizer(...).init(params)`
 state flattens (`checkpoint/io.py::_flatten` there):
@@ -36,12 +37,13 @@ import numpy as np
 import torch
 
 from ..models.convnext import ConvNeXt
+from ..models.efficientvit import EfficientViT
 from ..models.resnet import ResNet
 from ..models.vit import ViT
 from ..optim.factory import Optimizer
-from .from_jax import (CONVNEXT_MODULES, convnext_state_dict_with_sources, match_module,
-                       resnet_modules, split_modules, state_dict_with_sources,
-                       vit_state_dict_with_sources)
+from .from_jax import (CONVNEXT_MODULES, convnext_state_dict_with_sources,
+                       efficientvit_modules, match_module, resnet_modules, split_modules,
+                       state_dict_with_sources, vit_state_dict_with_sources)
 
 _ATTN = "MultiHeadDotProductAttention_0"
 
@@ -140,12 +142,14 @@ def carry_for(model: torch.nn.Module) -> Carry:
                      functools.partial(vit_flat_from_state_dict, num_heads=model.num_heads))
     if isinstance(model, ConvNeXt):
         return Carry(convnext_state_dict_with_sources, convnext_flat_from_state_dict)
-    if isinstance(model, ResNet):
-        modules = resnet_modules(model.stage_sizes, model.block_name)
+    if isinstance(model, (ResNet, EfficientViT)):
+        modules = (resnet_modules(model.stage_sizes, model.block_name)
+                   if isinstance(model, ResNet)
+                   else efficientvit_modules(model.depths, model.num_heads))
         return Carry(functools.partial(state_dict_with_sources, modules=modules),
                      functools.partial(flat_from_state_dict, modules=modules))
     raise NotImplementedError(
-        f"weight carry for {type(model).__name__} is not ported yet (ROADMAP A13-A15)")
+        f"weight carry for {type(model).__name__} is not ported yet (ROADMAP A14-A15)")
 
 
 # the port's moment names -> the JAX optax state's

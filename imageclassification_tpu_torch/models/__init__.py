@@ -1,8 +1,8 @@
 """Model registry (port of imageclassification_tpu/models/__init__.py).
 
 Holds the ViT family with its timm-style `_224` aliases, the ConvNeXt
-and ConvNeXt-V2 families, and the ResNet family (ResNet, ResNeXt, wide
-ResNet). The other names of
+and ConvNeXt-V2 families, the ResNet family (ResNet, ResNeXt, wide
+ResNet) and EfficientViT m0-m5. The other names of
 the JAX registry are known here so that asking for one says it is not ported
 yet, while an unknown name raises ValueError as in the JAX package.
 """
@@ -13,15 +13,14 @@ from typing import Any, Callable, Dict
 
 import torch
 
-from . import convnext, resnet, vit
+from . import convnext, efficientvit, resnet, vit
 
 _REGISTRY: Dict[str, Callable] = {}
 
 # names the JAX registry has and the port does not have yet
 _NOT_YET_PORTED = frozenset(
-    [f"efficientvit_m{i}" for i in range(6)]
-    + ["mobilenetv3_large_100", "mobilenetv3_small_100",
-       "mobilenet_v3_large", "mobilenet_v3_small"]
+    ["mobilenetv3_large_100", "mobilenetv3_small_100",
+     "mobilenet_v3_large", "mobilenet_v3_small"]
     + [f"efficientnet_b{i}" for i in range(5)]
     + [f"swin_{s}{suffix}" for s in ("tiny", "small", "base")
        for suffix in ("", "_patch4_window7_224")]
@@ -45,6 +44,8 @@ for _n in convnext.NAMES:
     register(_n, getattr(convnext, _n))
 for _n in resnet.NAMES:
     register(_n, getattr(resnet, _n))
+for _n in efficientvit.NAMES:
+    register(_n, getattr(efficientvit, _n))
 
 
 def create_model(

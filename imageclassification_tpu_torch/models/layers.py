@@ -56,6 +56,13 @@ def he_normal_(conv: nn.Conv2d, generator: torch.Generator) -> None:
     trunc_normal_(conv.weight, std=(2.0 / fan_in) ** 0.5, generator=generator)
 
 
+def lecun_normal_(conv: nn.Conv2d, generator: torch.Generator) -> None:
+    """flax `lecun_normal()` (nn.Conv's default kernel init): a truncated
+    normal of std sqrt(1 / fan_in), fan_in as in `he_normal_`."""
+    fan_in = conv.weight[0].numel()
+    trunc_normal_(conv.weight, std=(1.0 / fan_in) ** 0.5, generator=generator)
+
+
 def conv2d_nhwc(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
     """flax `nn.Conv(dtype=dtype)` on NHWC `x` with `conv`'s fp32 parameters
     cast at use: the convolution runs on a channels-first view of x (which is

@@ -154,6 +154,7 @@ def _make(patch, dim, depth, heads):
                    num_classes=num_classes, drop_rate=drop_rate,
                    drop_path_rate=drop_path_rate, flash_attn=flash_attn,
                    img_size=img_size, dtype=dtype, generator=generator)
+    ctor.num_heads = heads  # read by checkpoint/torch_convert.py without building the model
     return ctor
 
 

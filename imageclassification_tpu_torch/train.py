@@ -6,20 +6,25 @@
         --model convnext_tiny [--drop_path 0.1] [--device cuda|cpu] ...
     python -m imageclassification_tpu_torch.train --data_path <ImageFolder> \\
         --model resnet50 [--device cuda|cpu] ...
+    python -m imageclassification_tpu_torch.train --data_path <ImageFolder> \\
+        --model vit_base_patch16_224 --flash_attn true --input_size 384 \\
+        --pretrained_path <timm state_dict or checkpoint> ...
+    python -m imageclassification_tpu_torch.train --data_path <ImageFolder>  # efficientvit_m0
 
 The JAX train.py's flags, artifacts and epoch flow: `class_indices.json`
 and `checkpoint-{N,best,best-ema}.pth` under --output_dir (JAX layout, so
 either package resumes them and either val.py reads them), JSON lines in
 log.txt beside it, TensorBoard scalars under --log_dir (and W&B with
---enable_wandb), auto-resume, --eval, --pretrained_path with a repo
-checkpoint, a torch.profiler trace with --profile_dir, and a checkpoint on
-SIGTERM/SIGUSR1 before a clean exit. On a card the train and eval steps run
+--enable_wandb), auto-resume, --eval, --pretrained_path with a checkpoint
+or a torch/timm state_dict (a ViT's pos_embed resampled to --input_size), a
+torch.profiler trace with --profile_dir, and a checkpoint on SIGTERM/SIGUSR1
+before a clean exit. On a card the train and eval steps run
 as CUDA graphs (`engine/compiled.py`, the counterpart of the JAX step's
 `jax.jit`); on the CPU, and with --check_nans (eager, with NaN checks, as
 JAX's jax_debug_nans), they run eagerly. One process on one device; the ViT,
-ConvNeXt, ConvNeXt-V2 and ResNet (ResNeXt, wide ResNet) families are built
-(other names raise NotImplementedError), and the flags of features not
-ported yet raise (config.check_ported).
+ConvNeXt, ConvNeXt-V2, ResNet (ResNeXt, wide ResNet) and EfficientViT
+families are built (other names raise NotImplementedError), and the flags
+of features not ported yet raise (config.check_ported).
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import numpy as np
 import torch
 
 from .checkpoint import io as ckpt_io
+from .checkpoint.torch_convert import load_pretrained_flat, resample_pos_embed
 from .config import TrainConfig, check_ported, parse_args
 from .data.folder import build_dataset
 from .data.loader import BatchLoader
@@ -46,6 +52,7 @@ from .engine.loop import evaluate, train_one_epoch
 from .engine.state import create_train_state, num_params
 from .engine.step import build_eval_step, build_train_step
 from .models import create_model, model_kwargs_for
+from .models.layers import batch_norm_stats
 from .optim.ema import init_ema, init_ema_stats
 from .optim.factory import create_optimizer
 from .optim.schedules import build_schedules
@@ -80,21 +87,19 @@ class _EmaWeights:
 
 
 def _load_pretrained(args, state) -> None:
-    """--pretrained_path: the "model" weights of a repo checkpoint, pruned by
-    name and shape; the EMA restarts from them."""
-    ck = ckpt_io.load_checkpoint(args.pretrained_path)
-    if not (isinstance(ck, dict) and isinstance(ck.get("model"), dict)):
-        raise NotImplementedError(
-            "--pretrained_path takes a checkpoint of this project here; converting a "
-            "torch/timm state_dict is not ported yet (ROADMAP A7)")
-    pos, own = ck["model"].get("pos_embed"), getattr(state.model, "pos_embed", None)
-    if pos is not None and own is not None and tuple(pos.shape) != tuple(own.shape):
-        raise NotImplementedError(
-            f"pos_embed {tuple(pos.shape)} differs from the model's "
-            f"{tuple(own.shape)}: resampling it to another --input_size "
-            "is not ported yet (ROADMAP A12)")
-    ckpt_io.load_params_with_pruning(state.model, ck["model"])
-    if ck.get("batch_stats"):
+    """--pretrained_path: the weights of a checkpoint of this project or of
+    a torch/timm state_dict (converted on the fly, `torch_convert`), with a
+    ViT's pos_embed grid resampled to this --input_size, pruned by name and
+    shape; the BatchNorm statistics where both have them; the EMA restarts
+    from the loaded weights (timm's ModelEmaV3 copies the model after the
+    pretrained load)."""
+    ck = load_pretrained_flat(args.pretrained_path, args.model)
+    src = ck["model"]
+    own = getattr(state.model, "pos_embed", None)
+    if own is not None:
+        src = resample_pos_embed(src, {"pos_embed": own.detach().cpu().numpy()})
+    ckpt_io.load_params_with_pruning(state.model, src)
+    if ck.get("batch_stats") and batch_norm_stats(state.model):
         ckpt_io.load_params_with_pruning(state.model, ck["batch_stats"], verbose=False)
     if state.ema is not None:
         state.ema = init_ema(state.model)
@@ -129,8 +134,8 @@ def main(args: TrainConfig):
     model_kwargs = model_kwargs_for(args, num_classes)
     model = create_model(
         args.model, half_precision=(args.use_amp or args.half_precision),
-        img_size=args.input_size, generator=torch.Generator().manual_seed(seed),
-        **model_kwargs,
+        generator=torch.Generator().manual_seed(seed),
+        **{"img_size": args.input_size, **model_kwargs},  # EfficientViT's kwargs hold it
     ).to(device)
     model_spec = {"name": args.model,
                   "kwargs": {k: v for k, v in model_kwargs.items() if k != "pretrained"}}
@@ -159,8 +164,8 @@ def main(args: TrainConfig):
         print(
             "WARNING: --pretrained true but no local weights available "
             "(no network egress) — TRAINING FROM SCRATCH. "
-            "Pass --pretrained_path (a repo checkpoint) to fine-tune from "
-            "pretrained weights.",
+            "Pass --pretrained_path (a checkpoint or a torch/timm state_dict) "
+            "to fine-tune from pretrained weights.",
             flush=True,
         )
 

@@ -177,8 +177,8 @@ def test_bf16_model_keeps_an_fp32_head():
 
 def test_carry_of_an_unported_family_names_its_roadmap_item():
     # checkpoint/io.py dispatches the carry by family: ViT, ConvNeXt,
-    # ResNet; any other model raises, naming the ROADMAP items of the
-    # families left
+    # ResNet, EfficientViT; any other model raises, naming the ROADMAP items
+    # of the families left
     assert carry_for(create_model("convnext_atto")).to_jax is convnext_flat_from_state_dict
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(NotImplementedError, match="A14"):
         carry_for(torch.nn.Linear(2, 2))

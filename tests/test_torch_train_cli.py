@@ -630,6 +630,39 @@ def test_library_device_ms_survives_dropped_launches(monkeypatch):
     assert got == pytest.approx(0.5 / 5.0 * 2 + 0.2 / 2.0 * 1, rel=1e-12)
 
 
+def test_library_device_ms_counts_whole_launches(monkeypatch):
+    # a kernel that every trace kept only some launches of counts as the
+    # whole launches a call makes (a fifth of one kept: one launch a call)
+    monkeypatch.setattr(chip_smoke, "trace", lambda fn: (0.0, 0.0, {"fmha": (0.05, 0.2),
+                                                                    "copy": (0.02, 2.0)}))
+    got = chip_smoke._library_device_ms(None)
+    assert got == pytest.approx(0.25 * 1 + 0.01 * 2, rel=1e-12)
+
+
+def test_library_device_ms_retraces_a_trace_without_kernels(monkeypatch):
+    # a trace that kept no kernel of the call is taken again; when none of
+    # fifteen keeps one, the reading fails instead of giving 0
+    traces = iter([{}, {"fmha": (0.3, 1.0)}, {}, {}, {"fmha": (0.1, 1.0)},
+                   {"fmha": (0.2, 1.0)}])
+    monkeypatch.setattr(chip_smoke, "trace", lambda fn: (0.0, 0.0, next(traces)))
+    assert chip_smoke._library_device_ms(None) == pytest.approx(0.2, rel=1e-12)
+    monkeypatch.setattr(chip_smoke, "trace", lambda fn: (0.0, 0.0, {}))
+    with pytest.raises(AssertionError, match="no kernel"):
+        chip_smoke._library_device_ms(None)
+
+
+@pytest.mark.parametrize("spans, want", [
+    ([], 0.0),
+    ([(0, 2), (5, 6)], 3.0),               # apart: their sum
+    ([(0, 4), (1, 3), (2, 6)], 6.0),       # overlapping and nested
+    ([(3, 5), (0, 3), (5, 5)], 5.0),       # touching, unordered, empty
+])
+def test_busy_time_is_the_union_of_kernel_intervals(spans, want):
+    # the idle share reads busy time, which overlapping kernels (in some CUDA
+    # graphs) would count twice in a sum
+    assert chip_smoke.busy_us(spans) == want
+
+
 @pytest.mark.parametrize("shape, want", [((64, 56, 56, 96), 0.0230), ((64, 28, 28, 192), 0.0115),
                                          ((64, 14, 14, 384), 0.0058), ((64, 7, 7, 768), 0.0029)])
 def test_dwconv_dw_bound_is_its_bytes_at_the_tensor_core_rate(shape, want):
