@@ -102,8 +102,9 @@ exit before the last line:
    dK/dV); checkpoint-1.pth holds input_shape 384 and val_precision serves
    it at 384 (predict captured: 12 forward launches a replayed batch);
    ms per batch, ms per step and img/s, captured and eager, with traces;
-   then the flash kernels against their plain versions and SDPA at the
-   path's shape, 64 x 577 x 12 x 64, as in 3a and 3b;
+   the flash kernels against their plain versions and SDPA at the path's
+   shape, 64 x 577 x 12 x 64, as in 3a and 3b (right after 3b, before the
+   training phases);
 9. the CLI's default model: `train.main` with no --model (EfficientViT-M0,
    its head's dropout from --drop_path) at 224x224, batch 64, the default
    flags, 2 epochs of 10 steps on the folder of phase 5; losses finite, no
@@ -112,12 +113,44 @@ exit before the last line:
    checkpoint-1.pth in the JAX layout with batch_stats, reloaded exactly and
    served by val_precision; ms per step, img/s and a trace, captured and
    eager;
-10. one JSON line with every kernel's numbers (at ConvNeXt-T's stage-0
+10. the high-resolution path: the same hub file through `train.main
+   --flash_attn true --input_size 1024 --layer_decay 0.65 --remat true` (the
+   default adamw) at batch 16, or 8 where an eager step without --remat at
+   16 runs out of memory, 2 epochs of 10 steps on a seeded 5-class folder of
+   1280 x 960 JPEGs fed by the port's native decoder (phases 10 and 11 run
+   in a child process, whose profiler is fresh; it first finds the batch
+   and holds the flash kernels against their plain versions and SDPA at the
+   path's shape, 16 x 4097 x 12 x 64, the fp32 plain versions a few batch
+   elements at a time, on the empty card); the load resamples
+   pos_embed 14x14 -> 64x64 and skips the head alone; three replays of the
+   run's captured step launch the flash kernels at N = 4097 24 times
+   forward with lse (the forward and its recompute), 12 x (dQ, dK/dV) and
+   12 forwards without lse, in that order; val_precision serves the
+   checkpoint at 1024; the captured step with and without --remat, each its
+   ms a step, peak memory (torch.cuda.max_memory_allocated) and a trace;
+   the flash kernels' device ms a launch inside the --remat step (held
+   against its CUDA events, and each to half its CUDA events alone at that
+   shape) beside their bounds; the peak memory of one eager ViT-B/16 step
+   at 224x224 with dropout and drop path 0.1, which may be no more than 1 %
+   higher with --remat than without; four captured steps with --remat and
+   --layer_decay held against eager ones bitwise, and a non-finite step
+   inside the replays, as in 5c;
+11. the feed: `BatchLoader` img/s at batch 64, 224x224, on the train path
+   over 500 x 375 JPEGs with the native decoder and with PIL at 8 and 32
+   threads, the host's os.cpu_count(), and `train.main` of ViT-B/16
+   --flash_attn on those JPEGs, each epoch split into its steps, the time
+   they waited for the loader, the eval and the checkpoint writes;
+12. one JSON line with every kernel's numbers (at ConvNeXt-T's stage-0
    shape for the LayerNorm and depthwise-conv kernels and ResNet-50's
    stage-1 conv3 shape for the fused 1x1 conv; the other shapes are in the
    lines of phases 3c, 3d and 3e; the flash kernels' numbers on the
-   fine-tuning path under "at_577"), then the result line
-   {"ok": true, "device": {...}}.
+   fine-tuning path under "at_577" and on the high-resolution path under
+   "at_4097"), then the result line {"ok": true, "device": {...}}.
+
+Phase 2 also builds the port's native JPEG decoder and says whether it
+built; the training phases say which decoder fed them. A device ms read
+from traces, of a kernel or of a library call, is held against the CUDA
+events time of the same call (`_device_ms`, `_library_device_ms`).
 
 It exits non-zero without the result line when no CUDA device is visible.
 The JAX package is not imported.
@@ -136,6 +169,7 @@ import sys
 import tempfile
 import time
 from collections import Counter
+from unittest import mock
 
 import numpy as np
 
@@ -339,6 +373,27 @@ def attention_bound(B, N, H, D):
     return max(t_bytes, t_flops) * 1e3, ("bytes" if t_bytes >= t_flops else "operations")
 
 
+# the most fp32 scores [b, H, N, N] a plain attention call may hold at once
+PLAIN_SCORE_BYTES = 4 << 30
+
+
+def by_batch(fn, *tensors):
+    """fn(*tensors) over slices of the batch (dim 0) whose plain fp32 scores
+    stay under PLAIN_SCORE_BYTES, the results concatenated: the same function
+    in pieces, every row independent of the others (at 16 x 4097 x 12 heads
+    the scores alone take 13 GB). `tensors[0]` is q, [B, N, H, D]."""
+    import torch
+
+    B, N, H = tensors[0].shape[:3]
+    chunk = max(1, PLAIN_SCORE_BYTES // (H * N * N * 4))
+    if chunk >= B:
+        return fn(*tensors)
+    parts = [fn(*(t[i:i + chunk] for t in tensors)) for i in range(0, B, chunk)]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(p) for p in zip(*parts))
+    return torch.cat(parts)
+
+
 def compare_attention(out, q, k, v):
     """Hold `out` against the fp32 plain version on the same inputs, with a
     tolerance of ATTN_RTOL * max|reference|. Also checks that the tolerance
@@ -349,8 +404,8 @@ def compare_attention(out, q, k, v):
     from imageclassification_tpu_torch.ops.flash_attention import flash_attention_ref
 
     qf, kf, vf = (t.float() for t in (q, k, v))
-    ref = flash_attention_ref(qf, kf, vf)
-    tail = (flash_attention_ref(qf, kf[:, :-1], vf[:, :-1]) - ref).abs().max().item()
+    ref = by_batch(flash_attention_ref, qf, kf, vf)
+    tail = (by_batch(flash_attention_ref, qf, kf[:, :-1], vf[:, :-1]) - ref).abs().max().item()
     tol = ATTN_RTOL * ref.abs().max().item()
     err = (out.float() - ref).abs().max().item()
     if not tail > tol:
@@ -379,7 +434,7 @@ def check_attention(shape, device):
     err, tol, tail = compare_attention(out, q, k, v)
     iters = max(5, min(200, int(2e9 // (B * H * N * N * D))))
     ms = time_ms(lambda: fa.flash_attention(q, k, v), iters)
-    plain_ms = time_ms(lambda: fa.flash_attention_ref(q, k, v), max(3, iters // 10))
+    plain_ms = time_ms(lambda: by_batch(fa.flash_attention_ref, q, k, v), max(3, iters // 10))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
     def sdpa():
@@ -387,11 +442,13 @@ def check_attention(shape, device):
 
     library_ms = time_ms(sdpa, iters)
     bound_ms, bound_by = attention_bound(B, N, H, D)
-    device_ms = _device_ms(lambda: fa.flash_attention(q, k, v), {"flash_attention_fwd_kernel": 1})
-    library_device_ms = _library_device_ms(sdpa)
-    row = dict(shape=list(shape), max_abs_err=err, ms=ms, plain_ms=plain_ms,
+    device_ms = _device_ms(lambda: fa.flash_attention(q, k, v), {"flash_attention_fwd_kernel": 1},
+                           events_ms=ms)
+    library_device_ms = _library_device_ms(sdpa, events_ms=library_ms)
+    row = dict(shape=list(shape), max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-               device_ms=device_ms, library_device_ms=library_device_ms)
+               device_ms=device_ms, library_device_ms=library_device_ms,
+               host_ms=host_ms(lambda: fa.flash_attention(q, k, v)))
     log(f"flash_attention_fwd B,N,H,D={shape} (strided qkv): max|d| vs fp32 plain "
         f"{err:.3e} (tol {tol:.3e} = 2^-7 of max|ref|; dropping the last key moves "
         f"the reference by {tail:.3e}), kernel {ms:.4f} ms (device {device_ms:.4f}), plain "
@@ -431,9 +488,12 @@ def compare_backward(grads, q, k, v, do):
 
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
 
+    def plain_one(qq, kk, vv, dd):
+        return fa.flash_attention_bwd_ref(qq, kk, vv, fa.flash_attention_ref(qq, kk, vv),
+                                          fa.flash_attention_lse_ref(qq, kk), dd)
+
     def plain(kk, vv):
-        return fa.flash_attention_bwd_ref(qf, kk, vv, fa.flash_attention_ref(qf, kk, vv),
-                                          fa.flash_attention_lse_ref(qf, kk), dof)
+        return by_batch(plain_one, qf, kk, vv, dof)
 
     ref, tail = plain(kf, vf), plain(kf[:, :-1], vf[:, :-1])
     out = {}
@@ -475,7 +535,7 @@ def check_backward(shape, device):
     q, k, v = qkv.unbind(2)
     do = torch.randn((B, N, H, D), generator=g, device=device).to(torch.bfloat16)
     o, lse = fa._launch(q, k, v, with_lse=True)
-    lse_err = (lse - fa.flash_attention_lse_ref(q, k)).abs().max().item()
+    lse_err = (lse - by_batch(fa.flash_attention_lse_ref, q, k)).abs().max().item()
     if not lse_err <= LSE_ATOL:
         raise AssertionError(f"forward lse {shape}: max|d| {lse_err} > {LSE_ATOL}")
     fa.reset_launches()
@@ -503,13 +563,16 @@ def check_backward(shape, device):
     ms = time_ms(bwd, iters)
     strides = fa._bwd_inputs(q, k, v, o, lse, do)[1]
     _, di = fa._launch_dq(q, k, v, o, do, lse, strides)
-    ms_dq = time_ms(lambda: fa._launch_dq(q, k, v, o, do, lse, strides), iters)
-    ms_dkv = time_ms(lambda: fa._launch_dkv(q, k, v, do, lse, di, strides), iters)
-    plain_ms = time_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, o, lse, do),
+    alone = {"dq": lambda: fa._launch_dq(q, k, v, o, do, lse, strides),
+             "dkv": lambda: fa._launch_dkv(q, k, v, do, lse, di, strides)}
+    ms_dq, ms_dkv = time_ms(alone["dq"], iters), time_ms(alone["dkv"], iters)
+    host_each = {part: host_ms(fn) for part, fn in alone.items()}
+    plain_ms = time_ms(lambda: by_batch(fa.flash_attention_bwd_ref, q, k, v, o, lse, do),
                        max(3, iters // 10))
-    device_ms = _device_ms(bwd, {name: 1 for name in BWD_KERNELS})
-    device_each = {part: _device_ms(bwd, {f"flash_attention_bwd_{part}_kernel": 1})
-                   for part in ("dq", "dkv")}
+    device_ms = _device_ms(bwd, {name: 1 for name in BWD_KERNELS}, events_ms=ms)
+    device_each = {part: _device_ms(bwd, {f"flash_attention_bwd_{part}_kernel": 1},
+                                    floor_ms=alone_floor(events, host_each[part]))
+                   for part, events in (("dq", ms_dq), ("dkv", ms_dkv))}
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
     dot = do.transpose(1, 2)
 
@@ -521,10 +584,11 @@ def check_backward(shape, device):
 
     sdpa_ms = time_ms(sdpa_fwd, iters)
     sdpa_fwd_bwd_ms = time_ms(sdpa_fwd_bwd, iters)
-    sdpa_device = _library_device_ms(sdpa_fwd)
-    sdpa_fwd_bwd_device = _library_device_ms(sdpa_fwd_bwd)
+    sdpa_device = _library_device_ms(sdpa_fwd, events_ms=sdpa_ms)
+    sdpa_fwd_bwd_device = _library_device_ms(sdpa_fwd_bwd, events_ms=sdpa_fwd_bwd_ms)
     row = dict(shape=list(shape), lse_err=lse_err, errs=errs, ms=ms, ms_dkv=ms_dkv,
-               ms_dq=ms_dq, plain_ms=plain_ms, library_ms=sdpa_fwd_bwd_ms - sdpa_ms,
+               ms_dq=ms_dq, host_ms_dq=host_each["dq"], host_ms_dkv=host_each["dkv"],
+               plain_ms=plain_ms, library_ms=sdpa_fwd_bwd_ms - sdpa_ms,
                device_ms=device_ms, device_ms_dq=device_each["dq"],
                device_ms_dkv=device_each["dkv"],
                library_device_ms=sdpa_fwd_bwd_device - sdpa_device,
@@ -731,8 +795,10 @@ FLASH_KINDS = {"flash_attention_fwd": "fwd", "flash_attention_bwd_dq": "dq",
                "flash_attention_bwd_dkv": "dkv"}
 
 
-def flash_step_pattern(depth: int) -> list:
-    return ["fwd"] * depth + ["dq", "dkv"] * depth + ["fwd"] * depth
+def flash_step_pattern(depth: int, remat: bool = False) -> list:
+    """With --remat the backward first runs the whole forward again (with
+    lse), so the forward is launched 2 * depth times before the first dQ."""
+    return ["fwd"] * depth * (2 if remat else 1) + ["dq", "dkv"] * depth + ["fwd"] * depth
 
 
 def flash_kernel_sequence(fn, calls: int):
@@ -781,7 +847,7 @@ def _train_images(work: str, num_classes: int, per_class: int, seed: int) -> str
 
 def run_training(work: str, device: str, model: dict, img: int, num_classes: int,
                  per_class: int, batch: int, epochs: int, seed: int = 0,
-                 images: str = None, pretrained_path: str = None):
+                 images: str = None, pretrained_path: str = None, flags: tuple = ()):
     """The training path through the port's train.main on `device`, on a
     seeded image folder (`images`, written when not given), with the default
     training flags and --flash_attn. Every step's metrics are recorded, the
@@ -790,19 +856,22 @@ def run_training(work: str, device: str, model: dict, img: int, num_classes: int
     on a card the flash kernels of three more calls of the run's own step
     read from a trace: every call must launch the forward 12 times with lse,
     the backward's dQ and dK/dV kernels 12 times each and the forward 12
-    times without lse, in that order. With `pretrained_path` the run starts
-    from that file (--pretrained_path). Returns a dict: the trained state,
+    times without lse, in that order (with --remat among `flags`, the
+    extra flags, the forward 24 times with lse first). With
+    `pretrained_path` the run starts from that file (--pretrained_path).
+    Returns a dict: the trained state,
     the args, the per-step records, the launch totals of the run, the
     launches a replay made, the checkpoint checks and timings."""
     from imageclassification_tpu_torch import val
     from imageclassification_tpu_torch.ops.flash_attention import reset_launches
 
     images = images or _train_images(work, num_classes, per_class, seed)
-    flags = ["--model", model["name"], "--flash_attn", "true", "--input_size", str(img),
+    extra, flags = flags, ["--model", model["name"], "--flash_attn", "true", "--input_size", str(img),
              "--batch_size", str(batch), "--epochs", str(epochs), "--warmup_epochs", "1",
              "--device", device]
     if pretrained_path:
         flags += ["--pretrained", "true", "--pretrained_path", pretrained_path]
+    flags += list(extra)
     reset_launches()
     state, args, records, wall_s, step = _train_main(work, images, flags)
     totals = _launch_counts()
@@ -834,7 +903,7 @@ def run_training(work: str, device: str, model: dict, img: int, num_classes: int
     if device == "cuda":  # three more steps of the run's own (captured) step
         fixed = _fixed_batch({"args": args, "images": images}, device)
         per_replay = replay_launches(lambda: step(state, fixed),
-                                     flash_step_pattern(model["depth"]))
+                                     flash_step_pattern(model["depth"], args.remat))
     return {"state": state, "args": args, "records": records, "totals": totals,
             "per_replay": per_replay, "wall_s": wall_s, "checkpoint": path, "images": images,
             "steps_per_epoch": len(records) // epochs, "num_classes": num_classes,
@@ -906,7 +975,8 @@ def train_step_checks(run: dict, model: dict, device: str, timed: bool = True):
     return res
 
 
-def captured_vs_eager(model: dict, img: int, batch: int, num_classes: int, steps: int = 6):
+def captured_vs_eager(model: dict, img: int, batch: int, num_classes: int, steps: int = 6,
+                      flags: tuple = ()):
     """`steps` train steps of `model` with --flash_attn at full width (drop
     path 0.1, the default training flags, the EMA with warmup), eager twice
     and captured once, each from the same seeded state and seeded generators
@@ -915,7 +985,8 @@ def captured_vs_eager(model: dict, img: int, batch: int, num_classes: int, steps
     first eager one. The captured run must match the eager one bitwise where
     the eager runs match each other, else differ by no more than they do.
     Then, inside the captured run's replays, a step with the head bias set to
-    inf must leave that state unchanged bitwise, and the next step apply."""
+    inf must leave that state unchanged bitwise, and the next step apply.
+    `flags`: more train.py flags (--remat, --layer_decay)."""
     import torch
 
     from imageclassification_tpu_torch.config import parse_args
@@ -927,8 +998,10 @@ def captured_vs_eager(model: dict, img: int, batch: int, num_classes: int, steps
     from imageclassification_tpu_torch.optim.factory import create_optimizer
 
     dev = torch.device("cuda")
+    from imageclassification_tpu_torch.train import optimizer_layout
+
     args = parse_args(["--model", model["name"], "--flash_attn", "true", "--model_ema", "true",
-                       "--model_ema_warmup", "true", "--drop_path", "0.1"])
+                       "--model_ema_warmup", "true", "--drop_path", "0.1", *flags])
     rng = np.random.default_rng(11)
     batches = [{"image": torch.from_numpy(rng.integers(0, 256, (batch, img, img, 3),
                                                        dtype=np.uint8)).to(dev),
@@ -940,7 +1013,7 @@ def captured_vs_eager(model: dict, img: int, batch: int, num_classes: int, steps
                          img_size=img, flash_attn=True, drop_path_rate=args.drop_path,
                          generator=torch.Generator().manual_seed(0)).to(dev)
         opt = create_optimizer(args.opt, m.parameters(), lr=args.lr,
-                               weight_decay=args.weight_decay)
+                               weight_decay=args.weight_decay, **optimizer_layout(args, m))
         step = build_train_step(m, args, num_classes, build_mixup(args, num_classes),
                                 np.linspace(args.lr, args.lr / 10, steps + 2),
                                 np.linspace(args.weight_decay, args.weight_decay / 10, steps + 2),
@@ -1043,46 +1116,116 @@ def _hold(name: str, got, want, rtol: float) -> tuple:
     return err, tol
 
 
-def _device_ms(fn, launches: dict) -> float:
-    """Device ms per call of fn(): each kernel whose name holds a key of
-    `launches` at its mean time per launch in a trace, times the launches it
-    makes per call. On the H100 a trace has kept only some, or none, of a
-    kernel's launches (PERF.md §6, PR 4), so a mean per launch is taken, and
-    a kernel missing from a trace is traced again, up to five traces (three
-    in a row have dropped every launch of a kernel)."""
-    for _ in range(5):
-        kernels = trace(fn)[2]
-        seen = {name: [(ms, n) for k, (ms, n) in kernels.items() if name in k]
-                for name in launches}
-        if all(sum(n for _, n in got) for got in seen.values()):
-            return sum(sum(ms for ms, _ in got) / sum(n for _, n in got) * launches[name]
-                       for name, got in seen.items())
-    raise AssertionError(f"five traces held no launch of one of {list(launches)}")
+def host_ms(fn, calls: int = 5) -> float:
+    """Host ms a call of fn(): perf_counter around `calls` back-to-back calls
+    after a synchronize, the device not waited for."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    return ms
 
 
-def _library_device_ms(fn, traces: int = 3) -> float:
+def alone_floor(events_ms: float, host: float) -> float:
+    """The least device ms a reading of a kernel may give, from a call of it
+    alone: half that call's CUDA events ms where it is device-bound (host ms
+    a call under half its events ms), else 0 (no floor)."""
+    return 0.5 * events_ms if host < 0.5 * events_ms else 0.0
+
+
+def _device_ms(fn, launches: dict, traces: int = 3, steps: int = 10,
+               events_ms: float = None, floor_ms: float = 0.0) -> float:
+    """Device ms a call of fn() of the kernels whose names hold a key of
+    `launches` (each key's launches a call), read as `_library_device_ms`
+    reads a library call: over `traces` traces that hold every one of them
+    (a trace that keeps none of a kernel's launches is taken again, up to
+    five times `traces`), each kernel at its mean time per traced launch,
+    times its whole launches a call (the larger of `launches` and the most
+    one trace kept, rounded up). Every reading is held against the CUDA
+    events ms of the same call (`events_ms`, else timed here): where the call
+    is device-bound (host ms a call under half its events ms), the reading
+    plus the call's other kernels must reach half the events ms. Where the
+    kernels are a small part of the call (one kernel inside a train step),
+    `floor_ms` holds the reading itself: the least it may be, from CUDA
+    events of those launches alone (`alone_floor`). A reading below either
+    is traced again once, and then raises: it is never returned. (One trace
+    of a flash forward at 64 x 577 x 12 x 64 read 0.1106 ms a launch where
+    CUDA events give 0.249; PERF.md section 6.)"""
+    if events_ms is None:
+        events_ms = time_ms(fn, iters=20, reps=3)
+    device_bound = host_ms(fn) < 0.5 * events_ms
+    readings = []
+    for _ in range(2):
+        seen, others = {}, []
+        for _ in range(5 * traces):
+            kernels = trace(fn, steps)[2]
+            got = {name: [(ms, n) for k, (ms, n) in kernels.items() if name in k]
+                   for name in launches}
+            if not all(sum(n for _, n in g) for g in got.values()):
+                continue
+            for name, g in got.items():
+                total, n, most = seen.get(name, (0.0, 0.0, 0.0))
+                kept = sum(c for _, c in g)
+                seen[name] = (total + sum(ms for ms, _ in g), n + kept, max(most, kept))
+            others.append(sum(ms for k, (ms, _) in kernels.items()
+                              if not any(name in k for name in launches)))
+            if len(others) == traces:
+                break
+        if not others:
+            raise AssertionError(f"{5 * traces} traces held no launch of one of {list(launches)}")
+        reading = sum(total / n * max(launches[name], math.ceil(most - 1e-9))
+                      for name, (total, n, most) in seen.items())
+        readings.append(reading)
+        whole = not device_bound or reading + statistics.median(others) >= 0.5 * events_ms
+        if whole and reading >= floor_ms:
+            return reading
+    raise AssertionError(f"device ms a call of {list(launches)} read {readings} against "
+                         f"{events_ms:.4f} ms of CUDA events of the call (device-bound: "
+                         f"{device_bound}) and a floor of {floor_ms:.4f} ms from the kernels "
+                         f"alone: a misreading")
+
+
+def _library_device_ms(fn, traces: int = 3, events_ms: float = None) -> float:
     """Device ms per call of a library call fn(), whose kernels are not known
     by name: every kernel of `traces` traces at its mean time per launch,
     times the most launches per call one trace kept, rounded up to a whole
     launch (a call launches each of its kernels a whole number of times), as
     `_device_ms` reads a kernel that a trace may have dropped launches of. A
     trace that kept no kernel at all (seen at 64 x 577 x 12 x 64 after the
-    training phases) is taken again, up to five times `traces`."""
-    seen, kept = {}, 0
-    for _ in range(5 * traces):
-        kernels = trace(fn)[2]
-        if not kernels:
-            continue
-        for name, (ms, n) in kernels.items():
-            total, launches, most = seen.get(name, (0.0, 0.0, 0.0))
-            seen[name] = (total + ms, launches + n, max(most, n))
-        kept += 1
-        if kept == traces:
-            break
-    if not seen:
-        raise AssertionError(f"{5 * traces} traces held no kernel of the library call")
-    return sum(total / launches * math.ceil(most - 1e-9)
-               for total, launches, most in seen.values())
+    training phases) is taken again, up to five times `traces`. The reading
+    is held against the CUDA events ms of the same call (`events_ms`, else
+    timed here) as `_device_ms` holds one: where the call is device-bound, a
+    reading under half its events ms is traced again once, and then raises."""
+    if events_ms is None:
+        events_ms = time_ms(fn, iters=20, reps=3)
+    device_bound = host_ms(fn) < 0.5 * events_ms
+    readings = []
+    for _ in range(2):
+        seen, kept = {}, 0
+        for _ in range(5 * traces):
+            kernels = trace(fn)[2]
+            if not kernels:
+                continue
+            for name, (ms, n) in kernels.items():
+                total, launches, most = seen.get(name, (0.0, 0.0, 0.0))
+                seen[name] = (total + ms, launches + n, max(most, n))
+            kept += 1
+            if kept == traces:
+                break
+        if not seen:
+            raise AssertionError(f"{5 * traces} traces held no kernel of the library call")
+        reading = sum(total / launches * math.ceil(most - 1e-9)
+                      for total, launches, most in seen.values())
+        readings.append(reading)
+        if not device_bound or reading >= 0.5 * events_ms:
+            return reading
+    raise AssertionError(f"device ms a library call read {readings} against {events_ms:.4f} "
+                         f"ms of CUDA events of the device-bound call: a misreading")
 
 
 def check_layernorm(rows: int, C: int, device, constant: bool = False, timed: bool = True):
@@ -1854,7 +1997,7 @@ def run_finetune(work: str, device: str, model: dict, cfg: dict, num_classes: in
     bicubic resample of the file's; the checkpoint must hold input_shape
     cfg["img"], and val_precision serves it at that size (on a card with
     predict captured: the flash forward launched once a block in each
-    replayed batch, read from a trace)."""
+    replayed batch, read from a trace). cfg["flags"]: more train.py flags."""
     import contextlib
 
     import torch
@@ -1884,7 +2027,8 @@ def run_finetune(work: str, device: str, model: dict, cfg: dict, num_classes: in
     try:
         with contextlib.redirect_stdout(tee):
             run = run_training(work, device, model, cfg["img"], num_classes, per_class,
-                               cfg["batch"], epochs, images=images, pretrained_path=src_path)
+                               cfg["batch"], epochs, images=images, pretrained_path=src_path,
+                               flags=cfg.get("flags", ()))
     finally:
         port_train._load_pretrained = load
     printed = tee.text()
@@ -2055,6 +2199,444 @@ def replay_resnet_convs(model, args, batch, num_classes: int):
                               for j in jobs)}
 
 
+def write_jpeg_folder(root: str, rng, num_classes: int, per_class: int, size: tuple) -> str:
+    """root/class_{c}/img_{i}.jpg: JPEGs of `size` (width, height), quality
+    90 with 4:2:0 chroma (PIL's default), a per-class tint over smooth ramps
+    and noise."""
+    from PIL import Image
+
+    w, h = size
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    ramps = np.stack([xx * 127 / w, yy * 127 / h, (xx + yy) * 63 / (w + h)], -1)
+    for c in range(num_classes):
+        d = os.path.join(root, f"class_{c}")
+        os.makedirs(d)
+        tint = rng.integers(0, 128, 3)
+        for i in range(per_class):
+            noise = rng.normal(0, 12, (-(-h // 8), -(-w // 8), 3)).repeat(8, 0).repeat(8, 1)
+            noise = noise[:h, :w]
+            arr = np.clip(tint + ramps + noise, 0, 255).astype(np.uint8)
+            Image.fromarray(arr).save(os.path.join(d, f"img_{i}.jpg"), quality=90)
+    return root
+
+
+def feed_note(images: str) -> str:
+    """Which decoder fed a folder: the port's native decoder for its JPEGs
+    where it built, PIL for everything else."""
+    from imageclassification_tpu_torch.data import native_decode
+
+    files = [f for _, _, fs in os.walk(images) for f in fs]
+    jpegs = sum(f.lower().endswith((".jpg", ".jpeg")) for f in files)
+    native = native_decode.get_lib() is not None
+    return (f"{jpegs} JPEGs through the {'native decoder' if native else 'PIL decoder (native did not build)'}"
+            f", {len(files) - jpegs} other files through PIL")
+
+
+# the feed: BatchLoader on the train path at batch 64 and 224x224 over JPEGs
+# of 500 x 375 (a common photo size), 10 batches a pass, with the thread
+# counts of chip_smoke.py's training runs (8) and of the CLI's default (32)
+FEED = dict(size=(500, 375), batch=64, img=224, steps=10, num_classes=5, workers=(8, 32),
+            reps=3)
+
+
+def measure_feed(work: str, device: str, cfg: dict = FEED) -> dict:
+    """`BatchLoader` img/s (batches on `device`, one pass of cfg["steps"]
+    batches timed on the host clock, median of cfg["reps"]) over a seeded
+    folder of cfg["size"] JPEGs, with the native decoder and with PIL, at
+    each thread count of cfg["workers"]; and the host's cpu count."""
+    import torch
+
+    from imageclassification_tpu_torch.data import native_decode
+    from imageclassification_tpu_torch.data.folder import scan_folder
+    from imageclassification_tpu_torch.data.loader import BatchLoader
+
+    n = cfg["steps"] * cfg["batch"]
+    per_class = -(-n // cfg["num_classes"])
+    images = write_jpeg_folder(os.path.join(work, "feed_jpegs"), np.random.default_rng(7),
+                               cfg["num_classes"], per_class, cfg["size"])
+    dataset = scan_folder(images)
+    idx = np.arange(n).reshape(cfg["steps"], cfg["batch"])
+    res = {"cpu_count": os.cpu_count(), "images": images,
+           "native_built": native_decode.get_lib() is not None}
+
+    def one_pass(workers: int) -> float:
+        loader = BatchLoader(dataset, idx, cfg["img"], train=True, device=device, seed=0,
+                             num_workers=workers)
+        t0 = time.perf_counter()
+        seen = sum(b["image"].shape[0] for b in loader)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return seen / (time.perf_counter() - t0)
+
+    for decoder in ("native", "pil"):
+        if decoder == "native" and not res["native_built"]:
+            continue
+        for w in cfg["workers"]:
+            if decoder == "pil":
+                # the loader decodes through PIL where the library is missing
+                with mock.patch.object(native_decode, "get_lib", lambda: None):
+                    rates = [one_pass(w) for _ in range(cfg["reps"])]
+            else:
+                rates = [one_pass(w) for _ in range(cfg["reps"])]
+            res[f"{decoder}_{w}"] = statistics.median(rates)
+    return res
+
+
+def feed_epochs(work: str, images: str, device: str, model: dict, img: int, batch: int,
+                epochs: int = 2) -> list:
+    """`train.main` of `model` with --flash_attn on the folder `images`, its
+    wall time split by epoch into the steps (`train_one_epoch`), the time
+    the steps waited for the loader's next batch inside them, the eval and
+    the checkpoint writes. The first epoch holds the eager warm-up steps and
+    the captures, so the last one is the steady state."""
+    from imageclassification_tpu_torch import train as port_train
+
+    timed = {"steps": [], "loader_wait": [], "eval": [], "checkpoint": []}
+    saves = []
+    orig = {"train_one_epoch": port_train.train_one_epoch, "evaluate": port_train.evaluate,
+            "save_model": port_train.ckpt_io.save_model, "BatchLoader": port_train.BatchLoader}
+
+    def clocked(name, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                (saves if name == "checkpoint" else timed[name]).append(time.perf_counter() - t0)
+        return run
+
+    class WaitedLoader(orig["BatchLoader"]):
+        def __iter__(self):
+            it, waited = super().__iter__(), 0.0
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    b = next(it)
+                except StopIteration:
+                    break
+                waited += time.perf_counter() - t0
+                yield b
+            if self.train:
+                timed["loader_wait"].append(waited)
+
+    def epoch_loop(*a, **kw):
+        saves.clear()
+        out = clocked("steps", orig["train_one_epoch"])(*a, **kw)
+        return out
+
+    port_train.train_one_epoch = epoch_loop
+    port_train.evaluate = clocked("eval", orig["evaluate"])
+    port_train.ckpt_io.save_model = clocked("checkpoint", orig["save_model"])
+    port_train.BatchLoader = WaitedLoader
+    per_epoch = []
+    try:
+        flags = ["--model", model["name"], "--flash_attn", "true", "--input_size", str(img),
+                 "--batch_size", str(batch), "--epochs", str(epochs), "--warmup_epochs", "1",
+                 "--device", device]
+        state, args, records, wall_s, _ = _train_main(work, images, flags)
+    finally:
+        port_train.train_one_epoch = orig["train_one_epoch"]
+        port_train.evaluate = orig["evaluate"]
+        port_train.ckpt_io.save_model = orig["save_model"]
+        port_train.BatchLoader = orig["BatchLoader"]
+    steps = len(records) // epochs
+    for e in range(epochs):
+        per_epoch.append({"steps_s": timed["steps"][e], "steps": steps,
+                          "loader_wait_s": timed["loader_wait"][e], "eval_s": timed["eval"][e]})
+    per_epoch[-1]["checkpoint_s"] = sum(saves)
+    return per_epoch
+
+
+# fine-tuning at 1024x1024, the recipe the JAX package gives --flash_attn for
+# (imageclassification_tpu/models/vit.py:25-40): timm vit_base_patch16_224
+# saved at 224 and trained at 1024, 64 x 64 patches and the cls token (N =
+# 4097 in every flash launch), --layer_decay 0.65 and --remat, the default
+# adamw; batch 16 when the step without remat fits on the card, else 8; fed
+# from 5 classes of 1280 x 960 JPEGs, 2 epochs of 10 steps (cut in scale only)
+HIRES = dict(name="vit_base_patch16_224", src_img=224, img=1024, batches=(16, 8),
+             jpeg=(1280, 960), flags=("--layer_decay", "0.65", "--remat", "true"))
+
+
+def fits_without_remat(model: dict, img: int, batch: int, num_classes: int) -> bool:
+    """Whether one eager train step of `model` --flash_attn at `img` and
+    `batch` without --remat (the default flags otherwise) runs without
+    running out of the card's memory."""
+    import gc
+
+    import torch
+
+    from imageclassification_tpu_torch.config import parse_args
+    from imageclassification_tpu_torch.data.mixup import build_mixup
+    from imageclassification_tpu_torch.engine.state import create_train_state
+    from imageclassification_tpu_torch.engine.step import build_train_step
+    from imageclassification_tpu_torch.models import create_model
+    from imageclassification_tpu_torch.optim.factory import create_optimizer
+
+    args = parse_args(["--model", model["name"], "--flash_attn", "true"])
+    dev = torch.device("cuda")
+    fits = True
+    try:
+        m = create_model(model["name"], num_classes=num_classes, half_precision=True,
+                         img_size=img, flash_attn=True).to(dev)
+        state = create_train_state(m, create_optimizer(args.opt, m.parameters(), lr=args.lr,
+                                                       weight_decay=args.weight_decay))
+        step = build_train_step(m, args, num_classes, build_mixup(args, num_classes), [args.lr],
+                                [args.weight_decay])
+        batch = {"image": torch.randint(0, 256, (batch, img, img, 3), dtype=torch.uint8,
+                                        device=dev),
+                 "label": torch.randint(0, num_classes, (batch,), device=dev)}
+        step(state, batch)["loss"]
+        torch.cuda.synchronize()
+    except torch.cuda.OutOfMemoryError:
+        fits = False
+    finally:
+        m = state = step = batch = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    return fits
+
+
+def remat_timing(run: dict, depth: int, floors: dict) -> dict:
+    """On the trained state of `run`: the captured step (as train.main runs
+    it) with --remat and without, each its ms a step (CUDA events, one fixed
+    batch), `torch.cuda.max_memory_allocated` over its capture and steps,
+    and a trace; with --remat also the flash kernels' device ms a launch
+    inside the step (`_device_ms` of the step, checked against its events
+    ms and against `floors`: each kernel's least device ms a launch, from
+    CUDA events of it alone at the step's shape)."""
+    import gc
+
+    import torch
+
+    from imageclassification_tpu_torch.data.mixup import build_mixup
+    from imageclassification_tpu_torch.engine.compiled import CapturedTrainStep
+    from imageclassification_tpu_torch.engine.step import build_train_step
+
+    state, nc = run["state"], run["num_classes"]
+    batch = _fixed_batch(run, "cuda")
+    out = {}
+    for remat in (True, False):
+        args = run["args"].replace(remat=remat)
+        step = build_train_step(state.model, args, nc, build_mixup(args, nc), [args.lr],
+                                [args.weight_decay], seed=args.seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        captured = CapturedTrainStep(step, torch.device("cuda"))
+
+        def fn():
+            return captured(state, batch)
+
+        ms = time_ms(fn, iters=5, reps=3)
+        res = {"ms": ms, "peak_bytes": torch.cuda.max_memory_allocated(), "trace": trace(fn, 3)}
+        if remat:
+            launches = {"flash_attention_fwd": 3 * depth, "flash_attention_bwd_dq": depth,
+                        "flash_attention_bwd_dkv": depth}
+            res["device_ms_per_launch"] = {
+                name: _device_ms(fn, {name: n}, steps=3, events_ms=ms,
+                                 floor_ms=floors[name] * n) / n
+                for name, n in launches.items()}
+        out["remat" if remat else "plain"] = res
+        captured = step = fn = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dropout_remat_peak(model: dict, img: int, batch: int, num_classes: int) -> dict:
+    """`torch.cuda.max_memory_allocated` over one eager train step of `model`
+    --flash_attn with dropout 0.1 and drop path 0.1 (full-shape masks; the
+    attention takes its plain path), with --remat and without. Whole-loss
+    remat materialises every activation again before the backward, so it
+    peaks where the step without it does; its recompute draws the masks
+    again from a generator of its own and keeps none, so it may peak higher
+    by no more than 1 % (allocator rounding moved the two peaks about 1 MB
+    apart on the card). A remat that kept the forward's fp32 draws would
+    hold 4 bytes an element of every mask on top: 2.4 GB here, a quarter of
+    the peak."""
+    import gc
+
+    import torch
+
+    from imageclassification_tpu_torch.config import parse_args
+    from imageclassification_tpu_torch.data.mixup import build_mixup
+    from imageclassification_tpu_torch.engine.state import create_train_state
+    from imageclassification_tpu_torch.engine.step import build_train_step
+    from imageclassification_tpu_torch.models import create_model
+    from imageclassification_tpu_torch.optim.factory import create_optimizer
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    batch_t = {"image": torch.from_numpy(rng.integers(0, 256, (batch, img, img, 3),
+                                                      dtype=np.uint8)).to(dev),
+               "label": torch.from_numpy(rng.integers(0, num_classes, batch)).to(dev)}
+    out = {}
+    for remat in (False, True):
+        args = parse_args(["--model", model["name"], "--flash_attn", "true",
+                           "--remat", str(remat).lower()])
+        m = create_model(model["name"], num_classes=num_classes, half_precision=True,
+                         img_size=img, flash_attn=True, drop_rate=0.1, drop_path_rate=0.1,
+                         generator=torch.Generator().manual_seed(0)).to(dev)
+        state = create_train_state(m, create_optimizer(args.opt, m.parameters(), lr=args.lr,
+                                                       weight_decay=args.weight_decay))
+        step = build_train_step(m, args, num_classes, build_mixup(args, num_classes), [args.lr],
+                                [args.weight_decay])
+        step(state, batch_t)["loss"]  # the first step allocates the moments' workspaces
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss = float(step(state, batch_t)["loss"])
+        torch.cuda.synchronize()
+        out["remat" if remat else "plain"] = (torch.cuda.max_memory_allocated(), loss)
+        m = state = step = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    if not out["remat"][0] <= 1.01 * out["plain"][0]:
+        raise AssertionError(f"--remat with dropout peaks at {out['remat'][0]} bytes, more than "
+                             f"1 % above the step without it ({out['plain'][0]})")
+    return out
+
+
+def hires_checks(num_classes: int) -> dict:
+    """Phase 10's batch (the first of HIRES["batches"] whose eager step
+    without --remat fits on the card) and the flash kernels against their
+    plain versions (fp32, a few batch elements at a time) and SDPA at the
+    shape the path gives them, as in 3a and 3b, first in the child process
+    of `late_phases`, on the empty card and a fresh profiler. Their CUDA
+    events alone floor the readings inside the step."""
+    import gc
+
+    import torch
+
+    hb = next((b for b in HIRES["batches"]
+               if fits_without_remat(VIT_B16, HIRES["img"], b, num_classes)),
+              HIRES["batches"][-1])
+    log(f"high-resolution path: batch {hb} (the first of {HIRES['batches']} whose eager "
+        f"step without --remat fits on the card)")
+    n_hr = (HIRES["img"] // VIT_B16["patch"]) ** 2 + 1
+    shape = (hb, n_hr, VIT_B16["heads"], VIT_B16["dim"] // VIT_B16["heads"])
+    fwd, bwd = check_attention(shape, "cuda"), check_backward(shape, "cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    floors = {"flash_attention_fwd": alone_floor(fwd["ms"], fwd["host_ms"]),
+              "flash_attention_bwd_dq": alone_floor(bwd["ms_dq"], bwd["host_ms_dq"]),
+              "flash_attention_bwd_dkv": alone_floor(bwd["ms_dkv"], bwd["host_ms_dkv"])}
+    return {"batch": hb, "shape": shape, "fwd": fwd, "bwd": bwd, "floors": floors}
+
+
+def hires_phase(work: str, num_classes: int, epochs: int, checks: dict) -> dict:
+    """Phase 10 (module docstring) on the batch and kernel rows of
+    `hires_checks`: logs its lines and returns what the kernels line takes
+    from it (the batch, the shape, the launches over the run, the flash
+    kernels against their plain versions at the path's shape and their
+    numbers inside the step)."""
+    hb, hr_shape, floors = checks["batch"], checks["shape"], checks["floors"]
+    fwd, bwd = checks["fwd"], checks["bwd"]
+    n_hr = hr_shape[1]
+    # 10 steps of hb an epoch after the default 0.9 split, which keeps
+    # int(0.9 n) of a class's n images for training
+    hr_per_class = hb * 9 // 4
+    hr_images = write_jpeg_folder(os.path.join(work, "hires_jpegs"), np.random.default_rng(3),
+                                  num_classes, hr_per_class, HIRES["jpeg"])
+    hr_cfg = {**HIRES, "batch": hb}
+    hr = run_finetune(os.path.join(work, "hires"), "cuda", VIT_B16, hr_cfg,
+                      num_classes, hr_per_class, epochs, images=hr_images)
+    losses = [r["loss"] for r in hr["records"]]
+    log(f"high-resolution path: {HIRES['name']} state_dict (1000 classes, "
+        f"{HIRES['src_img']}x{HIRES['src_img']}) through --pretrained_path at "
+        f"{HIRES['img']}x{HIRES['img']} with --flash_attn {' '.join(HIRES['flags'])}, batch "
+        f"{hb}: the load printed {hr['resized']!r} and skipped {hr['skipped']}; pos_embed "
+        f"max|d| {hr['pos_err']:.3e} (tol {POS_EMBED_ATOL}); fed {feed_note(hr_images)} "
+        f"({HIRES['jpeg'][0]} x {HIRES['jpeg'][1]}); {len(losses)} steps ({epochs} "
+        f"epochs x {hr['steps_per_epoch']}), {hr['wall_s']:.1f} s for train.main; losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}")
+    log(f"high-resolution path launches per step of the run's captured step at N = {n_hr} "
+        f"(trace, in device order: {2 * VIT_B16['depth']} forwards with lse, the forward "
+        f"and its --remat recompute, then dQ and dK/dV, then {VIT_B16['depth']} forwards "
+        f"without lse): {[dict(c) for c in hr['per_replay']]}; counted by the wrappers "
+        f"over the run {hr['totals']}; {hr['checkpoint'].split('/')[-1]} input_shape "
+        f"{hr['input_shape']}, reloaded to the run's exact weights")
+    log(f"high-resolution checkpoint served by val_precision at {HIRES['img']}x"
+        f"{HIRES['img']}: top-1 {hr['val_top1']:.3f}; per replayed batch (trace) "
+        f"{dict(hr['serve_per_replay'][0])}; captured predict {hr['serve_ms_captured']:.3f} "
+        f"ms/batch of {hb}, eager {hr['serve_ms_eager']:.3f}")
+    rt = remat_timing(hr, VIT_B16["depth"], floors)
+    for name in ("remat", "plain"):
+        r = rt[name]
+        log(f"train step ViT-B/16 {HIRES['img']}x{HIRES['img']} bf16 --layer_decay 0.65, "
+            f"{'--remat' if name == 'remat' else 'no --remat'}, captured, batch {hb}: "
+            f"{r['ms']:.3f} ms/step, {hb / (r['ms'] / 1e3):.2f} img/s (CUDA events); "
+            f"torch.cuda.max_memory_allocated {r['peak_bytes'] / 2 ** 30:.2f} GiB")
+        log_trace(f"ViT-B/16 {HIRES['img']}x{HIRES['img']} batch {hb} train step, captured, "
+                  f"{name}", r["trace"], "step")
+    hr_replay, hr_totals = hr["per_replay"][0], hr["totals"]
+    hr_k1 = {}
+    for kind, kernel, row, errs in (
+            ("fwd", "flash_attention_fwd", fwd, None),
+            ("dq", "flash_attention_bwd_dq", bwd, ("dq",)),
+            ("dkv", "flash_attention_bwd_dkv", bwd, ("dk", "dv"))):
+        dev = rt["remat"]["device_ms_per_launch"][kernel]
+        bound = (fwd["bound_ms"], fwd["bound_by"]) if kind == "fwd" else bwd["bounds"][kind]
+        checked = ({"max_abs_err": fwd["max_abs_err"],
+                    "errs": {"o": [fwd["max_abs_err"], fwd["tol"]]}, "ms": fwd["ms"],
+                    "plain_ms": fwd["plain_ms"], "library_ms": fwd["library_ms"],
+                    "device_ms_alone": fwd["device_ms"],
+                    "library_device_ms": fwd["library_device_ms"]} if kind == "fwd" else
+                   {"max_abs_err": max(bwd["errs"][e][0] for e in errs),
+                    "errs": {e: list(bwd["errs"][e][:2]) for e in errs},
+                    "ms": bwd[f"ms_{kind}"],
+                    "plain_ms": bwd["plain_ms"], "library_ms": bwd["library_ms"],
+                    "device_ms_alone": bwd[f"device_ms_{kind}"],
+                    "library_device_ms": bwd["library_device_ms"]})
+        hr_k1[kind] = {**checked, "launches_per_replay": hr_replay[kind], "device_ms": dev,
+                       "floor_ms": floors[kernel], "bound_ms": bound[0], "bound_by": bound[1],
+                       "gap_ms": hr_replay[kind] * (dev - bound[0])}
+    log(f"flash kernels inside the captured --remat step at B,N,H,D={hr_shape}, device ms a "
+        f"launch (repaired reader, held against the step's CUDA events and floored at half "
+        f"the kernel's CUDA events alone): " + "; ".join(
+            f"{k} {v['device_ms']:.4f} x {v['launches_per_replay']} launches (alone: events "
+            f"{v['ms']:.4f}, device {v['device_ms_alone']:.4f}), bound {v['bound_ms']:.4f} "
+            f"({v['bound_by']}), launches x (device - bound) {v['gap_ms']:.3f} ms"
+            for k, v in hr_k1.items())
+        + f"; SDPA at that shape (checked against its CUDA events): forward events "
+          f"{fwd['library_ms']:.4f}, device {fwd['library_device_ms']:.4f}; backward events "
+          f"{bwd['library_ms']:.4f}, device {bwd['library_device_ms']:.4f}")
+    del hr, rt
+    drop = dropout_remat_peak(VIT_B16, 224, 64, num_classes)
+    log(f"ViT-B/16 224x224 batch 64, dropout 0.1 and drop path 0.1 (plain attention), one "
+        f"eager step: torch.cuda.max_memory_allocated {drop['remat'][0]} bytes with --remat, "
+        f"{drop['plain'][0]} without, which it may exceed by 1 % at most (losses "
+        f"{drop['remat'][1]:.6f}, {drop['plain'][1]:.6f})")
+    eq_hr = captured_vs_eager(VIT_B16, HIRES["img"], hb, num_classes, steps=4,
+                              flags=HIRES["flags"])
+    log(f"captured vs eager ViT-B/16 {HIRES['img']}x{HIRES['img']} --flash_attn "
+        f"{' '.join(HIRES['flags'])} (drop_path 0.1, EMA with warmup), {eq_hr['steps']} steps "
+        f"at batch {hb} from one seeded state and seeded generators: max|d| eager vs eager "
+        f"{eq_hr['eager_gap']:.3e}, captured vs eager {eq_hr['captured_gap']:.3e}; losses "
+        f"eager {eq_hr['losses'][0]}, captured {eq_hr['losses'][2]}; a non-finite step in "
+        f"the replays: skipped {eq_hr['skipped']}, state unchanged bitwise")
+
+    return {"batch": hb, "shape": hr_shape, "totals": hr_totals, "k1": hr_k1}
+
+
+def feed_phase(work: str) -> None:
+    """Phase 11 (module docstring): logs its lines."""
+    feed = measure_feed(work, "cuda")
+    log(f"feed: BatchLoader, batch {FEED['batch']}, {FEED['img']}x{FEED['img']} train path, "
+        f"{FEED['size'][0]} x {FEED['size'][1]} JPEGs, {FEED['steps']} batches a pass, median "
+        f"of {FEED['reps']}, host os.cpu_count() {feed['cpu_count']}: " + ", ".join(
+            f"{k.replace('_', ' ')} threads {v:.1f} img/s" for k, v in feed.items()
+            if k.startswith(("native_", "pil_")) and k != "native_built"))
+    fe = feed_epochs(os.path.join(work, "feed_run"), feed["images"], "cuda", VIT_B16,
+                     FEED["img"], FEED["batch"])
+    for e, ep in enumerate(fe):
+        log(f"feed: train.main ViT-B/16 --flash_attn {FEED['img']}x{FEED['img']} batch "
+            f"{FEED['batch']}, epoch {e} ({'eager warm-up and captures' if e == 0 else 'steady'}"
+            f"): {ep['steps']} steps {ep['steps_s']:.3f} s ({ep['steps_s'] / ep['steps'] * 1e3:.1f}"
+            f" ms a step), of which waiting for the loader {ep['loader_wait_s']:.3f} s; eval "
+            f"{ep['eval_s']:.3f} s" + (f"; checkpoint writes {ep['checkpoint_s']:.3f} s"
+                                       if "checkpoint_s" in ep else ""))
+
+
 def launch_gap(rows, counts, key, gap) -> tuple:
     """(sum of launches x (device ms - bound ms), launches counted, launches
     left out) over one replayed train step: `counts` the replay's launches by
@@ -2106,6 +2688,15 @@ def main() -> int:
         for line in nvcc_log.splitlines():
             if "registers" in line or "spill" in line or "Function properties" in line:
                 log(f"ptxas {name}: {line.strip()[:160]}")
+    from imageclassification_tpu_torch.data import native_decode
+
+    t0 = time.perf_counter()
+    built = native_decode.get_lib() is not None
+    log(f"native JPEG decoder (imageclassification_tpu_torch/native/decode.cpp, g++ "
+        f"{' '.join(native_decode.CXX_FLAGS + native_decode.LIBS)}): "
+        + (f"built in {time.perf_counter() - t0:.1f} s on this host ({os.cpu_count()} CPUs); "
+           "JPEGs decode through it, every other file through PIL" if built else
+           f"did not build ({native_decode.build_error()}); every file decodes through PIL"))
 
     # 3a. the forward kernel against its plain version
     rows = [check_attention(s, "cuda") for s in ATTN_SHAPES]
@@ -2113,6 +2704,11 @@ def main() -> int:
     # 3b. the backward kernels (and the forward's lse) against theirs
     bwd_rows = [check_backward(s, "cuda") for s in ATTN_SHAPES]
     bwd_main = bwd_rows[ATTN_SHAPES.index(MAIN_SHAPE)]
+    # 3a, 3b at the shape of phase 8, before the training phases, after
+    # which a trace can come back without a kernel (`late_phases`)
+    ft_shape = (FINETUNE["batch"], (FINETUNE["img"] // VIT_B16["patch"]) ** 2 + 1,
+                VIT_B16["heads"], VIT_B16["dim"] // VIT_B16["heads"])
+    ft_fwd, ft_bwd = check_attention(ft_shape, "cuda"), check_backward(ft_shape, "cuda")
     # 3c. the LayerNorm kernels against theirs (and one input with constant rows)
     ln_rows = [check_layernorm(r, c, "cuda") for r, c in LN_SHAPES]
     check_layernorm(4096, 96, "cuda", constant=True, timed=False)
@@ -2162,8 +2758,8 @@ def main() -> int:
         log(f"training path: {len(losses)} steps ({cfg['epochs']} epochs x "
             f"{run['steps_per_epoch']}) of ViT-B/16 --flash_attn 224x224 batch "
             f"{cfg['batch']}, captured after {TRAIN_WARMUP} eager steps, {run['wall_s']:.1f} s "
-            f"for train.main (decode, evals and checkpoints included); losses "
-            f"{', '.join(f'{x:.4f}' for x in losses)}")
+            f"for train.main (decode, evals and checkpoints included), fed {feed_note(images)}; "
+            f"losses {', '.join(f'{x:.4f}' for x in losses)}")
         log(f"training path launches per step of the run's captured step (trace, in device "
             f"order: {VIT_B16['depth']} forwards with lse, the backward's dQ and dK/dV kernels, "
             f"{VIT_B16['depth']} forwards without lse): "
@@ -2324,11 +2920,13 @@ def main() -> int:
         log_step_timing(f"EfficientViT-M0 {cfg['img']}x{cfg['img']} bf16 (default flags)",
                         cfg["batch"], step_timing(dm, "cuda"))
         del dm
-    # 8 (cont.). the flash kernels against their plain versions at the
-    # fine-tuning path's shape
-    ft_shape = (FINETUNE["batch"], (FINETUNE["img"] // VIT_B16["patch"]) ** 2 + 1,
-                VIT_B16["heads"], VIT_B16["dim"] // VIT_B16["heads"])
-    ft_fwd, ft_bwd = check_attention(ft_shape, "cuda"), check_backward(ft_shape, "cuda")
+
+    # 10. fine-tuning ViT-B/16 --flash_attn at 1024x1024 from a 224x224
+    # state_dict with --layer_decay 0.65 and --remat, fed 1280 x 960 JPEGs,
+    # the launches counted from 0 over its run; 11. the feed: BatchLoader's
+    # img/s over JPEGs, native and PIL, and train.main's epochs split into
+    # steps, loader waits, eval and checkpoint writes
+    hr = late_phases(cfg["num_classes"], cfg["epochs"])
 
     # results
     replaces_bwd = ("jax/experimental/pallas/ops/tpu/flash_attention.py:{} (the backward of "
@@ -2375,6 +2973,17 @@ def main() -> int:
             "bound_by": ft_bwd["bounds"][part][1], "library_ms": ft_bwd["library_ms"],
             "device_ms": ft_bwd[f"device_ms_{part}"],
             "library_device_ms": ft_bwd["library_device_ms"]}
+    # the flash kernels on the high-resolution path (phase 10): launches
+    # counted from 0 over its run and per replayed step, the kernels at its
+    # shape against their plain versions and SDPA, and their device ms
+    # inside the captured --remat step beside the bound
+    hr_path = {"shape": list(hr["shape"]),
+               "path": (f"fine-tuning ViT-B/16 at 1024x1024 with --layer_decay 0.65 --remat, "
+                        f"batch {hr['batch']} (chip_smoke.py phase 10)")}
+    for entry, kind, total in zip(kernels[:3], ("fwd", "dkv", "dq"),
+                                  ("fwd", "bwd_dkv", "bwd_dq")):
+        entry["at_4097"] = {**hr_path, "launches": hr["totals"][total], **hr["k1"][kind]}
+    kernels[0]["at_4097"]["launches_lse"] = hr["totals"]["fwd_lse"]
     # the LayerNorm and depthwise-conv rows: the stage-0 shape (the largest),
     # launches counted over the replay of phase 6b
     ln0, dw0 = ln_rows[0], dw_rows[0]
@@ -2444,6 +3053,8 @@ def main() -> int:
             raise AssertionError(f"{k['name']} was not launched {where}")
         if "at_577" in k and k["at_577"]["launches"] <= 0:
             raise AssertionError(f"{k['name']} was not launched on the fine-tuning path")
+        if "at_4097" in k and k["at_4097"]["launches"] <= 0:
+            raise AssertionError(f"{k['name']} was not launched on the high-resolution path")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
@@ -2451,5 +3062,43 @@ def main() -> int:
     return 0
 
 
+def late_phases(num_classes: int, epochs: int) -> dict:
+    """Phases 10 and 11 in a child process of this script (`--late-phases`),
+    which starts with a fresh profiler: in a process that has run the
+    training phases and their traces, every torch.profiler trace can come
+    back without a kernel from some point on (two of six whole runs on the
+    card, one at the start of phase 10, one at the end). The child writes to
+    this process's output and returns phase 10's result (what the kernels
+    line takes) through a file; a child that fails raises here."""
+    with tempfile.TemporaryDirectory() as work:
+        out = os.path.join(work, "phase10.json")
+        sys.stdout.flush()
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__), "--late-phases",
+                             str(num_classes), str(epochs), out], timeout=900).returncode
+        if rc != 0:
+            raise AssertionError(f"phases 10-11 (a child process) exited with {rc}")
+        with open(out) as f:
+            return json.load(f)
+
+
+def late_main(num_classes: int, epochs: int, out: str) -> int:
+    """The child of `late_phases`: phase 10 (with its kernel checks first)
+    and phase 11, phase 10's result written to `out` as JSON."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as work:
+        hr = hires_phase(work, num_classes, epochs, hires_checks(num_classes))
+        feed_phase(work)
+    with open(out, "w") as f:
+        json.dump(hr, f)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--late-phases"]:
+        sys.exit(late_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -19,12 +19,19 @@ state flattens (`checkpoint/io.py::_flatten` there):
 
     count                                   int32, updates taken
     hyperparams/{learning_rate,weight_decay}
-    adamw:        inner_state/{i}/count, inner_state/{i}/mu/<path>, .../nu/<path>
+    adamw, adam, nadam, radam, lamb, adamp:
+                  inner_state/{i}/count, inner_state/{i}/mu/<path>, .../nu/<path>
+    lion:         inner_state/{i}/count, inner_state/{i}/mu/<path>
+    rmsprop(tf):  inner_state/{i}/nu/<path>, inner_state/{i+1}/trace/<path>
+    adadelta:     inner_state/{i}/e_g/<path>, inner_state/{i}/e_x/<path>
+    sgdp:         inner_state/{i}/momentum/<path>
     sgd/momentum: inner_state/{i}/trace/<path>
 
 where <path> is the JAX parameter path and i the index of the core
-transformation in the optax chain: adamw 0, sgd/momentum 1 (after the coupled
-weight decay), each one more with --clip_grad (after the clip).
+transformation in the optax chain: 0, or 1 after the coupled weight decay
+of the optimizers that have it, each one more with --clip_grad (after the
+clip). With Lookahead the whole of it moves under `inner/`, beside the
+Lookahead state's own `count` and `slow/<path>`.
 """
 
 from __future__ import annotations
@@ -40,7 +47,7 @@ from ..models.convnext import ConvNeXt
 from ..models.efficientvit import EfficientViT
 from ..models.resnet import ResNet
 from ..models.vit import ViT
-from ..optim.factory import Optimizer
+from ..optim.factory import COUPLED_WD, MOMENTS, Optimizer
 from .from_jax import (CONVNEXT_MODULES, convnext_state_dict_with_sources,
                        efficientvit_modules, match_module, resnet_modules, split_modules,
                        state_dict_with_sources, vit_state_dict_with_sources)
@@ -152,13 +159,53 @@ def carry_for(model: torch.nn.Module) -> Carry:
         f"weight carry for {type(model).__name__} is not ported yet (ROADMAP A14-A15)")
 
 
-# the port's moment names -> the JAX optax state's
-_JAX_MOMENTS = {"adamw": {"exp_avg": "mu", "exp_avg_sq": "nu"},
-                "sgd": {"momentum_buffer": "trace"}, "momentum": {"momentum_buffer": "trace"}}
+# each optimizer's moments in the JAX optax state, in the order of
+# `factory.MOMENTS`: (the offset of its transformation from the core's
+# first, the JAX field); and whether the core keeps a count of its own
+_ADAM = (((0, "mu"), (0, "nu")), True)
+_RMS = (((0, "nu"), (1, "trace")), False)
+_JAX_LAYOUT = {
+    "adamw": _ADAM, "adam": _ADAM, "nadam": _ADAM, "radam": _ADAM, "lamb": _ADAM,
+    "adamp": _ADAM, "lion": (((0, "mu"),), True), "rmsprop": _RMS, "rmsproptf": _RMS,
+    "adadelta": (((0, "e_g"), (0, "e_x")), False), "sgdp": (((0, "momentum"),), False),
+    "sgd": (((0, "trace"),), False), "momentum": (((0, "trace"),), False),
+}
+
+
+def _jax_layout(name: str):
+    """([(the port's moment, offset, JAX field)], the core keeps a count)."""
+    fields, has_count = _JAX_LAYOUT[name]
+    return [(m, *f) for m, f in zip(MOMENTS[name], fields, strict=True)], has_count
 
 
 def _core_index(opt: Optimizer) -> int:
-    return (0 if opt.name == "adamw" else 1) + (opt.clip_grad is not None)
+    return (opt.name in COUPLED_WD) + (opt.clip_grad is not None)
+
+
+def jax_leaves(model: torch.nn.Module, carry: Carry):
+    """Each parameter's JAX tensors as (start, length, JAX ndim) over the
+    parameter flattened, in `named_parameters()` order: one for a parameter
+    that is one JAX tensor, several for one the carry splits (ViT's fused
+    qkv: query, key and value, each a contiguous third). Found by carrying
+    the element indices; raises where a JAX tensor is not one contiguous
+    run of them."""
+    out = []
+    for k, p in model.named_parameters():
+        whole = carry.to_jax({k: p})
+        if len(whole) == 1:
+            out.append([(0, p.numel(), next(iter(whole.values())).ndim)])
+            continue
+        # the carry computes in fp32: indices stay exact up to 2^24 elements
+        idx = torch.arange(p.numel(), dtype=torch.float64).reshape(p.shape)
+        leaves = []
+        for v in carry.to_jax({k: idx}).values():
+            flat = np.sort(v.reshape(-1)).astype(np.int64)
+            start = int(flat[0])
+            if not np.array_equal(flat, np.arange(start, start + flat.size)):
+                raise ValueError(f"{k}: a JAX tensor is not a contiguous part of it")
+            leaves.append((start, int(flat.size), v.ndim))
+        out.append(sorted(leaves))
+    return out
 
 
 def optimizer_to_jax(opt: Optimizer, model: torch.nn.Module,
@@ -168,15 +215,21 @@ def optimizer_to_jax(opt: Optimizer, model: torch.nn.Module,
     names = [k for k, _ in model.named_parameters()]
     count = np.asarray(opt.num_updates, np.int32)
     i = _core_index(opt)
+    moments, has_count = _jax_layout(opt.name)
     flat = {"count": count,
             "hyperparams/learning_rate": np.asarray(float(opt.lr), np.float32),
             "hyperparams/weight_decay": np.asarray(float(opt.weight_decay), np.float32)}
-    if opt.name == "adamw":
+    if has_count:
         flat[f"inner_state/{i}/count"] = count
-    for field, jax_field in _JAX_MOMENTS[opt.name].items():
+    for field, offset, jax_field in moments:
         for k, v in carry.to_jax(dict(zip(names, opt.moments[field]))).items():
-            flat[f"inner_state/{i}/{jax_field}/{k}"] = v
-    return flat
+            flat[f"inner_state/{i + offset}/{jax_field}/{k}"] = v
+    if not opt.lookahead:
+        return flat
+    out = {"count": np.asarray(int(opt.lookahead_count), np.int32)}
+    out.update({f"slow/{k}": v for k, v in carry.to_jax(dict(zip(names, opt.slow))).items()})
+    out.update({f"inner/{k}": v for k, v in flat.items()})
+    return out
 
 
 def optimizer_from_jax(flat: Dict[str, np.ndarray], opt: Optimizer,
@@ -185,21 +238,29 @@ def optimizer_from_jax(flat: Dict[str, np.ndarray], opt: Optimizer,
     the leaves that match a parameter by name and shape, as the JAX resume
     does. Returns the number of parameters whose state was loaded."""
     index = {k: j for j, (k, _) in enumerate(model.named_parameters())}
-    i = _core_index(opt)
-    fields = _JAX_MOMENTS[opt.name]
-    count = int(np.asarray(flat.get(f"inner_state/{i}/count", flat.get("count", 0))))
-    loaded = {}
-    for field, jax_field in fields.items():
-        prefix = f"inner_state/{i}/{jax_field}/"
+
+    def per_param(prefix: str) -> Dict[int, torch.Tensor]:
         sub = {k[len(prefix):]: v for k, v in flat.items() if k.startswith(prefix)}
-        for k, v in carry.to_port(sub)[0].items():
-            j = index.get(k)
-            if j is not None and tuple(v.shape) == tuple(opt.params[j].shape):
-                loaded.setdefault(j, {})[field] = v
+        return {index[k]: v for k, v in carry.to_port(sub)[0].items()
+                if k in index and tuple(v.shape) == tuple(opt.params[index[k]].shape)}
+
+    inner = "inner/" if opt.lookahead else ""
+    i = _core_index(opt)
+    moments, _ = _jax_layout(opt.name)
+    count = int(np.asarray(flat.get(f"{inner}inner_state/{i}/count",
+                                    flat.get(f"{inner}count", 0))))
+    loaded = {}
+    for field, offset, jax_field in moments:
+        for j, v in per_param(f"{inner}inner_state/{i + offset}/{jax_field}/").items():
+            loaded.setdefault(j, {})[field] = v
     with torch.no_grad():
         for j, st in loaded.items():
-            if len(st) == len(fields):
+            if len(st) == len(moments):
                 for field, v in st.items():
                     opt.moments[field][j].copy_(v)
-    opt.num_updates = int(np.asarray(flat.get("count", count)))
+        if opt.lookahead:
+            for j, v in per_param("slow/").items():
+                opt.slow[j].copy_(v)
+            opt.lookahead_count.fill_(int(np.asarray(flat.get("count", 0))))
+    opt.num_updates = int(np.asarray(flat.get(f"{inner}count", count)))
     return len(loaded)

@@ -4,8 +4,10 @@ batch loader that feeds the train and eval steps.
 Geometry follows the JAX package's `data/loader.py::decode_image`:
 train=True takes RandomResizedCrop parameters drawn from a per-sample
 generator seeded by `seed` and resamples bicubic; train=False squash-resizes
-bilinear with no center crop. Everything is decoded through PIL; the native
-libjpeg decoder of the JAX package is not part of the port yet.
+bilinear with no center crop. JPEGs go through the port's copy of the JAX
+package's native libjpeg decoder (`native_decode`) where it builds, as the
+JAX loader routes them, so both packages feed the same pixels; every other
+file, and any JPEG the native decoder refuses, is decoded through PIL.
 
 `BatchLoader` is the port of the JAX `DeviceLoader`: a thread pool decodes
 the samples of a batch, the uint8 NHWC batch is pinned and copied to the
@@ -63,7 +65,13 @@ def decode_image(
     scale=(1.0, 1.0),
     ratio=(1.0, 1.0),
 ) -> np.ndarray:
-    """Decode one image to a uint8 [size, size, 3] canvas."""
+    """Decode one image to a uint8 [size, size, 3] canvas: `.jpg`/`.jpeg`
+    through the native decoder where it built, else (and on any native
+    failure) through PIL."""
+    if path.lower().endswith((".jpg", ".jpeg")):
+        out = _decode_native(path, size, train, seed, scale, ratio)
+        if out is not None:
+            return out
     with Image.open(path) as img:
         img = img.convert("RGB")
         if train:
@@ -73,6 +81,29 @@ def decode_image(
         else:
             img = img.resize((size, size), Image.BILINEAR)
         return np.asarray(img, dtype=np.uint8)
+
+
+def _decode_native(path, size, train, seed, scale, ratio):
+    """The JAX loader's native route: the same crop box (x, y, w, h) from
+    `_rrc_params`, decoded bicubic, on the train path; the whole image,
+    bilinear, on the eval path. None where the library or the file fails."""
+    from . import native_decode as nd
+
+    if nd.get_lib() is None:
+        return None
+    try:
+        with open(path, "rb") as f:
+            data = f.read()
+    except OSError:
+        return None
+    dims = nd.jpeg_dims(data)
+    if dims is None:
+        return None
+    w, h = dims
+    if train:
+        i, j, th, tw = _rrc_params(w, h, scale, ratio, _rng(seed))
+        return nd.decode_crop_resize(data, (j, i, tw, th), size, nd.BICUBIC)
+    return nd.decode_crop_resize(data, (0, 0, -1, -1), size, nd.BILINEAR)
 
 
 def sample_seed(seed: int, idx: int) -> int:

@@ -28,6 +28,19 @@ are one packed vector. `train_step` chains the two eagerly and returns the
 metrics as a `StepMetrics`, copied to the host without waiting for the
 device.
 
+With `--remat` the loss function (forward and loss) runs under one
+`torch.utils.checkpoint.checkpoint`, as JAX wraps its `loss_fn` in
+`jax.checkpoint`: no activation is kept, and the backward runs the forward
+again first. The recompute draws its dropout and stochastic-depth masks
+from a second generator that is given the dropout generator's state on the
+host before each step (`host_inputs`; `loss_and_grads` too), so it replays
+the first run's masks without keeping them, in eager mode and inside a CUDA
+graph alike, where both generators are registered with the graph (torch's
+checkpoint would restore only the default generators, and reading a CUDA
+generator's state is refused while a graph captures). Under `--layer_decay`
+the `lr` and `min_lr` metrics are lr times the largest and the smallest
+layer scale, as JAX reports them.
+
 BatchNorm (models with `layers.BatchNorm`): the forward's batch statistics
 advance the running statistics on every finite micro-step
 (`commit_batch_stats`, gated by the same device bool), and the EMA of the
@@ -35,8 +48,8 @@ statistics moves toward the new statistics at each real update; the
 exact-mode accuracy forward normalises with its own batch statistics and
 throws them away.
 
-Distillation, prune masks and AdaHessian are not ported yet (ROADMAP A16,
-A17) and raise.
+Distillation and prune masks (ROADMAP A17 (rest)) and AdaHessian (A16
+(rest)) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -49,6 +62,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..data.augment import AugmentPipeline, eval_preprocess
 from ..data.mixup import (MixupConfig, mixup_cutmix, one_hot_smooth, pack_draws,
@@ -151,7 +165,7 @@ def build_train_step(model: nn.Module, args, num_classes: int,
     if teacher is not None or prune_masks is not None:
         raise NotImplementedError(
             "distillation and prune masks are not ported to imageclassification_tpu_torch "
-            "yet (ROADMAP A17)")
+            "yet (ROADMAP A17 (rest))")
     device = next(model.parameters()).device
     augment = AugmentPipeline(args)
     update_freq = int(args.update_freq)
@@ -160,6 +174,7 @@ def build_train_step(model: nn.Module, args, num_classes: int,
     ema_warmup = bool(getattr(args, "model_ema_warmup", False))
     norm_type = float(getattr(args, "grad_norm_type", 2.0))
     exact_acc = getattr(args, "train_acc_mode", "exact") != "mixed"
+    remat = bool(getattr(args, "remat", False))
     # fp32 tables on the device, read at the schedule index (as JAX reads
     # its fp32 schedule arrays inside the step)
     lr_table = torch.tensor(np.asarray(lr_schedule, np.float32), device=device)
@@ -169,6 +184,13 @@ def build_train_step(model: nn.Module, args, num_classes: int,
     aug_gen = torch.Generator(device=device).manual_seed(seed)
     mix_gen = torch.Generator().manual_seed(seed + 1)
     drop_gen = torch.Generator(device=device).manual_seed(seed + 2)
+    # --remat: the recompute's generator, given drop_gen's state before each
+    # step, so that it draws the first run's masks again
+    redraw_gen = torch.Generator(device=device) if remat else None
+
+    def sync_redraw() -> None:
+        if remat:
+            redraw_gen.set_state(drop_gen.get_state())
 
     def sample_draws(B: int, H: int, W: int) -> Dict:
         return {"augment": augment.sample(B, H, W, aug_gen),
@@ -181,13 +203,22 @@ def build_train_step(model: nn.Module, args, num_classes: int,
     def host_inputs(step: int, B: int, H: int, W: int, mixup_draws=None) -> torch.Tensor:
         """The step's host-side inputs as one float64 CPU vector: the schedule
         index t = step // update_freq, then the mixup draws (`pack_draws`),
-        drawn here unless given."""
+        drawn here unless given. Gives the recompute's generator the dropout
+        generator's state (`--remat`)."""
+        sync_redraw()
         parts = [np.asarray([step // update_freq], np.float64)]
         if mixup_cfg is not None:
             if mixup_draws is None:
                 mixup_draws = sample_mixup(mixup_cfg, B, H, W, mix_gen)
             parts.append(pack_draws(mixup_cfg, mixup_draws))
         return torch.from_numpy(np.concatenate(parts))
+
+    def loss_fn(model: nn.Module, mixed, targets, generator):
+        """(loss, fp32 logits) of the training forward."""
+        logits = model(mixed, generator=generator).float()
+        if targets.dim() == 2:  # soft targets: SoftTargetCrossEntropy
+            return -(targets * F.log_softmax(logits, dim=-1)).sum(-1).mean(), logits
+        return F.cross_entropy(logits, targets), logits
 
     def forward_backward(model: nn.Module, image, label, aug, mix):
         """(loss, logits, augmented un-mixed images, gradients of the
@@ -199,16 +230,24 @@ def build_train_step(model: nn.Module, args, num_classes: int,
             mixed, targets = images, one_hot_smooth(label, num_classes, smoothing)
         else:
             mixed, targets = images, label
-        logits = model(mixed, generator=drop_gen).float()
-        if targets.dim() == 2:  # soft targets: SoftTargetCrossEntropy
-            loss = -(targets * F.log_softmax(logits, dim=-1)).sum(-1).mean()
+        if remat:
+            gens = iter((drop_gen, redraw_gen))  # the first run, then the recompute
+
+            def run(mixed, targets):
+                return loss_fn(model, mixed, targets, next(gens))
+
+            # no default generator is drawn from, so none is saved (reading
+            # a CUDA generator's state is not allowed while a graph captures)
+            loss, logits = checkpoint(run, mixed, targets, use_reentrant=False,
+                                      preserve_rng_state=False)
         else:
-            loss = F.cross_entropy(logits, targets)
+            loss, logits = loss_fn(model, mixed, targets, drop_gen)
         grads = torch.autograd.grad(loss, list(model.parameters()))
         return loss.detach(), logits.detach(), images, grads
 
     def loss_and_grads(model: nn.Module, batch, draws):
         """`forward_backward` on `batch` with the draws of `sample_draws`."""
+        sync_redraw()
         image = batch["image"]
         mix = None
         if mixup_cfg is not None:
@@ -267,7 +306,8 @@ def build_train_step(model: nn.Module, args, num_classes: int,
             tp, fp, fn = _per_class_counts(preds, label, num_classes,
                                            torch.ones_like(preds, dtype=torch.float32))
             class_acc = (preds == label).float().mean()
-            return _pack((loss, class_acc, grad_norm, lr, lr, wd, ~finite), tp, fp, fn)
+            lo, hi = opt.scale_bounds
+            return _pack((loss, class_acc, grad_norm, lr * hi, lr * lo, wd, ~finite), tp, fp, fn)
 
     def train_step(state: TrainState, batch, draws: Optional[Dict] = None) -> StepMetrics:
         image = batch["image"]
@@ -283,7 +323,7 @@ def build_train_step(model: nn.Module, args, num_classes: int,
     train_step.host_inputs = host_inputs
     train_step.device_step = device_step
     train_step.is_boundary = is_boundary
-    train_step.generators = (aug_gen, drop_gen)
+    train_step.generators = (aug_gen, drop_gen) + ((redraw_gen,) if remat else ())
     train_step.num_classes = num_classes
     return train_step
 

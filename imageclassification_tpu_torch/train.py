@@ -9,6 +9,9 @@
     python -m imageclassification_tpu_torch.train --data_path <ImageFolder> \\
         --model vit_base_patch16_224 --flash_attn true --input_size 384 \\
         --pretrained_path <timm state_dict or checkpoint> ...
+    python -m imageclassification_tpu_torch.train --data_path <ImageFolder> \\
+        --model vit_base_patch16_224 --flash_attn true --input_size 1024 \\
+        --pretrained_path <state_dict> --layer_decay 0.65 --remat true ...
     python -m imageclassification_tpu_torch.train --data_path <ImageFolder>  # efficientvit_m0
 
 The JAX train.py's flags, artifacts and epoch flow: `class_indices.json`
@@ -23,8 +26,9 @@ as CUDA graphs (`engine/compiled.py`, the counterpart of the JAX step's
 `jax.jit`); on the CPU, and with --check_nans (eager, with NaN checks, as
 JAX's jax_debug_nans), they run eagerly. One process on one device; the ViT,
 ConvNeXt, ConvNeXt-V2, ResNet (ResNeXt, wide ResNet) and EfficientViT
-families are built (other names raise NotImplementedError), and the flags
-of features not ported yet raise (config.check_ported).
+families are built (other names raise NotImplementedError), --layer_decay,
+--remat and the optimizer table (but nvnovograd, adafactor, adahessian)
+run, and the flags of features not ported yet raise (config.check_ported).
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ import numpy as np
 import torch
 
 from .checkpoint import io as ckpt_io
+from .checkpoint.to_jax import carry_for, jax_leaves
 from .checkpoint.torch_convert import load_pretrained_flat, resample_pos_embed
 from .config import TrainConfig, check_ported, parse_args
 from .data.folder import build_dataset
@@ -54,7 +59,8 @@ from .engine.step import build_eval_step, build_train_step
 from .models import create_model, model_kwargs_for
 from .models.layers import batch_norm_stats
 from .optim.ema import init_ema, init_ema_stats
-from .optim.factory import create_optimizer
+from .optim.factory import create_optimizer, route
+from .optim.layer_decay import layer_decay_scales
 from .optim.schedules import build_schedules
 from .utils.loggers import TensorboardLogger, WandbLogger
 
@@ -107,6 +113,20 @@ def _load_pretrained(args, state) -> None:
     print(f"Loaded pretrained weights from {args.pretrained_path}")
 
 
+def optimizer_layout(args: TrainConfig, model) -> dict:
+    """The per-parameter arguments of `create_optimizer` for `model`: the
+    layer scales under --layer_decay < 1 (`layer_decay_scales`, as the JAX
+    train.py builds them), and for the optimizers that take norms over whole
+    tensors (lamb, adamp, sgdp) each parameter's JAX tensors."""
+    kw = {}
+    if args.layer_decay and args.layer_decay < 1.0:
+        kw["layer_scales"] = layer_decay_scales(
+            [k for k, _ in model.named_parameters()], args.model, args.layer_decay)
+    if route(args.opt)[0] in ("lamb", "adamp", "sgdp"):
+        kw["leaves"] = jax_leaves(model, carry_for(model))
+    return kw
+
+
 def main(args: TrainConfig):
     check_ported(args)
     device = resolve_device(args.device)
@@ -148,7 +168,8 @@ def main(args: TrainConfig):
 
     optimizer = create_optimizer(args.opt, model.parameters(), lr=args.lr,
                                  weight_decay=args.weight_decay, opt_eps=args.opt_eps,
-                                 opt_betas=args.opt_betas, clip_grad=args.clip_grad)
+                                 opt_betas=args.opt_betas, clip_grad=args.clip_grad,
+                                 **optimizer_layout(args, model))
     state = create_train_state(model, optimizer, use_ema=args.model_ema,
                                update_freq=args.update_freq)
     print("number of params:", num_params(state))

@@ -18,7 +18,7 @@ from imageclassification_tpu.data import folder as jax_folder
 from imageclassification_tpu.data import loader as jax_loader
 from imageclassification_tpu.data import mixup as jax_mixup
 from imageclassification_tpu.data import sampler as jax_sampler
-from imageclassification_tpu_torch.data import augment, folder, loader, mixup, sampler
+from imageclassification_tpu_torch.data import augment, folder, loader, mixup, native_decode, sampler
 
 import jax_draws
 
@@ -187,8 +187,9 @@ def test_build_dataset_matches_jax(toy_dataset, toy_split_dataset, tmp_path, rat
 
 
 def test_batch_loader_decodes_like_the_jax_loader(monkeypatch, toy_dataset):
-    # the JAX loader's per-sample crop seed and decode, through PIL on both
-    monkeypatch.setattr(jax_native, "get_lib", lambda: None)
+    # the JAX loader's per-sample crop seed and decode: the toy JPEGs through
+    # each package's native decoder (PIL on both where neither builds)
+    assert (jax_native.get_lib() is None) == (native_decode.get_lib() is None)
     ds = folder.scan_folder(toy_dataset)
     idx = np.array([[3, 17, 0], [29, -1, -1]])
     batches = list(loader.BatchLoader(ds, idx, 24, train=True, device="cpu", seed=5,

@@ -189,7 +189,7 @@ def _max_diff(a, b):
     return max((x.double() - b[k].double()).abs().max().item() for k, x in a.items())
 
 
-def _vit_b16(device, **model_kw):
+def _vit_b16(device, remat=False, **model_kw):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     model = create_model("vit_base_patch16", num_classes=5, half_precision=True, img_size=224,
@@ -198,7 +198,7 @@ def _vit_b16(device, **model_kw):
     opt = create_optimizer("adamw", model.parameters(), lr=1e-3, weight_decay=0.05)
     state = create_train_state(model, opt, use_ema=True)
     args = TrainConfig(model="vit_base_patch16", flash_attn=True, model_ema=True,
-                       model_ema_warmup=True, device="cuda")
+                       model_ema_warmup=True, remat=remat, device="cuda")
     step = build_train_step(model, args, 5, build_mixup(args, 5), np.linspace(1e-3, 1e-4, 8),
                             np.linspace(0.05, 0.01, 8), ema_decay=0.999, seed=3)
     return state, step
@@ -208,7 +208,9 @@ def _vit_b16(device, **model_kw):
 @pytest.mark.parametrize("model_kw", [
     {"drop_path_rate": 0.1},                     # the flash kernels, stochastic depth
     {"drop_path_rate": 0.1, "drop_rate": 0.1},   # dropout too: the plain attention path
-], ids=["drop_path", "drop_path_and_dropout"])
+    # --remat: the recompute redraws the masks from a generator of its own
+    {"drop_path_rate": 0.1, "drop_rate": 0.1, "remat": True},
+], ids=["drop_path", "drop_path_and_dropout", "drop_path_and_dropout_remat"])
 def test_captured_vit_b16_steps_equal_eager_steps_on_card(cuda_device, model_kw):
     # 6 steps at full width (mixup, colour jitter, random erasing, EMA with
     # warmup), eager twice and captured once from the same state and

@@ -83,11 +83,13 @@ def test_updates_match_optax(opt, clip):
     assert popt.num_updates == 5
 
 
-@pytest.mark.parametrize("opt,err", [("adam", NotImplementedError),
-                                     ("lookahead_adamw", NotImplementedError),
-                                     ("lamb", NotImplementedError), ("bogus", ValueError)])
+@pytest.mark.parametrize("opt,err", [("adahessian", NotImplementedError),
+                                     ("lookahead_adafactor", NotImplementedError),
+                                     ("nvnovograd", NotImplementedError),
+                                     ("fusednovograd", NotImplementedError),
+                                     ("bogus", ValueError)])
 def test_unported_and_unknown_optimizers(opt, err):
-    with pytest.raises(err):
+    with pytest.raises(err, match="A16 \\(rest\\)" if err is NotImplementedError else opt):
         factory.create_optimizer(opt, [torch.nn.Parameter(torch.zeros(2))], 0.1, 0.0)
 
 
@@ -175,3 +177,165 @@ def test_optimizer_state_layout_and_values_match_jax(opt, clip):
         o.step()
     for (k, a), b in zip(model.named_parameters(), model2.parameters()):
         np.testing.assert_allclose(b.detach().numpy(), a.detach().numpy(), atol=1e-6, err_msg=k)
+
+
+# the optimizer table: every ported name, and Lookahead around three of them
+TABLE = ["adamw", "adam", "nadam", "radam", "lion", "lamb", "rmsprop", "rmsproptf", "adadelta",
+         "adamp", "sgdp", "sgd", "momentum", "fusedadam", "fusedlamb", "lookahead_adamw",
+         "lookahead_lamb", "lookahead_sgd"]
+# a ViT of depth 2 (four layer scales); its fused qkv is three JAX tensors,
+# which lamb's trust ratio and adamp's / sgdp's projection each take apart
+TABLE_VIT = dict(patch_size=16, dim=64, depth=2, num_heads=4, num_classes=3, img_size=32)
+
+
+def _table(opt, clip=0.5, decay=0.65, seed=0, eps=1e-3):
+    """A port ViT with `opt` (layer scales of `decay`, clip, the JAX
+    tensors), and the JAX optimizer with the JAX scales on its carried
+    parameters. eps 1e-3: where the clipped gradient and the coupled decay
+    cancel in an element, g / sqrt(v) with eps 1e-8 turns fp32 rounding
+    into an update of full size and either sign (seen on a few of 10^5
+    elements, in adam and rmsprop alike; 1e-7 apart without the clip or
+    without the decay), which no arithmetic order fixes."""
+    from imageclassification_tpu.optim.layer_decay import layer_decay_scales as jax_scales
+    from imageclassification_tpu_torch.checkpoint.to_jax import jax_leaves
+    from imageclassification_tpu_torch.optim.layer_decay import layer_decay_scales
+
+    model = port_vit.ViT(**TABLE_VIT, generator=torch.Generator().manual_seed(seed))
+    carry = carry_for(model)
+    names = [k for k, _ in model.named_parameters()]
+    popt = factory.create_optimizer(
+        opt, model.parameters(), lr=0.1, weight_decay=0.05, clip_grad=clip, opt_eps=eps,
+        layer_scales=layer_decay_scales(names, "vit_tiny_patch16", decay),
+        leaves=jax_leaves(model, carry))
+    jparams = _nest_jnp(carry.to_jax(dict(model.named_parameters())))
+    tx = jax_factory.create_optimizer(opt, 0.1, 0.05, clip_grad=clip, opt_eps=eps,
+                                      layer_scales=jax_scales(jparams, "vit_tiny_patch16", decay))
+    return model, popt, carry, tx, jparams
+
+
+def _nest_jnp(flat):
+    out = {}
+    for k, v in flat.items():
+        *parents, leaf = k.split("/")
+        node = out
+        for p in parents:
+            node = node.setdefault(p, {})
+        # a copy: on the CPU jnp.asarray may alias an aligned numpy buffer,
+        # here a view of a torch parameter that the port's step then updates
+        node[leaf] = jnp.asarray(np.array(v))
+    return out
+
+
+def _table_steps(model, popt, carry, tx, jparams, n, seed=1):
+    """n updates on both sides with the same seeded gradients, lr and wd
+    changed every step; returns the JAX (params, state)."""
+    jstate = tx.init(jparams)
+    g = torch.Generator().manual_seed(seed)
+    for step in range(n):
+        lr, wd = 0.1 / (step + 1), 0.05 * (step + 1)
+        grads = {k: 0.3 * torch.randn(p.shape, generator=g) for k, p in model.named_parameters()}
+        jstate = jax_factory.set_hyperparams(jstate, lr, wd)
+        updates, jstate = tx.update(_nest_jnp(carry.to_jax(grads)), jstate, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        popt.set_hyperparams(lr, wd)
+        popt.step([grads[k].clone() for k in grads])
+    return jparams, jstate
+
+
+@pytest.mark.parametrize("opt", TABLE)
+def test_table_updates_match_optax(opt):
+    # five updates (seven with Lookahead, which syncs at the sixth) with clip
+    # and layer scales on: the parameters match the JAX chain's; fp32 on both
+    # sides, the same arithmetic in another order, on updates of up to lr =
+    # 0.1
+    model, popt, carry, tx, jparams = _table(opt)
+    start = {k: np.asarray(v) for k, v in carry.to_jax(dict(model.named_parameters())).items()}
+    n = 7 if opt.startswith("lookahead") else 5
+    jparams, _ = _table_steps(model, popt, carry, tx, jparams, n)
+    got = carry.to_jax(dict(model.named_parameters()))
+    want = {"/".join(p.key for p in path): np.asarray(v)
+            for path, v in jax.tree_util.tree_flatten_with_path(jparams)[0]}
+    assert set(got) == set(want)
+    moved = max(np.abs(want[k] - start[k]).max() for k in want)
+    assert moved > 1e-3
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], atol=2e-6 + 1e-5 * moved, rtol=0, err_msg=k)
+    assert popt.num_updates == n
+
+
+def test_radam_rectifies_from_the_sixth_update():
+    # radam's switch (rho_t >= 5 from t = 6 with b2 = 0.999) is a device
+    # select; its rho cancels (1999 - 1994), which the port takes in float64,
+    # so it is held against the JAX chain run in float64: seven updates, the
+    # port in fp32
+    model, popt, carry, tx, jparams = _table("radam")
+    with jax.enable_x64(True):
+        jparams = jax.tree.map(lambda x: jnp.asarray(x, jnp.float64), jparams)
+        jparams, _ = _table_steps(model, popt, carry, tx, jparams, 7)
+        want = {"/".join(p.key for p in path): np.asarray(v)
+                for path, v in jax.tree_util.tree_flatten_with_path(jparams)[0]}
+    got = carry.to_jax(dict(model.named_parameters()))
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], atol=2e-6, rtol=0, err_msg=k)
+    for t, rect in ((5, False), (6, True)):
+        ro = 1999.0 - 2 * t * 0.999 ** t / (1 - 0.999 ** t)
+        assert (ro >= 5.0) == rect
+
+
+@pytest.mark.parametrize("opt", TABLE)
+def test_table_state_round_trips_through_the_jax_layout(opt):
+    # the port's state in the JAX layout has the JAX state's keys, shapes and
+    # values after the same updates; loaded into a fresh optimizer it gives
+    # the same layout back, and both go on alike
+    model, popt, carry, tx, jparams = _table(opt)
+    _, jstate = _table_steps(model, popt, carry, tx, jparams, 7)
+    want = _flatten(jstate)
+    got = optimizer_to_jax(popt, model, carry)
+    assert {k: v.shape for k, v in got.items()} == {k: v.shape for k, v in want.items()}
+    for k, v in want.items():
+        if "hyperparams" not in k:
+            np.testing.assert_allclose(got[k], v, atol=1e-5, rtol=1e-4, err_msg=k)
+    model2, popt2, carry2, _, _ = _table(opt, seed=5)
+    model2.load_state_dict(model.state_dict())
+    assert optimizer_from_jax(got, popt2, model2, carry2) == len(popt.params)
+    again = optimizer_to_jax(popt2, model2, carry2)
+    for k, v in got.items():
+        if "hyperparams" not in k:
+            np.testing.assert_array_equal(again[k], v, err_msg=k)
+    for o in (popt, popt2):
+        o.set_hyperparams(0.01, 0.05)
+        o.step([torch.full_like(p, 0.01) for p in o.params])
+    for (k, a), b in zip(model.named_parameters(), model2.parameters()):
+        torch.testing.assert_close(b, a, rtol=0, atol=0, msg=k)
+
+
+@pytest.mark.parametrize("opt", TABLE)
+def test_table_skipped_step_is_inert(opt):
+    # keep false (a non-finite loss): non-finite gradients leave the
+    # parameters, every moment, the count and Lookahead's slow weights and
+    # counter exactly as they were; the next step applies
+    model, popt, carry, tx, jparams = _table(opt)
+    _table_steps(model, popt, carry, tx, jparams, 5)
+
+    def snapshot():
+        out = {f"p{i}": p.detach().clone() for i, p in enumerate(popt.params)}
+        out.update({f"{k}{i}": t.clone() for k, ts in popt.moments.items()
+                    for i, t in enumerate(ts)})
+        out["count"] = popt.count.clone()
+        if popt.lookahead:
+            out.update({f"slow{i}": s.clone() for i, s in enumerate(popt.slow)})
+            out["lookahead_count"] = popt.lookahead_count.clone()
+        return out
+
+    before = snapshot()
+    nan = [torch.full_like(p, float("nan")) for p in popt.params]
+    popt.step(nan, keep=torch.tensor(False))
+    after = snapshot()
+    for k in before:
+        assert torch.equal(before[k], after[k]), k
+    popt.step([torch.full_like(p, 0.01) for p in popt.params], keep=torch.tensor(True))
+    assert popt.num_updates == 6
+    if popt.lookahead:  # the sixth applied update syncs
+        assert int(popt.lookahead_count) == 6
+        for p, s in zip(popt.params, popt.slow):
+            assert torch.equal(p, s)

@@ -193,17 +193,19 @@ def _pos(grid: int, d: int = 32, seed: int = 0):
     return rng.standard_normal((1, grid * grid + 1, d)).astype(np.float32)
 
 
-@pytest.mark.parametrize("src,dst", [(14, 24), (14, 7), (24, 14), (7, 14)])
+# 14 -> 64: ViT-B/16's 224x224 grid fine-tuned at 1024x1024 (N = 4097)
+@pytest.mark.parametrize("src,dst", [(14, 24), (14, 7), (24, 14), (7, 14), (14, 64)])
 def test_resample_pos_embed_matches_jax(src, dst, capsys):
-    # the same Keys cubic (a = -0.5) with border renormalisation: fp32
-    # rounding only, 1e-5 on values of magnitude ~1
-    flat = {"pos_embed": _pos(src), "cls_token": np.ones((1, 1, 32), np.float32)}
-    target = {"pos_embed": np.zeros((1, dst * dst + 1, 32), np.float32)}
+    # the same Keys cubic (a = -0.5) with border renormalisation, at ViT-B's
+    # width D = 768: fp32 rounding only, 1e-5 on values of magnitude ~1
+    d = 768
+    flat = {"pos_embed": _pos(src, d), "cls_token": np.ones((1, 1, d), np.float32)}
+    target = {"pos_embed": np.zeros((1, dst * dst + 1, d), np.float32)}
     want = jax_convert.resample_pos_embed(flat, target)
     got = port_convert.resample_pos_embed(flat, target)
     out = capsys.readouterr().out
     assert out.count(f"Resized pos_embed grid {src}x{src} -> {dst}x{dst}") == 2
-    assert got["pos_embed"].shape == want["pos_embed"].shape == (1, dst * dst + 1, 32)
+    assert got["pos_embed"].shape == want["pos_embed"].shape == (1, dst * dst + 1, d)
     assert got["pos_embed"].dtype == np.float32
     np.testing.assert_array_equal(got["pos_embed"][:, 0], flat["pos_embed"][:, 0])  # cls token
     np.testing.assert_allclose(got["pos_embed"], want["pos_embed"], atol=1e-5, rtol=0)
@@ -383,3 +385,26 @@ def test_chip_smoke_finetune_rehearsal_on_cpu(tmp_path):
     assert len(run["records"]) == 2 * run["steps_per_epoch"] == 12
     assert run["input_shape"] == [1, 48, 48, 3] and run["serve_launches"] == 0
     assert run["totals"] == {"fwd": 0, "fwd_lse": 0, "bwd_dkv": 0, "bwd_dq": 0}
+
+
+def test_chip_smoke_hires_rehearsal_on_cpu(tmp_path):
+    # chip_smoke.py's phase 10 at a tiny size on the CPU (plain attention, no
+    # kernel launches): a 1000-class vit_tiny_patch16 file at 32x32
+    # fine-tuned at 64x64 (2x2 -> 4x4) with --layer_decay 0.65 and --remat,
+    # fed JPEGs, 2 epochs and serving
+    model = dict(name="vit_tiny_patch16", dim=192, depth=12, heads=3, patch=16)
+    cfg = dict(chip_smoke.HIRES, name="vit_tiny_patch16", src_img=32, img=64, batch=4)
+    images = chip_smoke.write_jpeg_folder(str(tmp_path / "jpegs"), np.random.default_rng(3), 3,
+                                          10, (80, 60))
+    assert "30 JPEGs" in chip_smoke.feed_note(images)
+    run = chip_smoke.run_finetune(str(tmp_path), "cpu", model, cfg, num_classes=3,
+                                  per_class=10, epochs=2, images=images)
+    assert run["resized"] == "Resized pos_embed grid 2x2 -> 4x4"
+    assert run["skipped"] == ["head/bias", "head/kernel"]
+    assert run["args"].remat and run["args"].layer_decay == 0.65
+    assert len(run["state"].optimizer.groups) == 14  # the stem, 12 blocks, the head
+    assert len(run["records"]) == 2 * run["steps_per_epoch"] == 12
+    assert run["input_shape"] == [1, 64, 64, 3] and run["serve_launches"] == 0
+    assert run["totals"] == {"fwd": 0, "fwd_lse": 0, "bwd_dkv": 0, "bwd_dq": 0}
+    assert chip_smoke.flash_step_pattern(2, remat=True) == \
+        ["fwd"] * 4 + ["dq", "dkv"] * 2 + ["fwd"] * 2

@@ -74,10 +74,10 @@ def test_flags_and_defaults_match_jax():
 
 @pytest.mark.parametrize("argv,item", [
     (["--fsdp", "true"], "A9"), (["--mesh_shape", "data:4"], "A9"),
-    (["--teacher_path", "t.pth", "--distillation_alpha", "0.5"], "A17"),
-    (["--prune_mask", "true"], "A17"), (["--remat", "true"], "A17"),
-    (["--layer_decay", "0.75"], "A16"), (["--aa", "rand-m9-mstd0.5-inc1"], "A10"),
-    (["--opt", "lamb"], "A16"),
+    (["--teacher_path", "t.pth", "--distillation_alpha", "0.5"], "A17 \\(rest: distillation"),
+    (["--prune_mask", "true"], "A17 \\(rest: prune masks"), (["--opt", "adahessian"], "A16 \\(rest"),
+    (["--opt", "lookahead_nvnovograd"], "A16 \\(rest"), (["--aa", "rand-m9-mstd0.5-inc1"], "A10"),
+    (["--opt", "adafactor"], "A16 \\(rest"),
 ])
 def test_unported_flags_raise(argv, item):
     args = config.parse_args(argv)
@@ -90,6 +90,8 @@ def test_unported_flags_raise(argv, item):
 def test_ported_flags_pass():
     for argv in ([], ["--opt", "sgd", "--mesh_shape", "data:1", "--teacher_path", "t.pth"],
                  ["--opt", "momentum", "--clip_grad", "1.0", "--layer_decay", "1.0"],
+                 ["--opt", "lookahead_lamb", "--layer_decay", "0.65", "--remat", "true"],
+                 ["--opt", "fusedadam"], ["--opt", "rmsproptf"], ["--opt", "sgdp"],
                  ["--enable_wandb", "true", "--profile_dir", "p", "--check_nans", "true"]):
         config.check_ported(config.parse_args(argv))
 
@@ -604,17 +606,99 @@ def test_launch_gap_sums_the_timed_shapes_only():
 def test_device_ms_survives_dropped_launches(monkeypatch):
     # a trace may keep none of a kernel's launches (traced again) or only
     # some of them (a mean per launch times the launches of one call)
-    traces = iter([
-        {"conv1x1_bn_kernel<true, true>": (0.5, 1.0)},  # no sum_partials
-        {"conv1x1_bn_kernel<true, true>": (0.3, 0.5),   # half its launches
-         "sum_partials_kernel<float>": (0.04, 2.0), "other": (9.0, 1.0)},
-    ])
-    monkeypatch.setattr(chip_smoke, "trace", lambda fn: (0.0, 0.0, next(traces)))
+    kept = {"conv1x1_bn_kernel<true, true>": (0.3, 0.5),   # half its launches
+            "sum_partials_kernel<float>": (0.04, 2.0), "other": (9.0, 1.0)}
+    traces = iter([{"conv1x1_bn_kernel<true, true>": (0.5, 1.0)},  # no sum_partials
+                   kept, kept, kept])
+    monkeypatch.setattr(chip_smoke, "trace", lambda fn, steps=10: (0.0, 0.0, next(traces)))
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, iters, reps=5: 1.0)
+    monkeypatch.setattr(chip_smoke, "host_ms", lambda fn: 0.01)
     got = chip_smoke._device_ms(None, {"conv1x1_bn_kernel": 1, "sum_partials": 2})
     assert got == pytest.approx(0.3 / 0.5 * 1 + 0.04 / 2.0 * 2, rel=1e-12)
-    monkeypatch.setattr(chip_smoke, "trace", lambda fn: (0.0, 0.0, {"other": (1.0, 1.0)}))
+    monkeypatch.setattr(chip_smoke, "trace", lambda fn, steps=10: (0.0, 0.0, {"other": (1.0, 1.0)}))
     with pytest.raises(AssertionError, match="no launch"):
         chip_smoke._device_ms(None, {"conv1x1_bn_kernel": 1})
+
+
+def test_device_ms_counts_whole_launches_and_retraces_a_misreading(monkeypatch):
+    # a trace that lists one launch as two events of half its time reads half
+    # the kernel's time at its mean per event: whole launches count both; a
+    # reading of a device-bound call below half its CUDA events ms is traced
+    # again, and raises when it stays there (as 0.1106 against 0.249 ms did)
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, iters, reps=5: 0.249)
+    monkeypatch.setattr(chip_smoke, "host_ms", lambda fn: 0.03)
+    split = {"flash_attention_fwd_kernel": (0.2352, 2.0)}
+    monkeypatch.setattr(chip_smoke, "trace", lambda fn, steps=10: (0.0, 0.0, split))
+    assert chip_smoke._device_ms(None, {"flash_attention_fwd_kernel": 1}) == \
+        pytest.approx(0.2352, rel=1e-12)
+    low, right = {"flash_attention_fwd_kernel": (0.1106, 1.0)}, {"flash_attention_fwd_kernel":
+                                                                 (0.2352, 1.0)}
+    traces = iter([low] * 3 + [right] * 3)
+    monkeypatch.setattr(chip_smoke, "trace", lambda fn, steps=10: (0.0, 0.0, next(traces)))
+    assert chip_smoke._device_ms(None, {"flash_attention_fwd_kernel": 1}) == \
+        pytest.approx(0.2352, rel=1e-12)
+    monkeypatch.setattr(chip_smoke, "trace", lambda fn, steps=10: (0.0, 0.0, low))
+    with pytest.raises(AssertionError, match="misreading"):
+        chip_smoke._device_ms(None, {"flash_attention_fwd_kernel": 1})
+    # the same reading of a host-bound call (host ms above half its events
+    # ms) stands: its device is idle between launches
+    monkeypatch.setattr(chip_smoke, "host_ms", lambda fn: 0.2)
+    assert chip_smoke._device_ms(None, {"flash_attention_fwd_kernel": 1}) == \
+        pytest.approx(0.1106, rel=1e-12)
+    # inside a step, the other kernels count toward the check
+    step = {"flash_attention_fwd_kernel": (24 * 0.242, 24.0), "gemm": (90.0, 200.0)}
+    monkeypatch.setattr(chip_smoke, "host_ms", lambda fn: 0.5)
+    monkeypatch.setattr(chip_smoke, "trace", lambda fn, steps=10: (0.0, 0.0, step))
+    assert chip_smoke._device_ms(None, {"flash_attention_fwd": 24}, events_ms=96.9) == \
+        pytest.approx(24 * 0.242, rel=1e-12)
+
+
+def _host_bound(monkeypatch):
+    # the call's CUDA events ms and host ms: host-bound, so no reading is held
+    # to its events ms
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, iters, reps=5: 1.0)
+    monkeypatch.setattr(chip_smoke, "host_ms", lambda fn: 0.9)
+
+
+def test_library_device_ms_retraces_and_refuses_a_misreading(monkeypatch):
+    # a device-bound library call read below half its CUDA events ms is
+    # traced again, and raises when it stays there; a host-bound one stands
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, iters, reps=5: 0.7055)
+    monkeypatch.setattr(chip_smoke, "host_ms", lambda fn: 0.05)
+    low, right = {"fmha_bwd": (0.30, 1.0)}, {"fmha_bwd": (0.65, 1.0)}
+    traces = iter([low] * 3 + [right] * 3)
+    monkeypatch.setattr(chip_smoke, "trace", lambda fn: (0.0, 0.0, next(traces)))
+    assert chip_smoke._library_device_ms(None) == pytest.approx(0.65, rel=1e-12)
+    monkeypatch.setattr(chip_smoke, "trace", lambda fn: (0.0, 0.0, low))
+    with pytest.raises(AssertionError, match="misreading"):
+        chip_smoke._library_device_ms(None)
+    # the events ms of the call may be given (timed once by the caller)
+    assert chip_smoke._library_device_ms(None, events_ms=0.5) == pytest.approx(0.30, rel=1e-12)
+    monkeypatch.setattr(chip_smoke, "host_ms", lambda fn: 0.6)
+    assert chip_smoke._library_device_ms(None) == pytest.approx(0.30, rel=1e-12)
+
+
+def test_device_ms_floors_a_kernel_inside_a_step(monkeypatch):
+    # inside a 332 ms step the other kernels alone pass the whole-call check;
+    # the kernel's own reading is held to half its CUDA events alone
+    monkeypatch.setattr(chip_smoke, "host_ms", lambda fn: 5.0)
+    low = {"flash_attention_fwd_kernel": (36 * 1.0, 36.0), "gemm": (240.0, 400.0)}
+    right = {"flash_attention_fwd_kernel": (36 * 2.3, 36.0), "gemm": (240.0, 400.0)}
+    traces = iter([low] * 3 + [right] * 3)
+    monkeypatch.setattr(chip_smoke, "trace", lambda fn, steps=10: (0.0, 0.0, next(traces)))
+    floor = chip_smoke.alone_floor(2.4, 0.05) * 36
+    assert floor == pytest.approx(1.2 * 36)
+    got = chip_smoke._device_ms(None, {"flash_attention_fwd": 36}, events_ms=332.0,
+                                floor_ms=floor)
+    assert got == pytest.approx(36 * 2.3, rel=1e-12)
+    monkeypatch.setattr(chip_smoke, "trace", lambda fn, steps=10: (0.0, 0.0, low))
+    assert chip_smoke._device_ms(None, {"flash_attention_fwd": 36}, events_ms=332.0) == \
+        pytest.approx(36.0, rel=1e-12)  # the whole-call check alone lets it through
+    with pytest.raises(AssertionError, match="misreading"):
+        chip_smoke._device_ms(None, {"flash_attention_fwd": 36}, events_ms=332.0,
+                              floor_ms=floor)
+    # a kernel alone that is host-bound gives no floor
+    assert chip_smoke.alone_floor(0.02, 0.03) == 0.0
 
 
 def test_library_device_ms_survives_dropped_launches(monkeypatch):
@@ -626,6 +710,7 @@ def test_library_device_ms_survives_dropped_launches(monkeypatch):
         {"wgrad": (0.2, 2.0), "reduce": (0.1, 1.0)},
     ])
     monkeypatch.setattr(chip_smoke, "trace", lambda fn: (0.0, 0.0, next(traces)))
+    _host_bound(monkeypatch)
     got = chip_smoke._library_device_ms(None)
     assert got == pytest.approx(0.5 / 5.0 * 2 + 0.2 / 2.0 * 1, rel=1e-12)
 
@@ -635,6 +720,7 @@ def test_library_device_ms_counts_whole_launches(monkeypatch):
     # whole launches a call makes (a fifth of one kept: one launch a call)
     monkeypatch.setattr(chip_smoke, "trace", lambda fn: (0.0, 0.0, {"fmha": (0.05, 0.2),
                                                                     "copy": (0.02, 2.0)}))
+    _host_bound(monkeypatch)
     got = chip_smoke._library_device_ms(None)
     assert got == pytest.approx(0.25 * 1 + 0.01 * 2, rel=1e-12)
 
@@ -645,6 +731,7 @@ def test_library_device_ms_retraces_a_trace_without_kernels(monkeypatch):
     traces = iter([{}, {"fmha": (0.3, 1.0)}, {}, {}, {"fmha": (0.1, 1.0)},
                    {"fmha": (0.2, 1.0)}])
     monkeypatch.setattr(chip_smoke, "trace", lambda fn: (0.0, 0.0, next(traces)))
+    _host_bound(monkeypatch)
     assert chip_smoke._library_device_ms(None) == pytest.approx(0.2, rel=1e-12)
     monkeypatch.setattr(chip_smoke, "trace", lambda fn: (0.0, 0.0, {}))
     with pytest.raises(AssertionError, match="no kernel"):
@@ -987,3 +1074,34 @@ def test_enable_wandb_logs_the_jax_keys(toy_dataset, tmp_path, monkeypatch):
     (art, aliases), = port_wandb.artifacts
     assert art.name == "run0_model" and art.dirs == [args.output_dir]
     assert aliases == ["latest", "best"]
+
+
+def test_chip_smoke_feed_rehearsal_on_cpu(tmp_path):
+    # chip_smoke.py's phase 11 at a tiny size on the CPU: BatchLoader's rate
+    # with the native decoder and with PIL (which decode the same JPEG into
+    # other pixels, so the switch is seen), and train.main's epochs split
+    cfg = dict(chip_smoke.FEED, size=(50, 40), batch=4, img=32, steps=3, workers=(2,), reps=1,
+               num_classes=3)
+    feed = chip_smoke.measure_feed(str(tmp_path), "cpu", cfg)
+    assert feed["native_built"] and feed["native_2"] > 0 and feed["pil_2"] > 0
+    assert feed["cpu_count"] == os.cpu_count()
+    from imageclassification_tpu_torch.data import loader, native_decode
+
+    path = os.path.join(feed["images"], "class_0", "img_0.jpg")
+    native = loader.decode_image(path, 32, train=False)
+    with pytest.MonkeyPatch.context() as mp:  # as phase 11 switches to PIL
+        mp.setattr(native_decode, "get_lib", lambda: None)
+        assert native_decode.get_lib() is None
+        pil = loader.decode_image(path, 32, train=False)
+    assert native_decode.get_lib() is not None and not np.array_equal(native, pil)
+    model = dict(name="vit_tiny_patch16", dim=192, depth=12, heads=3, patch=16)
+    epochs = chip_smoke.feed_epochs(str(tmp_path / "run"), feed["images"], "cpu", model, 32, 4)
+    assert len(epochs) == 2 and epochs[0]["steps"] == 2  # 9 - 1 val a class of 3: 8 // 4
+    for ep in epochs:
+        assert ep["steps_s"] > ep["loader_wait_s"] >= 0 and ep["eval_s"] > 0
+    assert epochs[-1]["checkpoint_s"] > 0
+    from imageclassification_tpu_torch.engine import loop
+
+    # train.py's functions are its own again after the run
+    assert train.train_one_epoch is loop.train_one_epoch and train.evaluate is loop.evaluate
+    assert train.BatchLoader is loader.BatchLoader

@@ -32,6 +32,8 @@ from imageclassification_tpu.models.resnet import Bottleneck as JaxBottleneck
 from imageclassification_tpu.models.resnet import ResNet as JaxResNet
 from imageclassification_tpu.models.vit import ViT as JaxViT
 from imageclassification_tpu.optim.factory import create_optimizer as jax_create_optimizer
+from imageclassification_tpu.optim.layer_decay import layer_decay_scales as jax_layer_decay_scales
+from imageclassification_tpu_torch import train as port_train
 from imageclassification_tpu_torch.checkpoint.from_jax import vit_state_dict_from_jax
 from imageclassification_tpu_torch.checkpoint.to_jax import carry_for, optimizer_to_jax
 from imageclassification_tpu_torch.config import TrainConfig
@@ -134,6 +136,17 @@ CASES = {
     # running statistics advancing at each finite micro-step, their EMA
     "resnet_mixup_on_adamw_large_eps": (dict(RESNET, opt="adamw", opt_eps=1.0, lr=0.01), 2),
     "resnet_update_freq_2_sgd": (dict(RESNET, opt="sgd", update_freq=2), 4),
+    # --remat (the JAX loss under jax.checkpoint, the port's under torch's
+    # checkpoint: the flash forward runs again in the backward), with
+    # --layer_decay and the optimizers of the table
+    "remat_lamb_layer_decay_large_eps": (dict(opt="lamb", opt_eps=1.0, lr=0.01, remat=True,
+                                              layer_decay=0.65, clip_grad=1.0), 2),
+    "remat_radam_layer_decay_update_freq_2": (dict(opt="radam", remat=True, layer_decay=0.75,
+                                                   update_freq=2, opt_eps=1.0, lr=0.01), 4),
+    "convnext_remat_adamp_layer_decay": (dict(CONVNEXT, opt="adamp", opt_eps=1.0, lr=0.01,
+                                              remat=True, layer_decay=0.65), 2),
+    "resnet_remat_lookahead_sgdp_layer_decay": (dict(RESNET, opt="lookahead_sgdp", remat=True,
+                                                     layer_decay=0.65), 2),
 }
 
 
@@ -151,8 +164,13 @@ def _both(kw, family, n_steps):
     lr_sched = np.linspace(jargs.lr, jargs.lr / 2, n_steps)
     wd_sched = np.linspace(jargs.weight_decay, jargs.weight_decay / 2, n_steps)
 
+    scales, bounds = None, (1.0, 1.0)
+    if jargs.layer_decay < 1.0:  # as the JAX train.py builds them
+        scales = jax_layer_decay_scales(_nest(flat), jargs.model, jargs.layer_decay)
+        leaves = [float(x) for x in jax.tree_util.tree_leaves(scales)]
+        bounds = (min(leaves), max(leaves))
     tx = jax_create_optimizer(jargs.opt, jargs.lr, jargs.weight_decay, opt_eps=jargs.opt_eps,
-                              clip_grad=jargs.clip_grad)
+                              clip_grad=jargs.clip_grad, layer_scales=scales)
     jstate = jax_create_state(jmodel, tx, jax.random.key(0), (1, 32, 32, 3), use_ema=True,
                               update_freq=jargs.update_freq)
     jstate = jstate.replace(params=_nest(flat), ema_params=_nest(flat),
@@ -161,11 +179,13 @@ def _both(kw, family, n_steps):
         jstate = jstate.replace(batch_stats=_nest(stats), ema_batch_stats=_nest(stats))
     jmix = jax_build_mixup(jargs, 5)
     jstep = jax.jit(jax_build_train_step(jmodel, tx, jargs, 5, jmix, lr_sched, wd_sched,
-                                         ema_decay=jargs.model_ema_decay))
+                                         ema_decay=jargs.model_ema_decay,
+                                         lr_scale_bounds=bounds))
 
     popt = create_optimizer(pargs.opt, pmodel.parameters(), lr=pargs.lr,
                             weight_decay=pargs.weight_decay, opt_eps=pargs.opt_eps,
-                            clip_grad=pargs.clip_grad)
+                            clip_grad=pargs.clip_grad,
+                            **port_train.optimizer_layout(pargs, pmodel))
     pstate = create_train_state(pmodel, popt, use_ema=True, update_freq=pargs.update_freq)
     pstep = build_train_step(pmodel, pargs, 5, build_mixup(pargs, 5), lr_sched, wd_sched,
                              ema_decay=pargs.model_ema_decay)
@@ -197,6 +217,7 @@ def test_train_step_matches_jax(interpret_mode, case):
         np.testing.assert_allclose(float(pm["loss"]), float(jm["loss"]), rtol=1e-5)
         np.testing.assert_allclose(float(pm["grad_norm"]), float(jm["grad_norm"]), rtol=1e-4)
         assert pm["lr"] == pytest.approx(float(jm["lr"]), rel=1e-6)
+        assert pm["min_lr"] == pytest.approx(float(jm["min_lr"]), rel=1e-6)
         assert pm["weight_decay"] == pytest.approx(float(jm["weight_decay"]), rel=1e-6)
         assert float(pm["skipped"]) == float(jm["skipped"]) == 0.0
         for k in ("class_acc", "tp", "fp", "fn"):
@@ -427,5 +448,99 @@ def test_step_refuses_unported_features():
     _, pargs = _configs(opt="adamw")
     model = port_vit.ViT(**SMALL, img_size=32)
     for kw in ({"teacher": object()}, {"prune_masks": {}}):
-        with pytest.raises(NotImplementedError, match="A17"):
+        with pytest.raises(NotImplementedError, match="A17 \\(rest\\)"):
             build_train_step(model, pargs, 5, None, [0.1], [0.0], **kw)
+
+
+def _remat_pair(family):
+    """Two copies of one small model with stochastic depth (ViT, ConvNeXt;
+    ResNet has none: its BatchNorm statistics run through the recompute;
+    "vit_dropout" adds dropout of rate 0.1, whose masks have the
+    activations' shapes and take ViT's attention off the flash kernel),
+    with steps built alike but for --remat."""
+    out = []
+    for remat in (False, True):
+        kw = dict(opt="adamw", remat=remat, layer_decay=0.65, drop_path=0.2)
+        if family == "vit_dropout":
+            model = port_vit.ViT(**SMALL, img_size=32, flash_attn=True, drop_rate=0.1,
+                                 drop_path_rate=0.2)
+        elif family == "convnext":
+            kw.update(CONVNEXT, drop_path=0.2)
+            model = port_convnext.ConvNeXt(**SMALL_CONVNEXT, drop_path_rate=0.2)
+        elif family == "resnet":
+            kw.update(RESNET)
+            model = _family("resnet")[3]
+        else:
+            model = port_vit.ViT(**SMALL, img_size=32, flash_attn=True, drop_path_rate=0.2)
+        if family != "resnet":
+            model.load_state_dict(out[0][0].state_dict() if out else model.state_dict())
+        _, pargs = _configs(**kw)
+        opt = create_optimizer("adamw", model.parameters(), lr=0.01, weight_decay=0.05,
+                               **port_train.optimizer_layout(pargs, model))
+        state = create_train_state(model, opt, use_ema=True)
+        step = build_train_step(model, pargs, 5, build_mixup(pargs, 5), [0.01] * 4,
+                                [0.05] * 4, ema_decay=0.9, seed=3)
+        out.append((model, state, step))
+    return out
+
+
+@pytest.mark.parametrize("family", ["vit", "convnext", "resnet", "vit_dropout"])
+def test_remat_step_equals_the_plain_step_with_drop_path(family):
+    # --remat runs the forward again inside the backward; its stochastic-depth
+    # and dropout masks come from the step's own generator, so the recompute
+    # must draw the first run's masks again: two steps with and without
+    # remat give the same losses, gradients, parameters, moments and EMA,
+    # bitwise on the CPU (the same ops on the same inputs)
+    (m0, s0, step0), (m1, s1, step1) = _remat_pair(family)
+    images, labels = _batch()
+    batch = {"image": torch.from_numpy(images), "label": torch.from_numpy(labels)}
+    draws = step0.sample_draws(B, 32, 32)
+    g0 = step0.loss_and_grads(m0, batch, draws)
+    forwards = []
+    blocks = m1.blocks if family == "vit" else [m1]
+    hook = blocks[0].register_forward_hook(lambda *a: forwards.append(1))
+    g1 = step1.loss_and_grads(m1, batch, draws)
+    hook.remove()
+    assert len(forwards) == 2  # the forward, and its recompute in the backward
+    assert torch.equal(g0[0], g1[0])
+    for a, b in zip(g0[3], g1[3]):
+        assert torch.equal(a, b)
+    for _ in range(2):
+        draws = step0.sample_draws(B, 32, 32)
+        metrics = [step(s, batch, draws) for step, s in ((step0, s0), (step1, s1))]
+        for k in ("loss", "grad_norm", "lr", "min_lr", "class_acc"):
+            assert torch.equal(metrics[0][k], metrics[1][k]), k
+    assert float(metrics[0]["min_lr"]) < float(metrics[0]["lr"])  # layer decay reported
+    for (k, a), b in zip(m0.state_dict().items(), m1.state_dict().values()):
+        assert torch.equal(a, b), k
+    for k, ts in s0.optimizer.moments.items():
+        for a, b in zip(ts, s1.optimizer.moments[k]):
+            assert torch.equal(a, b), k
+    for k in s0.ema:
+        assert torch.equal(s0.ema[k], s1.ema[k]), k
+
+
+def test_remat_recompute_redraws_from_the_dropout_generators_state():
+    # the recompute draws from a second generator that is given the dropout
+    # generator's state before the step, so nothing of the first run's draws
+    # is kept: afterwards the dropout generator is where the plain step leaves
+    # it, and the second one has drawn as much from the same start; a CUDA
+    # graph replays it as one of the step's generators
+    (m0, s0, step0), (m1, s1, step1) = _remat_pair("vit_dropout")
+    assert len(step1.generators) == len(step0.generators) + 1
+    drop0, drop1, redraw = step0.generators[1], step1.generators[1], step1.generators[2]
+    images, labels = _batch()
+    batch = {"image": torch.from_numpy(images), "label": torch.from_numpy(labels)}
+    for _ in range(2):
+        draws = step0.sample_draws(B, 32, 32)
+        g0 = step0.loss_and_grads(m0, batch, draws)
+        g1 = step1.loss_and_grads(m1, batch, draws)
+        assert torch.equal(g0[0], g1[0])
+        assert torch.equal(drop0.get_state(), drop1.get_state())
+        assert torch.equal(redraw.get_state(), drop1.get_state())
+    # a whole step draws more from the dropout generator (the exact-mode
+    # accuracy forward); the host side of the next step gives the state over
+    step1(s1, batch, step1.sample_draws(B, 32, 32))
+    assert not torch.equal(redraw.get_state(), drop1.get_state())
+    step1.host_inputs(s1.step, B, 32, 32)
+    assert torch.equal(redraw.get_state(), drop1.get_state())

@@ -25,6 +25,7 @@ import imageclassification_tpu_torch.val as port_val
 import val as jax_val
 from imageclassification_tpu.engine.step import build_eval_step as jax_build_eval_step
 from imageclassification_tpu.models import create_model as jax_create_model
+from imageclassification_tpu_torch.data import native_decode
 from imageclassification_tpu_torch.device import resolve_device
 from imageclassification_tpu_torch.engine.step import build_eval_step
 
@@ -45,7 +46,7 @@ def one_torch_thread():
 @pytest.fixture
 def jax_reference(monkeypatch):
     """JAX val.py as the reference: Pallas kernels in interpret mode, JPEGs
-    through PIL (the port has no native decoder yet)."""
+    through each package's native decoder (the same pixels)."""
     import jax.experimental.pallas as pl
 
     orig = pl.pallas_call
@@ -55,7 +56,7 @@ def jax_reference(monkeypatch):
         return orig(*args, **kwargs)
 
     monkeypatch.setattr(pl, "pallas_call", patched)
-    monkeypatch.setattr(jax_native, "get_lib", lambda: None)
+    assert (jax_native.get_lib() is None) == (native_decode.get_lib() is None)
 
 
 @pytest.fixture
@@ -302,3 +303,32 @@ def test_chip_smoke_attention_check_sees_a_dropped_last_key(n):
     assert err <= tol < tail
     with pytest.raises(AssertionError, match="max"):
         chip_smoke.compare_attention(flash_attention_ref(q, k[:, :-1], v[:, :-1]), q, k, v)
+
+
+def test_chip_smoke_plain_attention_in_batch_slices_is_the_whole(monkeypatch):
+    # the fp32 plain versions that chip_smoke.py holds the kernels to at
+    # 16 x 4097 run a few batch elements at a time (their scores would not
+    # fit at once): the same function, and the backward check still sees a
+    # dropped last key
+    from imageclassification_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(3)
+    qkv = torch.from_numpy(rng.standard_normal((5, 33, 3, 2, 64)).astype(np.float32))
+    q, k, v = qkv.to(torch.bfloat16).unbind(2)
+    do = torch.from_numpy(rng.standard_normal((5, 33, 2, 64)).astype(np.float32))
+    do = do.to(torch.bfloat16)
+    o, lse = fa.flash_attention_ref(q, k, v), fa.flash_attention_lse_ref(q, k)
+    whole = (o, lse, fa.flash_attention_bwd_ref(q, k, v, o, lse, do))
+    monkeypatch.setattr(chip_smoke, "PLAIN_SCORE_BYTES", 2 * 2 * 33 * 33 * 4)  # 2 at a time
+    sliced = (chip_smoke.by_batch(fa.flash_attention_ref, q, k, v),
+              chip_smoke.by_batch(fa.flash_attention_lse_ref, q, k),
+              chip_smoke.by_batch(fa.flash_attention_bwd_ref, q, k, v, o, lse, do))
+    for a, b in zip((whole[0], whole[1], *whole[2]), (sliced[0], sliced[1], *sliced[2])):
+        assert a.shape == b.shape
+        torch.testing.assert_close(b.float(), a.float(), rtol=0, atol=1e-6)
+    errs = chip_smoke.compare_backward(whole[2], q, k, v, do)
+    assert all(e <= t < c for e, t, c in errs.values())
+    dropped = fa.flash_attention_bwd_ref(q, k[:, :-1], v[:, :-1], fa.flash_attention_ref(
+        q, k[:, :-1], v[:, :-1]), fa.flash_attention_lse_ref(q, k[:, :-1]), do)
+    with pytest.raises(AssertionError, match="max"):
+        chip_smoke.compare_backward((dropped[0], whole[2][1], whole[2][2]), q, k, v, do)
