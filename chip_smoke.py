@@ -140,12 +140,38 @@ exit before the last line:
    threads, the host's os.cpu_count(), and `train.main` of ViT-B/16
    --flash_attn on those JPEGs, each epoch split into its steps, the time
    they waited for the loader, the eval and the checkpoint writes;
-12. one JSON line with every kernel's numbers (at ConvNeXt-T's stage-0
+12. the training recipes, in a child process (`--recipes`, a fresh
+   profiler as for phases 10-11), on phase 5's checkpoint-1.pth and folder:
+   12a. `train.main` of ViT-B/16 --flash_attn with --aa
+   rand-m9-mstd0.5-inc1 and distillation from that checkpoint
+   (--teacher_path, --distillation_alpha 0.5, --distillation_tau 2.0) at
+   224x224, batch 64, 2 epochs of 10 steps: losses finite, three replays
+   of the run's captured step launch per replay 12 forwards with lse (the
+   student), 12 without (the teacher), 12 x (dQ, dK/dV), 12 without lse
+   (the accuracy forward), in that order, and checkpoint-1.pth loads in the
+   port's val.py; captured and eager ms a step of the recipe's step and of
+   the default step (phase 5's cell) in the same process, and the device
+   ms (traces) of the augmentation with the policy and with ColorJitter and
+   of the teacher's forward, each alone;
+   12b. each policy alone (rand-m9-mstd0.5-inc1, rand-m9-n3-mstd0.5,
+   original, v0, abel-n2) at batch 64 x 224x224 against the port on the
+   CPU with the same draws copied over (every value to 1e-3 but at most
+   1e-3 of them), a captured run equal to the eager one bitwise, and ms a
+   batch eager and captured beside ColorJitter's;
+   12c. phase 5's checkpoint with the 50 % smallest |w| of each eligible
+   weight zeroed (numpy here, written by the port's checkpoint/io.py), then
+   `train.main --pretrained_path <it> --prune_mask true --flash_attn true
+   --model_ema true` for 1 epoch of 10 steps: printed sparsity 0.50 +-
+   0.01, every pruned entry of the model and the EMA in checkpoint-0.pth
+   exactly 0, some other entry moved; captured and eager ms a step;
+13. one JSON line with every kernel's numbers (at ConvNeXt-T's stage-0
    shape for the LayerNorm and depthwise-conv kernels and ResNet-50's
    stage-1 conv3 shape for the fused 1x1 conv; the other shapes are in the
    lines of phases 3c, 3d and 3e; the flash kernels' numbers on the
-   fine-tuning path under "at_577" and on the high-resolution path under
-   "at_4097"), then the result line {"ok": true, "device": {...}}.
+   fine-tuning path under "at_577", on the high-resolution path under
+   "at_4097" and their launches on phase 12's paths under "recipe" and
+   "prune") and phase 12's summary under "recipes", then the result line
+   {"ok": true, "device": {...}}.
 
 Phase 2 also builds the port's native JPEG decoder and says whether it
 built; the training phases say which decoder fed them. A device ms read
@@ -795,10 +821,14 @@ FLASH_KINDS = {"flash_attention_fwd": "fwd", "flash_attention_bwd_dq": "dq",
                "flash_attention_bwd_dkv": "dkv"}
 
 
-def flash_step_pattern(depth: int, remat: bool = False) -> list:
+def flash_step_pattern(depth: int, remat: bool = False, teacher: bool = False) -> list:
     """With --remat the backward first runs the whole forward again (with
-    lse), so the forward is launched 2 * depth times before the first dQ."""
-    return ["fwd"] * depth * (2 if remat else 1) + ["dq", "dkv"] * depth + ["fwd"] * depth
+    lse), so the forward is launched 2 * depth times before the first dQ;
+    with a --flash_attn teacher (distillation), its eval forward (without
+    lse) runs after the student's forward: depth more forwards before the
+    first dQ."""
+    before = depth * ((2 if remat else 1) + (1 if teacher else 0))
+    return ["fwd"] * before + ["dq", "dkv"] * depth + ["fwd"] * depth
 
 
 def flash_kernel_sequence(fn, calls: int):
@@ -857,7 +887,8 @@ def run_training(work: str, device: str, model: dict, img: int, num_classes: int
     read from a trace: every call must launch the forward 12 times with lse,
     the backward's dQ and dK/dV kernels 12 times each and the forward 12
     times without lse, in that order (with --remat among `flags`, the
-    extra flags, the forward 24 times with lse first). With
+    extra flags, the forward 24 times with lse first; with a teacher, its
+    12 forwards without lse before the first dQ). With
     `pretrained_path` the run starts from that file (--pretrained_path).
     Returns a dict: the trained state,
     the args, the per-step records, the launch totals of the run, the
@@ -902,8 +933,9 @@ def run_training(work: str, device: str, model: dict, img: int, num_classes: int
     per_replay = None
     if device == "cuda":  # three more steps of the run's own (captured) step
         fixed = _fixed_batch({"args": args, "images": images}, device)
+        distill = bool(args.teacher_path) and args.distillation_alpha > 0
         per_replay = replay_launches(lambda: step(state, fixed),
-                                     flash_step_pattern(model["depth"], args.remat))
+                                     flash_step_pattern(model["depth"], args.remat, distill))
     return {"state": state, "args": args, "records": records, "totals": totals,
             "per_replay": per_replay, "wall_s": wall_s, "checkpoint": path, "images": images,
             "steps_per_epoch": len(records) // epochs, "num_classes": num_classes,
@@ -2650,6 +2682,317 @@ def launch_gap(rows, counts, key, gap) -> tuple:
     return total, counted, sum(counts.values()) - counted
 
 
+# phase 12, the training recipes: the DeiT-style recipe (RandAugment and
+# distillation from phase 5's checkpoint) at full width, each --aa policy
+# alone at batch 64 x 224x224, and --prune_mask fine-tuning from phase 5's
+# checkpoint with half of each eligible weight zeroed
+RECIPE_FLAGS = ("--aa", "rand-m9-mstd0.5-inc1", "--distillation_alpha", "0.5",
+                "--distillation_tau", "2.0")
+POLICIES = ("rand-m9-mstd0.5-inc1", "rand-m9-n3-mstd0.5", "original", "v0", "abel-n2")
+# a policy on the card against the port on the CPU with the same draws, at the
+# CPU tests' tolerance (tests/test_torch_augment_policies.py): every value to
+# 1e-3 but a share of at most 1e-3 of them, where a 1-ulp difference (the
+# card's sin and cos, another libm) moves a value across a rounding or
+# truncation level after a geometric op
+POLICY_ATOL, POLICY_SHARE = 1e-3, 1e-3
+# the printed sparsity of --prune_mask on weights with half of each eligible
+# tensor zeroed (odd sizes and ties at zero move it by a few elements)
+PRUNE_SPARSITY, PRUNE_TOL = 0.5, 0.01
+
+
+def _prune_eligible(key: str, arr) -> bool:
+    """The JAX package's rule (checkpoint/io.py derive_prune_masks)."""
+    return (key.endswith("kernel") and arr.ndim >= 2 and arr.size > 4096
+            and not key.endswith("head/kernel"))
+
+
+def prune_checkpoint(src: str, dst: str, fraction: float = 0.5) -> int:
+    """The weights of the checkpoint `src` with the `fraction` smallest |w|
+    of each eligible JAX weight set to zero, written to `dst` through the
+    port's checkpoint/io.py (weights only: a --pretrained_path file).
+    Returns the number of weights pruned."""
+    from imageclassification_tpu_torch.checkpoint import io as ckpt_io
+
+    ck = ckpt_io.load_checkpoint(src)
+    model, n = {}, 0
+    for k, v in ck["model"].items():
+        v = np.array(v, np.float32)
+        if _prune_eligible(k, v):
+            v.reshape(-1)[np.argsort(np.abs(v), axis=None)[: int(v.size * fraction)]] = 0.0
+            n += 1
+        model[k] = v
+    ckpt_io.write_checkpoint(dst, {k: ck[k] for k in ("format_version", "model_spec",
+                                                      "input_shape", "num_classes")}
+                             | {"model": model})
+    return n
+
+
+def _printed_by(fn):
+    """(fn(), what it printed), the output still shown."""
+    import contextlib
+
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        out = fn()
+    return out, tee.text()
+
+
+def _events_and_device_ms(fn) -> tuple:
+    """(CUDA events ms a call, device ms a call from traces) of fn()."""
+    ms = time_ms(fn, iters=10, reps=3)
+    return ms, _library_device_ms(fn, events_ms=ms)
+
+
+def run_recipe(work: str, device: str, model: dict, cfg: dict, teacher: str, images: str):
+    """12a: `run_training` with --aa rand-m9-mstd0.5-inc1 and distillation
+    from `teacher` (alpha 0.5, tau 2): the three replays launch the
+    teacher's forwards too. On a card, the recipe's step and the default
+    step (phase 5's cell) captured and eager on the trained weights, and
+    the device ms of the augmentation (with the policy, and with
+    ColorJitter) and of the teacher's forward, each alone."""
+    import torch
+
+    from imageclassification_tpu_torch import val
+    from imageclassification_tpu_torch.data.augment import AugmentPipeline, eval_preprocess
+    from imageclassification_tpu_torch.data.mixup import build_mixup
+    from imageclassification_tpu_torch.engine.step import build_train_step
+
+    run, printed = _printed_by(lambda: run_training(
+        work, device, model, cfg["img"], cfg["num_classes"], cfg["per_class"], cfg["batch"],
+        cfg["epochs"], images=images, flags=("--teacher_path", teacher, *RECIPE_FLAGS)))
+    if f"Distillation: teacher={teacher} alpha=0.5 tau=2.0" not in printed:
+        raise AssertionError("train.main did not print its teacher")
+    if device != "cuda":
+        return run
+    args, state, nc = run["args"], run["state"], run["num_classes"]
+    t_model, _ = val.initialize_model(teacher, False, half_precision=True, dequantize=True,
+                                      device=device)
+    batch = _fixed_batch(run, device)
+    plain = args.replace(aa="", teacher_path="", distillation_alpha=0.0)
+    for key, a, t in (("timing", args, t_model), ("timing_default", plain, None)):
+        step = build_train_step(state.model, a, nc, build_mixup(a, nc), [a.lr],
+                                [a.weight_decay], seed=a.seed, teacher=t)
+        run[key] = time_captured_and_eager(state, step, batch)
+    B, H, W = batch["image"].shape[:3]
+    gen = torch.Generator(device=device).manual_seed(1)
+    for key, a in (("augment", args), ("augment_jitter", plain)):
+        pipe = AugmentPipeline(a)
+        run[key] = _events_and_device_ms(lambda: pipe(batch["image"], pipe.sample(B, H, W, gen)))
+    x = eval_preprocess(batch["image"])
+    with torch.no_grad():
+        run["teacher_forward"] = _events_and_device_ms(lambda: t_model(x))
+    return run
+
+
+def policy_checks(device: str, batch: int, img: int, seed: int = 5) -> list:
+    """12b: each --aa policy alone on seeded uint8-valued images [batch,
+    img, img, 3]: the card's output against the port on the CPU with the
+    same draws (POLICY_ATOL but POLICY_SHARE); on a card, a captured run
+    (one CUDA graph of draws and policy, its generator registered) equal to
+    the eager run bitwise, and ms a batch by CUDA events, eager and
+    captured, beside ColorJitter's (its three factors drawn alike)."""
+    import torch
+
+    from imageclassification_tpu_torch.config import parse_args
+    from imageclassification_tpu_torch.data.augment import (AugmentPipeline, _uniform,
+                                                            color_jitter_batch)
+    from imageclassification_tpu_torch.engine.compiled import Graphed
+
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.integers(0, 256, (batch, img, img, 3)).astype(np.float32))
+    xd = x.to(device)
+    jitter = parse_args([]).color_jitter
+    jitter_draws = (lambda b, g: [_uniform(b, max(0.0, 1 - jitter), 1 + jitter, g)
+                                  for _ in range(3)])
+    rows = []
+    for aa in POLICIES + ("color_jitter",):
+        if aa == "color_jitter":
+            sample, apply = jitter_draws, lambda im, d: color_jitter_batch(im, *d)
+        else:
+            policy = AugmentPipeline(parse_args(["--aa", aa])).aa
+            sample, apply = policy.sample, policy
+        row = {"policy": aa}
+        gen = torch.Generator(device=device).manual_seed(seed)
+        draws = sample(batch, gen)
+        out = apply(xd, draws)
+        if aa != "color_jitter":
+            to_cpu = (lambda d: {k: v.cpu() for k, v in d.items()})
+            cpu = apply(x, to_cpu(draws))
+            err = (out.cpu() - cpu).abs()
+            row.update(max_abs_err=err.max().item(), share_off=(err > POLICY_ATOL).float().mean().item(),
+                       changed=((out.cpu() - x).abs() > 1).float().mean().item())
+            if not row["share_off"] <= POLICY_SHARE:
+                raise AssertionError(f"--aa {aa} on {device}: {row['share_off']:.2e} of the values "
+                                     f"beyond {POLICY_ATOL} of the CPU's (max {row['max_abs_err']})")
+        if device == "cuda":
+            eager_gen = torch.Generator(device=device).manual_seed(seed + 1)
+            graph_gen = torch.Generator(device=device).manual_seed(seed + 1)
+            want = apply(xd, sample(batch, eager_gen)).clone()
+            graphed = Graphed(lambda im: apply(im, sample(batch, graph_gen)), torch.device(device),
+                              [graph_gen], rehearse=False)
+            row["captured_equal"] = torch.equal(graphed(xd), want)
+            if not row["captured_equal"]:
+                raise AssertionError(f"--aa {aa}: the captured run differs from the eager one")
+            row["ms_eager"] = time_ms(lambda: apply(xd, sample(batch, eager_gen)), iters=10, reps=3)
+            row["ms_captured"] = time_ms(lambda: graphed(xd), iters=10, reps=3)
+        rows.append(row)
+    return rows
+
+
+def run_prune(work: str, device: str, model: dict, cfg: dict, src: str, images: str):
+    """12c: phase 5's checkpoint `src` with half of each eligible weight
+    zeroed (`prune_checkpoint`), then `run_training` from it with
+    --prune_mask true --model_ema true for one epoch: the printed sparsity
+    within PRUNE_TOL of PRUNE_SPARSITY, every pruned entry of the model and
+    of the EMA in checkpoint-0.pth exactly 0, and some other entry moved. On
+    a card, the masked step captured and eager on the trained weights."""
+    from imageclassification_tpu_torch.checkpoint import io as ckpt_io
+    from imageclassification_tpu_torch.data.mixup import build_mixup
+    from imageclassification_tpu_torch.engine.step import build_train_step
+
+    os.makedirs(work, exist_ok=True)
+    pruned = os.path.join(work, "pruned.pth")
+    n_pruned = prune_checkpoint(src, pruned)
+    run, printed = _printed_by(lambda: run_training(
+        work, device, model, cfg["img"], cfg["num_classes"], cfg["per_class"], cfg["batch"], 1,
+        images=images, pretrained_path=pruned, flags=("--prune_mask", "true",
+                                                      "--model_ema", "true")))
+    line = next((l for l in printed.splitlines() if l.startswith("Prune-mask fine-tune:")), "")
+    if not line:
+        raise AssertionError("train.main did not print the prune-mask sparsity")
+    run["sparsity"] = float(line.split("enforcing")[1].split()[0])
+    if abs(run["sparsity"] - PRUNE_SPARSITY) > PRUNE_TOL:
+        raise AssertionError(f"printed sparsity {run['sparsity']}, expected {PRUNE_SPARSITY}")
+    before = ckpt_io.load_checkpoint(pruned)["model"]
+    after = ckpt_io.load_checkpoint(run["checkpoint"])
+    moved, held = 0, 0
+    for k, v in before.items():
+        if not _prune_eligible(k, v):
+            continue
+        zero = v == 0
+        for part in ("model", "model_ema"):
+            if np.count_nonzero(after[part][k][zero]):
+                raise AssertionError(f"{part} {k}: a pruned entry is not 0 after training")
+        held += int(zero.sum())
+        moved += int(np.count_nonzero(after["model"][k][~zero] != v[~zero]))
+    if not moved:
+        raise AssertionError("no unpruned entry moved")
+    run.update(n_pruned=n_pruned, held=held, moved=moved)
+    if device == "cuda":
+        args, state, nc = run["args"], run["state"], run["num_classes"]
+        masks, _ = ckpt_io.derive_prune_masks(state.model)
+        step = build_train_step(state.model, args, nc, build_mixup(args, nc), [args.lr],
+                                [args.weight_decay], seed=args.seed, prune_masks=masks)
+        run["timing"] = time_captured_and_eager(state, step, _fixed_batch(run, device))
+    return run
+
+
+def _timing_summary(timing: dict) -> dict:
+    return {name: {"ms": ms, "wall_ms": tr[0], "device_ms": tr[1], "busy_ms": tr[3],
+                   "idle_share": 1 - tr[3] / tr[0]} for name, (ms, tr) in timing.items()}
+
+
+def recipes_phase(work: str, device: str, model: dict, cfg: dict, teacher: str,
+                  images: str) -> dict:
+    """Phase 12 (module docstring) on `model` at `cfg`'s sizes, with phase
+    5's checkpoint `teacher` and folder `images`: logs its lines and
+    returns what the kernels line takes from it."""
+    b, img, depth = cfg["batch"], cfg["img"], model["depth"]
+    rec = run_recipe(os.path.join(work, "recipe"), device, model, cfg, teacher, images)
+    losses = [r["loss"] for r in rec["records"]]
+    log(f"recipe path (12a): train.main --model {model['name']} --flash_attn true "
+        f"{' '.join(RECIPE_FLAGS)} --teacher_path <phase 5's checkpoint-1.pth>, {img}x{img} "
+        f"batch {b}, {len(losses)} steps ({cfg['epochs']} epochs x {rec['steps_per_epoch']}), "
+        f"{rec['wall_s']:.1f} s for train.main; losses {', '.join(f'{x:.4f}' for x in losses)}; "
+        f"{rec['checkpoint'].split('/')[-1]} in the JAX layout, reloaded to the run's exact "
+        f"weights")
+    out = {"recipe": {"totals": rec["totals"], "losses": losses}}
+    if device == "cuda":
+        log(f"recipe path launches per step of the run's captured step (trace, in device order: "
+            f"{depth} student forwards with lse, {depth} teacher forwards without lse, the "
+            f"backward's dQ and dK/dV kernels, {depth} accuracy forwards without lse): "
+            f"{[dict(c) for c in rec['per_replay']]}; counted by the wrappers over the run "
+            f"{rec['totals']}")
+        log_step_timing(f"ViT-B/16 {img}x{img} bf16, DeiT-style recipe (--aa rand, distillation)",
+                        b, rec["timing"])
+        log_step_timing(f"ViT-B/16 {img}x{img} bf16, default flags (phase 5's cell, same process)",
+                        b, rec["timing_default"])
+        for key, what in (("augment", "the augmentation with --aa rand-m9-mstd0.5-inc1 (flips, "
+                                      "policy, normalize, erasing; draws included)"),
+                          ("augment_jitter", "the augmentation with ColorJitter (default flags)"),
+                          ("teacher_forward", "the teacher's eval forward (bf16, flash)")):
+            log(f"recipe path, {what}, alone: {rec[key][0]:.3f} ms a batch of {b} (CUDA events), "
+                f"device {rec[key][1]:.3f} ms (trace)")
+        out["recipe"].update(per_replay=dict(rec["per_replay"][0]),
+                             timing=_timing_summary(rec["timing"]),
+                             timing_default=_timing_summary(rec["timing_default"]),
+                             **{k: {"ms": rec[k][0], "device_ms": rec[k][1]}
+                                for k in ("augment", "augment_jitter", "teacher_forward")})
+    del rec
+
+    rows = policy_checks(device, b, img)
+    for r in rows:
+        parts = [f"--aa {r['policy']}" if r["policy"] != "color_jitter" else "ColorJitter"]
+        if "share_off" in r:
+            parts.append(f"vs the CPU on the same draws: max|d| {r['max_abs_err']:.3e}, share "
+                         f"beyond {POLICY_ATOL} {r['share_off']:.2e} (tol {POLICY_SHARE}); "
+                         f"{r['changed']:.3f} of the values changed by more than 1")
+        if "ms_eager" in r:
+            parts.append(f"captured = eager bitwise; {r['ms_eager']:.3f} ms eager, "
+                         f"{r['ms_captured']:.3f} ms captured a batch of {b} x {img}x{img} "
+                         f"(CUDA events, draws included)")
+        log("policy alone (12b): " + "; ".join(parts))
+    out["policies"] = rows
+
+    pr = run_prune(os.path.join(work, "prune"), device, model, cfg, teacher, images)
+    losses = [r["loss"] for r in pr["records"]]
+    log(f"prune path (12c): phase 5's checkpoint with the 50% smallest |w| of each of "
+        f"{pr['n_pruned']} eligible weights zeroed (its own numpy code, written by "
+        f"checkpoint/io.py), then train.main --pretrained_path <it> --prune_mask true "
+        f"--flash_attn true --model_ema true, 1 epoch of {len(losses)} steps: printed sparsity "
+        f"{pr['sparsity']:.3f} (want {PRUNE_SPARSITY} +- {PRUNE_TOL}); {pr['held']} pruned entries "
+        f"exactly 0 in the model and the EMA of {pr['checkpoint'].split('/')[-1]}, {pr['moved']} "
+        f"other entries moved; losses {', '.join(f'{x:.4f}' for x in losses)}; flash launches "
+        f"counted by the wrappers over the run {pr['totals']}")
+    out["prune"] = {"totals": pr["totals"], "sparsity": pr["sparsity"], "held": pr["held"],
+                    "moved": pr["moved"], "losses": losses}
+    if device == "cuda":
+        log_step_timing(f"ViT-B/16 {img}x{img} bf16, --prune_mask", b, pr["timing"])
+        out["prune"].update(per_replay=dict(pr["per_replay"][0]),
+                            timing=_timing_summary(pr["timing"]))
+    return out
+
+
+def recipe_phases(keep: str) -> dict:
+    """Phase 12 in a child process of this script (`--recipes`), with a
+    fresh profiler as phases 10-11 (`late_phases`), on phase 5's checkpoint
+    and folder linked into `keep`; returns its summary through a file."""
+    out = os.path.join(keep, "phase12.json")
+    sys.stdout.flush()
+    rc = subprocess.run([sys.executable, os.path.abspath(__file__), "--recipes", keep, out],
+                        timeout=900).returncode
+    if rc != 0:
+        raise AssertionError(f"phase 12 (a child process) exited with {rc}")
+    with open(out) as f:
+        return json.load(f)
+
+
+def recipes_main(keep: str, out: str) -> int:
+    """The child of `recipe_phases`: phase 12 on the card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as work:
+        res = recipes_phase(work, "cuda", VIT_B16, TRAIN, os.path.join(keep, "teacher.pth"),
+                            os.path.join(keep, "images"))
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2747,13 +3090,17 @@ def main() -> int:
     log(f"flash_attention_fwd device time from the trace: {fa_ms / fa_n:.4f} ms per launch "
         f"at {MAIN_SHAPE}, bound/kernel {main_row['bound_ms'] / (fa_ms / fa_n):.3f}")
 
-    # 5. the training path
+    # 5. the training path; its checkpoint and folder are linked into `keep`
+    # for phase 12
     cfg = TRAIN
+    keep = tempfile.TemporaryDirectory()
     with tempfile.TemporaryDirectory() as work:
         images = _train_images(work, cfg["num_classes"], cfg["per_class"], seed=0)
         run = run_training(os.path.join(work, "vit"), "cuda", VIT_B16, cfg["img"],
                            cfg["num_classes"], cfg["per_class"], cfg["batch"], cfg["epochs"],
                            images=images)
+        os.link(run["checkpoint"], os.path.join(keep.name, "teacher.pth"))
+        shutil.copytree(images, os.path.join(keep.name, "images"), copy_function=os.link)
         losses = [r["loss"] for r in run["records"]]
         log(f"training path: {len(losses)} steps ({cfg['epochs']} epochs x "
             f"{run['steps_per_epoch']}) of ViT-B/16 --flash_attn 224x224 batch "
@@ -2928,6 +3275,12 @@ def main() -> int:
     # steps, loader waits, eval and checkpoint writes
     hr = late_phases(cfg["num_classes"], cfg["epochs"])
 
+    # 12. the training recipes: 12a the DeiT-style recipe (--aa RandAugment,
+    # distillation from phase 5's checkpoint), 12b each policy alone, 12c
+    # --prune_mask; the launches counted from 0 over each run
+    recipes = recipe_phases(keep.name)
+    keep.cleanup()
+
     # results
     replaces_bwd = ("jax/experimental/pallas/ops/tpu/flash_attention.py:{} (the backward of "
                     "imageclassification_tpu/models/vit.py:25)")
@@ -3047,7 +3400,19 @@ def main() -> int:
         "path": ("replay of one ResNet-50 train step's 36 1x1 convs (chip_smoke.py phase 7b): "
                  "the JAX model and the port's run lax.conv / F.conv2d, not this kernel"),
     })
+    # the flash kernels on the recipe paths (phase 12): launches counted from
+    # 0 over each run, and a replayed step's
+    for entry, kind, total in zip(kernels[:3], ("fwd", "dkv", "dq"),
+                                  ("fwd", "bwd_dkv", "bwd_dq")):
+        for path, what in (("recipe", "the DeiT-style recipe, --aa rand-m9-mstd0.5-inc1 and "
+                                      "distillation (chip_smoke.py phase 12a)"),
+                           ("prune", "--prune_mask fine-tuning (chip_smoke.py phase 12c)")):
+            entry[path] = {"path": what, "launches": recipes[path]["totals"][total],
+                           "launches_per_replay": recipes[path]["per_replay"][kind]}
     for k in kernels:
+        for path in ("recipe", "prune"):
+            if path in k and k[path]["launches"] <= 0:
+                raise AssertionError(f"{k['name']} was not launched on the {path} path")
         if k["launches"] <= 0:
             where = "in the replay" if "path" in k else "on the training path"
             raise AssertionError(f"{k['name']} was not launched {where}")
@@ -3055,7 +3420,7 @@ def main() -> int:
             raise AssertionError(f"{k['name']} was not launched on the fine-tuning path")
         if "at_4097" in k and k["at_4097"]["launches"] <= 0:
             raise AssertionError(f"{k['name']} was not launched on the high-resolution path")
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"kernels": kernels, "recipes": recipes}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
@@ -3101,4 +3466,6 @@ def late_main(num_classes: int, epochs: int, out: str) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--late-phases"]:
         sys.exit(late_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--recipes"]:
+        sys.exit(recipes_main(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -113,6 +113,43 @@ def _copy_matching(ema: Dict[str, torch.Tensor], model: nn.Module,
                 ema[k].copy_(v)
 
 
+def write_checkpoint(path: str, ck: Dict[str, Any]) -> None:
+    """Pickle the checkpoint dict `ck` to `path` through a temporary file,
+    so a reader never sees half a file."""
+    tmp = f"{path}.tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(ck, f, protocol=pickle.HIGHEST_PROTOCOL)
+    os.replace(tmp, path)
+
+
+def derive_prune_masks(model: nn.Module) -> Tuple[Dict[str, torch.Tensor], float]:
+    """The zero pattern of the model's pruned weights for --prune_mask
+    (the port's copy of the JAX `derive_prune_masks`): a JAX tensor is
+    eligible as JAX decides it, by its JAX name (from the weight carry, so
+    ViT's fused qkv is judged as JAX's query, key and value): the name ends
+    with 'kernel' and not 'head/kernel', ndim >= 2, more than 4096 elements.
+    Returns ({parameter name: bool mask on its device, False where the
+    entry is 0} for each parameter holding an eligible JAX tensor, the
+    sparsity over the eligible tensors)."""
+    carry = carry_for(model)
+    params = dict(model.named_parameters())
+    keep, eligible, total, kept = {}, set(), 0, 0
+    for key, arr in carry.to_jax(params).items():
+        if (key.endswith("kernel") and arr.ndim >= 2 and arr.size > 4096
+                and not key.endswith("head/kernel")):
+            m = arr != 0
+            eligible.add(key)
+            total += m.size
+            kept += int(m.sum())
+            keep[key] = m.astype(np.float32)
+        else:
+            keep[key] = np.ones(arr.shape, np.float32)
+    sd, sources, _ = carry.to_port(keep)
+    masks = {k: torch.as_tensor(v).to(params[k].device) > 0.5 for k, v in sd.items()
+             if any(src in eligible for src in sources[k])}
+    return masks, 0.0 if total == 0 else 1.0 - kept / total
+
+
 def save_model(args, input_shape, epoch, state, num_classes: int,
                model_spec: Dict[str, Any]) -> str:
     """Write output_dir/checkpoint-{epoch}.pth in the JAX layout; `epoch` is
@@ -138,10 +175,7 @@ def save_model(args, input_shape, epoch, state, num_classes: int,
         ck["model_ema"] = carry.to_jax(state.ema)
         if state.ema_stats is not None:
             ck["model_ema_batch_stats"] = carry.to_jax(state.ema_stats)
-    tmp = f"{path}.tmp"
-    with open(tmp, "wb") as f:
-        pickle.dump(ck, f, protocol=pickle.HIGHEST_PROTOCOL)
-    os.replace(tmp, path)
+    write_checkpoint(str(path), ck)
     if isinstance(epoch, int):
         old = output_dir / f"checkpoint-{epoch - args.save_ckpt_num * args.save_ckpt_freq}.pth"
         if old.exists():

@@ -225,10 +225,6 @@ def check_ported(args: TrainConfig) -> None:
         (args.fsdp, "--fsdp true", "A9 (distributed)"),
         (_mesh_devices(args.mesh_shape) > 1, f"--mesh_shape {args.mesh_shape}",
          "A9 (distributed)"),
-        (bool(args.teacher_path) and args.distillation_alpha > 0,
-         "--teacher_path with --distillation_alpha > 0", "A17 (rest: distillation)"),
-        (args.prune_mask, "--prune_mask true", "A17 (rest: prune masks)"),
-        (bool(args.aa), f"--aa {args.aa}", "A10 (remaining augmentation)"),
         (args.opt.lower().split("_")[-1] in NOT_YET_PORTED_OPTIMIZERS, f"--opt {args.opt}",
          "A16 (rest: nvnovograd, adafactor, adahessian)"),
     ]

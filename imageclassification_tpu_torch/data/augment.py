@@ -1,9 +1,12 @@
 """Device pixel pipeline on NHWC tensors (port of the JAX package's
 `data/augment.py`).
 
-Train order as in JAX: [host crop] -> hflip(0.5) -> vflip(0.5) -> ColorJitter
--> normalize (ImageNet mean/std) -> RandomErasing. Eval: normalize only (the
-host did the squash resize). The `--aa` policies are not ported yet.
+Train order as in JAX: [host crop] -> hflip(0.5) -> vflip(0.5) -> {the
+`--aa` policy if one is set, else ColorJitter} -> normalize (ImageNet
+mean/std) -> RandomErasing. Eval: normalize only (the host did the squash
+resize). `--aa rand-*` runs RandAugment (`data/randaugment.py`), `abel*`
+AbelAugment (`data/abel.py`), any other name an AutoAugment table
+('original', 'v0'; another name raises ValueError).
 
 Every random function takes its draws as tensors, and `AugmentPipeline.sample`
 makes them from an explicit `torch.Generator`; a test hands both packages the
@@ -18,6 +21,9 @@ import math
 from typing import Dict
 
 import torch
+
+from .abel import parse_abel_policy
+from .randaugment import AutoAugmentConfig, parse_policy
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -111,10 +117,14 @@ class AugmentPipeline:
     """The train-time pixel pipeline, configured once from the args."""
 
     def __init__(self, args):
+        self.aa = None
         if args.aa:
-            raise NotImplementedError(
-                f"--aa {args.aa} is not ported to imageclassification_tpu_torch yet "
-                "(ROADMAP A10)")
+            if args.aa.startswith("rand"):
+                self.aa = parse_policy(args.aa)
+            elif args.aa.startswith("abel"):
+                self.aa = parse_abel_policy(args.aa)
+            else:
+                self.aa = AutoAugmentConfig(args.aa)
         self.color_jitter = args.color_jitter
         self.reprob = args.reprob
         self.remode = args.remode
@@ -125,7 +135,9 @@ class AugmentPipeline:
         dev = generator.device
         draws = {"flip_h": torch.rand(B, generator=generator, device=dev) < 0.5,
                  "flip_v": torch.rand(B, generator=generator, device=dev) < 0.5}
-        if self.color_jitter and self.color_jitter > 0:
+        if self.aa is not None:
+            draws["aa"] = self.aa.sample(B, generator)
+        elif self.color_jitter and self.color_jitter > 0:
             lo, hi = max(0.0, 1.0 - self.color_jitter), 1.0 + self.color_jitter
             draws["jitter"] = [_uniform(B, lo, hi, generator) for _ in range(3)]
         if self.reprob and self.reprob > 0:
@@ -147,7 +159,9 @@ class AugmentPipeline:
     def __call__(self, images_u8: torch.Tensor, draws: Dict) -> torch.Tensor:
         """uint8 [B, H, W, 3] -> normalized float32 [B, H, W, 3]."""
         x = random_flips(images_u8, draws["flip_h"], draws["flip_v"]).float()
-        if self.color_jitter and self.color_jitter > 0:
+        if self.aa is not None:
+            x = self.aa(x, draws["aa"])
+        elif self.color_jitter and self.color_jitter > 0:
             x = color_jitter_batch(x, *draws["jitter"])
         x = normalize(x / 255.0)
         if self.reprob and self.reprob > 0:

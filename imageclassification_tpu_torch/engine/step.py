@@ -48,8 +48,20 @@ statistics moves toward the new statistics at each real update; the
 exact-mode accuracy forward normalises with its own batch statistics and
 throws them away.
 
-Distillation and prune masks (ROADMAP A17 (rest)) and AdaHessian (A16
-(rest)) are not ported yet and raise.
+Distillation (`teacher`, with --distillation_alpha > 0): the teacher's
+eval-mode forward on the same mixed images, without gradient, gives fp32
+logits t, and the loss is (1 - alpha) * base + alpha * tau^2 *
+KL(softmax(t / tau) || softmax(s / tau)) over the student's logits s, as JAX
+computes it inside its loss function. The teacher runs once a step, after
+the student's forward and outside the `--remat` checkpoint (its forward is
+deterministic, so JAX's recompute of it inside `jax.checkpoint` gives the
+same numbers); inside a captured step its parameters are static tensors.
+
+Prune masks (`prune_masks`, --prune_mask): the entries a mask holds False for
+are set to zero after each optimizer update and before the EMA sees the
+parameters (JAX `engine/step.py:254-262`), a masked fill on the device.
+
+AdaHessian (ROADMAP A16 (rest)) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -158,15 +170,26 @@ def build_train_step(model: nn.Module, args, num_classes: int,
     device. `draws` holds the step's random draws ({"augment": ...,
     "mixup": ...}, see `train_step.sample_draws`); without them the step
     draws its own from generators seeded by `seed`. The step runs on
-    `state.model` and `state.optimizer`; `model` fixes the device. Its parts
-    are attributes for `engine/compiled.py`: `host_inputs`, `device_step`,
-    `is_boundary`, `generators` (the CUDA generators the device step draws
-    from) and `num_classes`."""
-    if teacher is not None or prune_masks is not None:
-        raise NotImplementedError(
-            "distillation and prune masks are not ported to imageclassification_tpu_torch "
-            "yet (ROADMAP A17 (rest))")
+    `state.model` and `state.optimizer`; `model` fixes the device.
+    `teacher`: a model in eval mode on the same device, whose logits the
+    loss distils with --distillation_alpha > 0 (ignored at 0, as in JAX).
+    `prune_masks`: {parameter name: bool tensor of its shape}, False where
+    the entry stays zero (`checkpoint.io.derive_prune_masks`); another name
+    or shape raises ValueError. Its parts are attributes for
+    `engine/compiled.py`: `host_inputs`, `device_step`, `is_boundary`,
+    `generators` (the CUDA generators the device step draws from) and
+    `num_classes`."""
     device = next(model.parameters()).device
+    params = dict(model.named_parameters())
+    pruned = []  # (parameter, where it is held at zero)
+    for name, mask in (prune_masks or {}).items():
+        if name not in params or tuple(mask.shape) != tuple(params[name].shape):
+            raise ValueError(f"prune mask {name!r} {tuple(mask.shape)} matches no parameter "
+                             "of the model by name and shape")
+        pruned.append((params[name], ~mask.to(device=device, dtype=torch.bool)))
+    alpha = float(getattr(args, "distillation_alpha", 0.0) or 0.0)
+    tau = float(getattr(args, "distillation_tau", 1.0) or 1.0)
+    distill = teacher is not None and alpha > 0.0
     augment = AugmentPipeline(args)
     update_freq = int(args.update_freq)
     smoothing = float(args.smoothing)
@@ -220,6 +243,16 @@ def build_train_step(model: nn.Module, args, num_classes: int,
             return -(targets * F.log_softmax(logits, dim=-1)).sum(-1).mean(), logits
         return F.cross_entropy(logits, targets), logits
 
+    def distilled(loss, logits, mixed):
+        """(1 - alpha) * loss + alpha * the KD term against the teacher's
+        logits on `mixed` (Hinton KD, tau^2-scaled)."""
+        with torch.no_grad():
+            t = teacher(mixed).float() / tau
+        s = logits / tau
+        kd = (F.softmax(t, dim=-1) * (F.log_softmax(t, dim=-1) - F.log_softmax(s, dim=-1))
+              ).sum(-1).mean() * (tau ** 2)
+        return (1.0 - alpha) * loss + alpha * kd
+
     def forward_backward(model: nn.Module, image, label, aug, mix):
         """(loss, logits, augmented un-mixed images, gradients of the
         parameters in order) of one forward and backward."""
@@ -242,6 +275,8 @@ def build_train_step(model: nn.Module, args, num_classes: int,
                                       preserve_rng_state=False)
         else:
             loss, logits = loss_fn(model, mixed, targets, drop_gen)
+        if distill:
+            loss = distilled(loss, logits, mixed)
         grads = torch.autograd.grad(loss, list(model.parameters()))
         return loss.detach(), logits.detach(), images, grads
 
@@ -288,6 +323,8 @@ def build_train_step(model: nn.Module, args, num_classes: int,
             grad_norm = torch.where(finite, global_norm(accum, norm_type), 0.0)
             if boundary:
                 opt.step(accum, keep=finite)
+                for p, held in pruned:
+                    p.masked_fill_(held, 0.0)
                 if use_ema:
                     d = warmup_decay(ema_decay, t) if ema_warmup else ema_decay
                     ema_update(state.ema, model, d, finite)

@@ -12,6 +12,11 @@
     python -m imageclassification_tpu_torch.train --data_path <ImageFolder> \\
         --model vit_base_patch16_224 --flash_attn true --input_size 1024 \\
         --pretrained_path <state_dict> --layer_decay 0.65 --remat true ...
+    python -m imageclassification_tpu_torch.train --data_path <ImageFolder> \\
+        --model vit_base_patch16 --flash_attn true --aa rand-m9-mstd0.5-inc1 \\
+        --teacher_path <checkpoint> --distillation_alpha 0.5 --distillation_tau 2.0 ...
+    python -m imageclassification_tpu_torch.train --data_path <ImageFolder> \\
+        --pretrained_path <pruned checkpoint> --prune_mask true ...
     python -m imageclassification_tpu_torch.train --data_path <ImageFolder>  # efficientvit_m0
 
 The JAX train.py's flags, artifacts and epoch flow: `class_indices.json`
@@ -27,8 +32,10 @@ as CUDA graphs (`engine/compiled.py`, the counterpart of the JAX step's
 JAX's jax_debug_nans), they run eagerly. One process on one device; the ViT,
 ConvNeXt, ConvNeXt-V2, ResNet (ResNeXt, wide ResNet) and EfficientViT
 families are built (other names raise NotImplementedError), --layer_decay,
---remat and the optimizer table (but nvnovograd, adafactor, adahessian)
-run, and the flags of features not ported yet raise (config.check_ported).
+--remat, the optimizer table (but nvnovograd, adafactor, adahessian), the
+--aa policies (RandAugment, AutoAugment, AbelAugment), distillation
+(--teacher_path with --distillation_alpha > 0) and --prune_mask run, and the
+flags of features not ported yet raise (config.check_ported).
 """
 
 from __future__ import annotations
@@ -63,6 +70,7 @@ from .optim.factory import create_optimizer, route
 from .optim.layer_decay import layer_decay_scales
 from .optim.schedules import build_schedules
 from .utils.loggers import TensorboardLogger, WandbLogger
+from .val import initialize_model as initialize_teacher
 
 
 class _EmaWeights:
@@ -192,9 +200,30 @@ def main(args: TrainConfig):
 
     state, _ = ckpt_io.auto_load_model(args, state)
 
+    prune_masks = None
+    if args.prune_mask:
+        # sparse fine-tuning: the loaded weights' zero pattern (after the
+        # pretrained load and the resume) is held through training
+        prune_masks, mask_sparsity = ckpt_io.derive_prune_masks(model)
+        print(f"Prune-mask fine-tune: enforcing {mask_sparsity:.3f} sparsity "
+              "zero pattern through training")
+
+    teacher = None
+    if args.teacher_path and args.distillation_alpha > 0:
+        # the teacher rebuilt from its checkpoint's own model_spec, as val.py
+        # does; int8 kernels restored to float (the step runs it plainly)
+        teacher, t_nc = initialize_teacher(
+            args.teacher_path, model_ema=False,
+            half_precision=(args.use_amp or args.half_precision), dequantize=True,
+            device=args.device)
+        if t_nc != num_classes:
+            raise ValueError(f"teacher has {t_nc} classes, dataset has {num_classes}")
+        print(f"Distillation: teacher={args.teacher_path} "
+              f"alpha={args.distillation_alpha} tau={args.distillation_tau}")
+
     train_step = build_train_step(model, args, num_classes, mixup_cfg, lr_schedule_values,
                                   wd_schedule_values, ema_decay=args.model_ema_decay,
-                                  seed=seed)
+                                  seed=seed, teacher=teacher, prune_masks=prune_masks)
     eval_step = build_eval_step(model, num_classes)
     if args.check_nans:
         train_step = nan_checked(train_step, model)

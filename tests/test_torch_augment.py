@@ -106,8 +106,11 @@ def test_augment_pipeline_samples_its_own_draws():
 
 
 def test_augment_pipeline_refuses_aa():
-    with pytest.raises(NotImplementedError, match="A10"):
-        augment.AugmentPipeline(_aug_args(aa="rand-m9-mstd0.5-inc1"))
+    # --aa runs (tests/test_torch_augment_policies.py); a name that is no
+    # policy raises as in JAX
+    augment.AugmentPipeline(_aug_args(aa="rand-m9-mstd0.5-inc1"))
+    with pytest.raises(ValueError, match="unknown AutoAugment policy"):
+        augment.AugmentPipeline(_aug_args(aa="augmix-m5"))
 
 
 def test_one_hot_smooth_matches_jax():

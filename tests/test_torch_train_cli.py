@@ -74,9 +74,7 @@ def test_flags_and_defaults_match_jax():
 
 @pytest.mark.parametrize("argv,item", [
     (["--fsdp", "true"], "A9"), (["--mesh_shape", "data:4"], "A9"),
-    (["--teacher_path", "t.pth", "--distillation_alpha", "0.5"], "A17 \\(rest: distillation"),
-    (["--prune_mask", "true"], "A17 \\(rest: prune masks"), (["--opt", "adahessian"], "A16 \\(rest"),
-    (["--opt", "lookahead_nvnovograd"], "A16 \\(rest"), (["--aa", "rand-m9-mstd0.5-inc1"], "A10"),
+    (["--opt", "adahessian"], "A16 \\(rest"), (["--opt", "lookahead_nvnovograd"], "A16 \\(rest"),
     (["--opt", "adafactor"], "A16 \\(rest"),
 ])
 def test_unported_flags_raise(argv, item):

@@ -445,11 +445,17 @@ def test_global_norm_matches_jax(norm_type):
 
 
 def test_step_refuses_unported_features():
+    # distillation and prune masks are ported (tests/test_torch_distill_prune.py);
+    # a prune mask that names no parameter, or another shape, is refused
     _, pargs = _configs(opt="adamw")
     model = port_vit.ViT(**SMALL, img_size=32)
-    for kw in ({"teacher": object()}, {"prune_masks": {}}):
-        with pytest.raises(NotImplementedError, match="A17 \\(rest\\)"):
-            build_train_step(model, pargs, 5, None, [0.1], [0.0], **kw)
+    shape = model.head.weight.shape
+    build_train_step(model, pargs, 5, None, [0.1], [0.0],
+                     prune_masks={"head.weight": torch.ones(shape, dtype=torch.bool)})
+    for masks in ({"head.kernel": torch.ones(shape, dtype=torch.bool)},
+                  {"head.weight": torch.ones(shape[::-1], dtype=torch.bool)}):
+        with pytest.raises(ValueError, match="matches no parameter"):
+            build_train_step(model, pargs, 5, None, [0.1], [0.0], prune_masks=masks)
 
 
 def _remat_pair(family):
