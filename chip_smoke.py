@@ -164,14 +164,37 @@ exit before the last line:
    --model_ema true` for 1 epoch of 10 steps: printed sparsity 0.50 +-
    0.01, every pruned entry of the model and the EMA in checkpoint-0.pth
    exactly 0, some other entry moved; captured and eager ms a step;
-13. one JSON line with every kernel's numbers (at ConvNeXt-T's stage-0
+13. the rest of the model registry and of the optimizer table, in a child
+   process (`--registry`, a fresh profiler as for phases 10-12), on phase
+   5's folder at its cell's shape (224x224, batch 64, default flags), one
+   epoch of 10 steps each, every run through `train.main`, captured:
+   13a. ViT-B/16 --flash_attn with --opt nvnovograd and with --opt
+   adafactor: three replays of each run's captured step launch 24 forwards
+   (12 with lse), 12 dQ and 12 dK/dV each, read from traces; the
+   checkpoint's optimizer state in the optax layout (nvnovograd's nu a
+   scalar a JAX tensor, adafactor's factored v_row / v_col); 6 captured
+   steps held against 6 eager ones with a non-finite step inside the
+   replays, as 5c; ms a step captured and eager beside adamw's;
+   13b. ConvNeXt-T with --opt adahessian (the Hutchinson diagonal from a
+   second backward at every step): the same checks but the launches (no
+   kernel), captured against eager as 13a, ms a step beside adamw's and
+   the idle share; ViT-B/16 --flash_attn true --opt adahessian refused
+   before its first step;
+   13c. Swin-T (starting from a seeded timm-layout state_dict through
+   --pretrained_path), MobileNetV3-Large, EfficientNet-B0 and DenseNet-121
+   at full width: no kernel launched, the checkpoint in the JAX layout that
+   the torch converter gives, reloaded exactly and served by val_precision
+   (captured); ms a step captured and eager with traces, peak memory, ms a
+   served batch;
+14. one JSON line with every kernel's numbers (at ConvNeXt-T's stage-0
    shape for the LayerNorm and depthwise-conv kernels and ResNet-50's
    stage-1 conv3 shape for the fused 1x1 conv; the other shapes are in the
    lines of phases 3c, 3d and 3e; the flash kernels' numbers on the
    fine-tuning path under "at_577", on the high-resolution path under
    "at_4097" and their launches on phase 12's paths under "recipe" and
-   "prune") and phase 12's summary under "recipes", then the result line
-   {"ok": true, "device": {...}}.
+   "prune" and on phase 13a's under "nvnovograd" and "adafactor"), phase
+   12's summary under "recipes" and phase 13's under "registry", then the
+   result line {"ok": true, "device": {...}}.
 
 Phase 2 also builds the port's native JPEG decoder and says whether it
 built; the training phases say which decoder fed them. A device ms read
@@ -921,10 +944,7 @@ def run_training(work: str, device: str, model: dict, img: int, num_classes: int
     got = {k: v.shape for k, v in ck["model"].items()}
     if got != {k: v.shape for k, v in want.items()}:
         raise AssertionError(f"{path}: parameters not in the JAX layout")
-    mu = {k[len("inner_state/0/mu/"):]: v.shape for k, v in ck["optimizer"].items()
-          if k.startswith("inner_state/0/mu/")}
-    if mu != got or int(ck["optimizer"]["count"]) != len(records):
-        raise AssertionError(f"{path}: optimizer state not in the JAX adamw layout")
+    check_optimizer_state(path, ck["optimizer"], got, args.opt, len(records))
     loaded, _ = val.initialize_model(path, model_ema=False, device=device)
     carried = max((loaded.state_dict()[k] - v).abs().max().item()
                   for k, v in state.model.state_dict().items())
@@ -940,6 +960,43 @@ def run_training(work: str, device: str, model: dict, img: int, num_classes: int
             "per_replay": per_replay, "wall_s": wall_s, "checkpoint": path, "images": images,
             "steps_per_epoch": len(records) // epochs, "num_classes": num_classes,
             "input_shape": ck["input_shape"]}
+
+
+def _factored(shape) -> tuple:
+    """optax adafactor's choice for a JAX tensor (written out here): the
+    axes of its second largest and largest dims when the second is at least
+    128, else None."""
+    order = np.argsort(shape)
+    return (int(order[-2]), int(order[-1])) if len(shape) > 1 and \
+        shape[order[-2]] >= 128 else None
+
+
+def check_optimizer_state(path: str, opt_state: dict, params: dict, opt: str, count: int):
+    """A checkpoint's optimizer state in the JAX optax layout of --opt `opt`
+    (adamw, nvnovograd, adahessian: mu (and adamw's and adahessian's nu)
+    shaped like each JAX parameter, nvnovograd's nu a scalar each;
+    adafactor: its chain's v_row, v_col and v as optax shapes them), and
+    `count` updates taken."""
+    state = {k: v.shape for k, v in opt_state.items()}
+
+    def field(prefix):
+        return {k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)}
+
+    if opt == "adafactor":
+        want = {}
+        for k, shape in params.items():
+            dims = _factored(shape)
+            want[k] = ((tuple(np.delete(shape, dims[1])), tuple(np.delete(shape, dims[0])), (1,))
+                       if dims else ((1,), (1,), shape))
+        got = {k: tuple(field(f"inner_state/0/0/{f}/").get(k) for f in ("v_row", "v_col", "v"))
+               for k in params}
+        ok = got == want and field("inner_state/0/0/count") == {"": ()}
+    else:
+        nu = {k: () for k in params} if opt == "nvnovograd" else params
+        ok = field("inner_state/0/mu/") == params and (
+            opt == "lion" or field("inner_state/0/nu/") == nu)
+    if not ok or int(opt_state["count"]) != count:
+        raise AssertionError(f"{path}: optimizer state not in the JAX {opt} layout")
 
 
 def _rel_l2(grads, ref):
@@ -1007,10 +1064,17 @@ def train_step_checks(run: dict, model: dict, device: str, timed: bool = True):
     return res
 
 
+def head_bias(model):
+    """The bias of a model's classifier (ViT, Swin: head; ConvNeXt:
+    head.fc)."""
+    head = model.head
+    return head.fc.bias if hasattr(head, "fc") else head.bias
+
+
 def captured_vs_eager(model: dict, img: int, batch: int, num_classes: int, steps: int = 6,
                       flags: tuple = ()):
-    """`steps` train steps of `model` with --flash_attn at full width (drop
-    path 0.1, the default training flags, the EMA with warmup), eager twice
+    """`steps` train steps of `model` at full width (a ViT with --flash_attn;
+    drop path 0.1, the default training flags, the EMA with warmup), eager twice
     and captured once, each from the same seeded state and seeded generators
     on seeded batches: the largest difference over parameters, EMA, moments
     and count between the eager runs and between the captured run and the
@@ -1018,7 +1082,7 @@ def captured_vs_eager(model: dict, img: int, batch: int, num_classes: int, steps
     the eager runs match each other, else differ by no more than they do.
     Then, inside the captured run's replays, a step with the head bias set to
     inf must leave that state unchanged bitwise, and the next step apply.
-    `flags`: more train.py flags (--remat, --layer_decay)."""
+    `flags`: more train.py flags (--remat, --layer_decay, --opt)."""
     import torch
 
     from imageclassification_tpu_torch.config import parse_args
@@ -1032,8 +1096,9 @@ def captured_vs_eager(model: dict, img: int, batch: int, num_classes: int, steps
     dev = torch.device("cuda")
     from imageclassification_tpu_torch.train import optimizer_layout
 
-    args = parse_args(["--model", model["name"], "--flash_attn", "true", "--model_ema", "true",
-                       "--model_ema_warmup", "true", "--drop_path", "0.1", *flags])
+    vit = model["name"].startswith("vit")
+    args = parse_args(["--model", model["name"], "--flash_attn", str(vit).lower(), "--model_ema",
+                       "true", "--model_ema_warmup", "true", "--drop_path", "0.1", *flags])
     rng = np.random.default_rng(11)
     batches = [{"image": torch.from_numpy(rng.integers(0, 256, (batch, img, img, 3),
                                                        dtype=np.uint8)).to(dev),
@@ -1042,7 +1107,7 @@ def captured_vs_eager(model: dict, img: int, batch: int, num_classes: int, steps
 
     def build():
         m = create_model(model["name"], num_classes=num_classes, half_precision=True,
-                         img_size=img, flash_attn=True, drop_path_rate=args.drop_path,
+                         img_size=img, flash_attn=vit, drop_path_rate=args.drop_path,
                          generator=torch.Generator().manual_seed(0)).to(dev)
         opt = create_optimizer(args.opt, m.parameters(), lr=args.lr,
                                weight_decay=args.weight_decay, **optimizer_layout(args, m))
@@ -1080,7 +1145,7 @@ def captured_vs_eager(model: dict, img: int, batch: int, num_classes: int, steps
     if res["captured_gap"] > res["eager_gap"] > 0.0:
         raise AssertionError(f"captured steps differ from eager steps by {res['captured_gap']}, "
                              f"more than two eager runs ({res['eager_gap']})")
-    bias = state.model.head.bias.detach()
+    bias = head_bias(state.model).detach()
     keep = bias[0].item()
     bias[0] = float("inf")  # in place: the graph reads the parameter's memory
     before = snapshot(state)
@@ -1493,10 +1558,10 @@ def jax_convnext_shapes(depths, dims, num_classes: int) -> dict:
 
 def run_convnext_training(work: str, device: str, model: dict, img: int, num_classes: int,
                           per_class: int, batch: int, epochs: int, seed: int = 0,
-                          images: str = None):
+                          images: str = None, flags: tuple = ()):
     """The ConvNeXt training path through the port's train.main on `device`
     with the default training flags (drop_path, AdamW, mixup, exact-mode
-    accuracy), on a seeded image folder. The model runs F.conv2d and its
+    accuracy) and `flags`, on a seeded image folder. The model runs F.conv2d and its
     fp32 LayerNorm helper, no kernel of the port: every launch count must
     stay 0. Checks the checkpoint's JAX layout, its exact reload by the
     port's val.initialize_model, and val_precision on it."""
@@ -1513,7 +1578,7 @@ def run_convnext_training(work: str, device: str, model: dict, img: int, num_cla
     state, args, records, wall_s, _ = _train_main(
         work, images, ["--model", model["name"], "--input_size", str(img), "--batch_size",
                        str(batch), "--epochs", str(epochs), "--warmup_epochs", "1",
-                       "--device", device])
+                       "--device", device, *flags])
     if any(counts().values()):
         raise AssertionError(f"the ConvNeXt training path launched a kernel: {counts()}")
     path = os.path.join(args.output_dir, f"checkpoint-{epochs - 1}.pth")
@@ -1522,10 +1587,7 @@ def run_convnext_training(work: str, device: str, model: dict, img: int, num_cla
     want = jax_convnext_shapes(model["depths"], model["dims"], num_classes)
     if {k: v.shape for k, v in ck["model"].items()} != want:
         raise AssertionError(f"{path}: parameters not in the JAX layout")
-    mu = {k[len("inner_state/0/mu/"):]: v.shape for k, v in ck["optimizer"].items()
-          if k.startswith("inner_state/0/mu/")}
-    if mu != want or int(ck["optimizer"]["count"]) != len(records):
-        raise AssertionError(f"{path}: optimizer state not in the JAX adamw layout")
+    check_optimizer_state(path, ck["optimizer"], want, args.opt, len(records))
     loaded, _ = val.initialize_model(path, model_ema=False, device=device)
     carried = max((loaded.state_dict()[k] - v).abs().max().item()
                   for k, v in state.model.state_dict().items())
@@ -1551,19 +1613,20 @@ def _fixed_batch(run: dict, device: str):
                                  device=device, seed=args.seed, num_workers=8)))
 
 
-def time_captured_and_eager(state, step, batch) -> dict:
-    """ms per train step (CUDA events, back-to-back steps on one fixed batch)
-    and a torch.profiler trace of train steps, for the step captured as
-    train.main runs it (`CapturedTrainStep`) and for the eager `step`, on
-    `state` (the steps go on updating it): {"captured": (ms, trace),
-    "eager": (ms, trace)}."""
+def time_captured_and_eager(state, step, batch, iters: int = 10, reps: int = 3,
+                            trace_steps: int = 3) -> dict:
+    """ms per train step (CUDA events, `reps` of `iters` back-to-back steps
+    on one fixed batch) and a torch.profiler trace of `trace_steps` train
+    steps, for the step captured as train.main runs it (`CapturedTrainStep`)
+    and for the eager `step`, on `state` (the steps go on updating it):
+    {"captured": (ms, trace), "eager": (ms, trace)}."""
     import torch
 
     from imageclassification_tpu_torch.engine.compiled import CapturedTrainStep
 
     captured = CapturedTrainStep(step, torch.device("cuda"))
-    return {name: (time_ms(lambda: fn(state, batch), iters=10, reps=3),
-                   trace(lambda: fn(state, batch), steps=5))
+    return {name: (time_ms(lambda: fn(state, batch), iters=iters, reps=reps),
+                   trace(lambda: fn(state, batch), steps=trace_steps))
             for name, fn in (("captured", captured), ("eager", step))}
 
 
@@ -1871,8 +1934,9 @@ def _reset_all_launches() -> None:
 def _bn_training(work: str, device: str, flags: list, shapes: tuple, what: str, img: int,
                  num_classes: int, per_class: int, batch: int, epochs: int, seed: int = 0,
                  images: str = None):
-    """The training path of a BatchNorm model through the port's train.main
-    on `device` with the default training flags (AdamW, mixup, exact-mode
+    """The training path of a BatchNorm model (or, with no statistics in
+    `shapes`, a model without BatchNorm) through the port's train.main on
+    `device` with the default training flags (AdamW, mixup, exact-mode
     accuracy) and `flags`, on a seeded image folder. The model runs F.conv2d
     and its BatchNorm, no kernel of the port: every launch count must stay
     0. Checks the checkpoint's JAX layout (parameters and batch statistics
@@ -1894,22 +1958,19 @@ def _bn_training(work: str, device: str, flags: list, shapes: tuple, what: str, 
     want, want_stats = shapes
     if {k: v.shape for k, v in ck["model"].items()} != want:
         raise AssertionError(f"{path}: parameters not in the JAX layout")
-    if {k: v.shape for k, v in ck["batch_stats"].items()} != want_stats:
+    if {k: v.shape for k, v in ck.get("batch_stats", {}).items()} != want_stats:
         raise AssertionError(f"{path}: batch statistics not in the JAX layout")
-    mu = {k[len("inner_state/0/mu/"):]: v.shape for k, v in ck["optimizer"].items()
-          if k.startswith("inner_state/0/mu/")}
-    if mu != want or int(ck["optimizer"]["count"]) != len(records):
-        raise AssertionError(f"{path}: optimizer state not in the JAX adamw layout")
+    check_optimizer_state(path, ck["optimizer"], want, args.opt, len(records))
     loaded, _ = val.initialize_model(path, model_ema=False, device=device)
     carried = max((loaded.state_dict()[k] - v).abs().max().item()
                   for k, v in state.model.state_dict().items())
     if carried != 0.0:
         raise AssertionError(f"{path}: reloaded weights or statistics differ from the run's by "
                              f"{carried}")
-    moved = max((v - (1.0 if k.endswith("running_var") else 0.0)).abs().max().item()
-                for k, v in state.model.state_dict().items()
-                if k.endswith(("running_mean", "running_var")))
-    if not moved > 0:
+    moved = max([(v - (1.0 if k.endswith("running_var") else 0.0)).abs().max().item()
+                 for k, v in state.model.state_dict().items()
+                 if k.endswith(("running_mean", "running_var"))], default=None)
+    if want_stats and not moved > 0:
         raise AssertionError("the running statistics never moved from their initial values")
     n_images = num_classes * per_class
     tp, fp, fn = val.val_precision(images, path, img, model_ema=True, batch_size=batch,
@@ -2993,6 +3054,282 @@ def recipes_main(keep: str, out: str) -> int:
     return 0
 
 
+# phase 13, the rest of the model registry and of the optimizer table, on
+# phase 5's folder at its cell's shape (224x224, batch 64, default flags),
+# one epoch of 10 steps each: nvnovograd and adafactor on ViT-B/16
+# --flash_attn (13a), adahessian on ConvNeXt-T (13b), and Swin-T (from a
+# seeded timm-layout state_dict), MobileNetV3-Large, EfficientNet-B0 and
+# DenseNet-121 at full width (13c)
+REGISTRY_CFG = dict(TRAIN, epochs=1)
+NEW_OPTS = ("nvnovograd", "adafactor")
+NEW_FAMILIES = ("swin_tiny", "mobilenetv3_large_100", "efficientnet_b0", "densenet121")
+
+
+def timing_with_opt(run: dict, device: str, opt: str, **kw) -> dict:
+    """`time_captured_and_eager` (with `kw`) of the step of `run`'s flags
+    with --opt `opt` (a fresh optimizer) on the run's trained model and
+    fixed batch."""
+    from imageclassification_tpu_torch.data.mixup import build_mixup
+    from imageclassification_tpu_torch.engine.state import create_train_state
+    from imageclassification_tpu_torch.engine.step import build_train_step
+    from imageclassification_tpu_torch.optim.factory import create_optimizer
+    from imageclassification_tpu_torch.train import optimizer_layout
+
+    args, model, nc = run["args"].replace(opt=opt), run["state"].model, run["num_classes"]
+    state = create_train_state(model, create_optimizer(
+        opt, model.parameters(), lr=args.lr, weight_decay=args.weight_decay,
+        **optimizer_layout(args, model)), use_ema=args.model_ema)
+    step = build_train_step(model, args, nc, build_mixup(args, nc), [args.lr],
+                            [args.weight_decay], seed=args.seed)
+    return time_captured_and_eager(state, step, _fixed_batch(run, device), **kw)
+
+
+def optimizer_rest_runs(work: str, device: str, model: dict, cfg: dict, images: str) -> dict:
+    """13a: `run_training` of `model` (ViT, --flash_attn) with --opt
+    nvnovograd and with --opt adafactor: the launches of three replays of
+    each run's captured step read from traces (24 forwards, 12 dQ, 12 dK/dV
+    a step), the checkpoint's optimizer state in the optax layout; on a
+    card, ms a step captured and eager beside adamw's in the same process,
+    and `captured_vs_eager` with the optimizer (6 steps, a non-finite one
+    inside the replays). adamw's step is timed once, beside both."""
+    out, adamw = {}, None
+    for opt in NEW_OPTS:
+        run = run_training(os.path.join(work, opt), device, model, cfg["img"], cfg["num_classes"],
+                           cfg["per_class"], cfg["batch"], cfg["epochs"], images=images,
+                           flags=("--opt", opt))
+        row = {"totals": run["totals"], "losses": [r["loss"] for r in run["records"]],
+               "wall_s": run["wall_s"]}
+        if device == "cuda":
+            row["per_replay"] = dict(run["per_replay"][0])
+            row["timing"] = timing_with_opt(run, device, opt)
+            # adamw's step once, on the first run's model and batch
+            adamw = adamw or timing_with_opt(run, device, "adamw")
+            row["timing_adamw"] = adamw
+            del run
+            row["captured_vs_eager"] = captured_vs_eager(model, cfg["img"], cfg["batch"],
+                                                         cfg["num_classes"], flags=("--opt", opt))
+        out[opt] = row
+    return out
+
+
+def adahessian_run(work: str, device: str, model: dict, cfg: dict, images: str) -> dict:
+    """13b: `run_convnext_training` of `model` with --opt adahessian (the
+    Hutchinson diagonal from a second backward at every step); on a card,
+    ms a step captured and eager beside adamw's in the same process, and
+    `captured_vs_eager` with adahessian; and train.main of ViT-B/16 with
+    --flash_attn true --opt adahessian, which must raise before anything is
+    written."""
+    run = run_convnext_training(os.path.join(work, "adahessian"), device, model, cfg["img"],
+                                cfg["num_classes"], cfg["per_class"], cfg["batch"],
+                                cfg["epochs"], images=images, flags=("--opt", "adahessian"))
+    out = {"losses": [r["loss"] for r in run["records"]], "wall_s": run["wall_s"]}
+    refused = os.path.join(work, "refused")
+    try:
+        _train_main(refused, images, ["--model", "vit_base_patch16", "--flash_attn", "true",
+                                      "--opt", "adahessian", "--device", device])
+    except ValueError as e:
+        if "flash attention twice" not in str(e) or os.path.exists(refused):
+            raise AssertionError(f"--flash_attn true --opt adahessian: {e}") from e
+        out["refused"] = str(e)
+    else:
+        raise AssertionError("--flash_attn true --opt adahessian trained")
+    if device == "cuda":
+        # its step takes ~1 s on an H100 (PERF.md §5): fewer timed steps
+        out["timing"] = timing_with_opt(run, device, "adahessian", iters=2, reps=1,
+                                        trace_steps=2)
+        out["timing_adamw"] = timing_with_opt(run, device, "adamw")
+        del run
+        out["captured_vs_eager"] = captured_vs_eager(model, cfg["img"], cfg["batch"],
+                                                     cfg["num_classes"], steps=3,
+                                                     flags=("--opt", "adahessian"))
+    return out
+
+
+def hub_layout_shapes(name: str, num_classes: int) -> tuple:
+    """(parameters, batch statistics) names and shapes of the JAX layout of
+    `name`, from the torch converter (the JAX package's, copied into the
+    port) applied to the port model's state_dict, which is the timm /
+    torchvision hub file's layout."""
+    from imageclassification_tpu_torch.checkpoint.torch_convert import convert_state_dict
+    from imageclassification_tpu_torch.models import create_model
+
+    params, stats = convert_state_dict(create_model(name, num_classes=num_classes).state_dict(),
+                                       name)
+    return ({k: v.shape for k, v in params.items()}, {k: v.shape for k, v in stats.items()})
+
+
+def write_timm_state_dict(path: str, name: str, seed: int) -> str:
+    """A seeded 1000-class port model of `name` saved with torch.save in its
+    hub layout (timm's names; for Swin with its relative_position_index
+    buffers), standing in for a downloaded hub file."""
+    import torch
+
+    from imageclassification_tpu_torch.models import create_model
+
+    m = create_model(name, num_classes=1000, generator=torch.Generator().manual_seed(seed))
+    sd = dict(m.state_dict())
+    for k, mod in m.named_modules():
+        if hasattr(mod, "relative_position_onehot"):
+            sd[f"{k}.relative_position_index"] = mod.relative_position_onehot.argmax(-1).reshape(
+                mod.window ** 2, mod.window ** 2)
+    torch.save(sd, path)
+    return path
+
+
+def family_runs(work: str, device: str, cfg: dict, images: str, names=NEW_FAMILIES) -> dict:
+    """13c: `_bn_training` of each model of `names` at full width (the
+    checkpoint in the JAX layout the torch converter gives, reloaded
+    exactly, served by val_precision); a Swin starts from a seeded
+    timm-layout state_dict through --pretrained_path (the 1000-class head
+    skipped). On a card: ms a step captured and eager with traces, the peak
+    of torch.cuda.max_memory_allocated over those steps, and ms a served
+    batch (val.py's captured predict)."""
+    import torch
+
+    from imageclassification_tpu_torch import val
+
+    out = {}
+    for name in names:
+        w = os.path.join(work, name)
+        os.makedirs(w, exist_ok=True)
+        flags = ["--model", name]
+        if name.startswith("swin"):
+            src = write_timm_state_dict(os.path.join(w, f"{name}.pth"), name, seed=13)
+            flags += ["--pretrained", "true", "--pretrained_path", src]
+        shapes = hub_layout_shapes(name, cfg["num_classes"])
+        run, printed = _printed_by(lambda: _bn_training(
+            w, device, flags, shapes, name, cfg["img"], cfg["num_classes"], cfg["per_class"],
+            cfg["batch"], cfg["epochs"], images=images))
+        if name.startswith("swin") and not ("Converted torch state_dict" in printed
+                                            and "Loaded pretrained weights" in printed):
+            raise AssertionError(f"{name}: the timm state_dict was not loaded")
+        row = {"losses": [r["loss"] for r in run["records"]], "wall_s": run["wall_s"],
+               "val_top1": run["val_top1"],
+               "params": sum(p.numel() for p in run["state"].model.parameters())}
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            row["timing"] = step_timing(run, device)
+            row["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            m, _ = val.initialize_model(run["checkpoint"], False, device=device)
+            predict = val._predict_fn(m)
+            imgs = _fixed_batch(run, device)["image"]
+            probs = predict(imgs)
+            if probs.shape != (cfg["batch"], cfg["num_classes"]) or \
+                    not torch.isfinite(probs).all():
+                raise AssertionError(f"{name}: bad served probabilities")
+            row["ms_served"] = time_ms(lambda: predict(imgs), iters=10, reps=3)
+            del m, predict
+        del run
+        out[name] = row
+    return out
+
+
+def registry_phase(work: str, device: str, cfg: dict, vit: dict, convnext: dict, images: str,
+                   names=NEW_FAMILIES) -> dict:
+    """Phase 13 (module docstring) at `cfg`'s sizes on the folder `images`:
+    logs its lines and returns its summary (JSON-ready)."""
+    b, img = cfg["batch"], cfg["img"]
+    out = {"optimizers": {}, "families": {}, "seconds": {}}
+    t0 = time.perf_counter()
+    for opt, row in optimizer_rest_runs(os.path.join(work, "opt"), device, vit, cfg,
+                                        images).items():
+        log(f"optimizer path (13a): train.main --model {vit['name']} --flash_attn true --opt "
+            f"{opt}, {img}x{img} batch {b}, {len(row['losses'])} steps, {row['wall_s']:.1f} s "
+            f"for train.main; losses {', '.join(f'{x:.4f}' for x in row['losses'])}; the "
+            f"checkpoint's optimizer state in the optax {opt} layout, reloaded to the run's "
+            f"exact weights; flash launches counted by the wrappers over the run "
+            f"{row['totals']}")
+        summary = {"totals": row["totals"], "losses": row["losses"]}
+        if device == "cuda":
+            ce = row["captured_vs_eager"]
+            log(f"optimizer path (13a), --opt {opt}: launches per step of the run's captured "
+                f"step (trace) {row['per_replay']}; {ce['steps']} captured steps against eager "
+                f"ones: eager vs eager {ce['eager_gap']:.3e}, captured vs eager "
+                f"{ce['captured_gap']:.3e}, a non-finite replayed step skipped and inert")
+            log_step_timing(f"ViT-B/16 {img}x{img} bf16, --opt {opt}", b, row["timing"])
+            if opt == NEW_OPTS[0]:
+                log_step_timing(f"ViT-B/16 {img}x{img} bf16, --opt adamw (beside "
+                                f"{' and '.join(NEW_OPTS)})", b, row["timing_adamw"])
+            summary.update(per_replay=row["per_replay"], timing=_timing_summary(row["timing"]),
+                           timing_adamw=_timing_summary(row["timing_adamw"]),
+                           captured_vs_eager=ce)
+        out["optimizers"][opt] = summary
+    out["seconds"]["13a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ah = adahessian_run(os.path.join(work, "adahessian"), device, convnext, cfg, images)
+    log(f"adahessian path (13b): train.main --model {convnext['name']} --opt adahessian, "
+        f"{img}x{img} batch {b}, {len(ah['losses'])} steps, {ah['wall_s']:.1f} s for train.main; "
+        f"losses {', '.join(f'{x:.4f}' for x in ah['losses'])}; checkpoint in the optax "
+        f"layout, reloaded exactly; --flash_attn true --opt adahessian on ViT-B/16 refused before "
+        f"its first step: {ah['refused'][:90]}...")
+    out["adahessian"] = {"losses": ah["losses"]}
+    if device == "cuda":
+        ce = ah["captured_vs_eager"]
+        log(f"adahessian path (13b): {ce['steps']} captured ConvNeXt-T steps against eager ones: "
+            f"eager vs eager {ce['eager_gap']:.3e}, captured vs eager {ce['captured_gap']:.3e}, "
+            f"a non-finite replayed step skipped and inert")
+        log_step_timing(f"ConvNeXt-T {img}x{img} bf16, --opt adahessian", b, ah["timing"])
+        log_step_timing(f"ConvNeXt-T {img}x{img} bf16, --opt adamw (beside adahessian)", b,
+                        ah["timing_adamw"])
+        out["adahessian"].update(timing=_timing_summary(ah["timing"]),
+                                 timing_adamw=_timing_summary(ah["timing_adamw"]),
+                                 captured_vs_eager=ce)
+    out["seconds"]["13b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for name, row in family_runs(os.path.join(work, "families"), device, cfg, images,
+                                 names).items():
+        log(f"family path (13c): train.main --model {name}"
+            f"{' --pretrained_path <seeded timm state_dict>' if name.startswith('swin') else ''}"
+            f", {row['params']} parameters, {img}x{img} batch {b}, {len(row['losses'])} steps, "
+            f"{row['wall_s']:.1f} s for train.main; losses "
+            f"{', '.join(f'{x:.4f}' for x in row['losses'])}; no kernel launched; the checkpoint "
+            f"in the JAX layout, reloaded exactly, served by val_precision (top-1 "
+            f"{row['val_top1']:.3f})")
+        summary = {k: row[k] for k in ("losses", "val_top1", "params")}
+        if device == "cuda":
+            log_step_timing(f"{name} {img}x{img} bf16 (default flags)", b, row["timing"])
+            log(f"family path (13c), {name}: peak memory {row['peak_gib']:.2f} GiB over the "
+                f"timed steps (torch.cuda.max_memory_allocated); served batch of {b} (val.py's "
+                f"captured predict) {row['ms_served']:.3f} ms (CUDA events)")
+            summary.update(timing=_timing_summary(row["timing"]), peak_gib=row["peak_gib"],
+                           ms_served=row["ms_served"])
+        out["families"][name] = summary
+    out["seconds"]["13c"] = time.perf_counter() - t0
+    log(f"phase 13 wall seconds: {out['seconds']}")
+    return out
+
+
+def registry_phases(keep: str) -> dict:
+    """Phase 13 in a child process of this script (`--registry`), with a
+    fresh profiler as phases 10-12, on phase 5's folder linked into `keep`;
+    returns its summary through a file."""
+    out = os.path.join(keep, "phase13.json")
+    sys.stdout.flush()
+    rc = subprocess.run([sys.executable, os.path.abspath(__file__), "--registry", keep, out],
+                        timeout=900).returncode
+    if rc != 0:
+        raise AssertionError(f"phase 13 (a child process) exited with {rc}")
+    with open(out) as f:
+        return json.load(f)
+
+
+def registry_main(keep: str, out: str) -> int:
+    """The child of `registry_phases`: phase 13 on the card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as work:
+        res = registry_phase(work, "cuda", REGISTRY_CFG, VIT_B16, CONVNEXT_T,
+                             os.path.join(keep, "images"))
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3279,6 +3616,12 @@ def main() -> int:
     # distillation from phase 5's checkpoint), 12b each policy alone, 12c
     # --prune_mask; the launches counted from 0 over each run
     recipes = recipe_phases(keep.name)
+
+    # 13. the rest of the registry and of the optimizer table: 13a nvnovograd
+    # and adafactor on ViT-B/16 --flash_attn, 13b adahessian on ConvNeXt-T,
+    # 13c Swin-T, MobileNetV3-Large, EfficientNet-B0, DenseNet-121; the
+    # launches counted from 0 over each run
+    registry = registry_phases(keep.name)
     keep.cleanup()
 
     # results
@@ -3409,8 +3752,13 @@ def main() -> int:
                            ("prune", "--prune_mask fine-tuning (chip_smoke.py phase 12c)")):
             entry[path] = {"path": what, "launches": recipes[path]["totals"][total],
                            "launches_per_replay": recipes[path]["per_replay"][kind]}
+        # the flash kernels on the optimizer paths (phase 13a)
+        for opt, row in registry["optimizers"].items():
+            entry[opt] = {"path": f"--opt {opt}, ViT-B/16 --flash_attn (chip_smoke.py phase 13a)",
+                          "launches": row["totals"][total],
+                          "launches_per_replay": row["per_replay"][kind]}
     for k in kernels:
-        for path in ("recipe", "prune"):
+        for path in ("recipe", "prune", *NEW_OPTS):
             if path in k and k[path]["launches"] <= 0:
                 raise AssertionError(f"{k['name']} was not launched on the {path} path")
         if k["launches"] <= 0:
@@ -3420,7 +3768,7 @@ def main() -> int:
             raise AssertionError(f"{k['name']} was not launched on the fine-tuning path")
         if "at_4097" in k and k["at_4097"]["launches"] <= 0:
             raise AssertionError(f"{k['name']} was not launched on the high-resolution path")
-    log(json.dumps({"kernels": kernels, "recipes": recipes}))
+    log(json.dumps({"kernels": kernels, "recipes": recipes, "registry": registry}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
@@ -3468,4 +3816,6 @@ if __name__ == "__main__":
         sys.exit(late_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     if sys.argv[1:2] == ["--recipes"]:
         sys.exit(recipes_main(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--registry"]:
+        sys.exit(registry_main(sys.argv[2], sys.argv[3]))
     sys.exit(main())

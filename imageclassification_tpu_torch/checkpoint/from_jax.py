@@ -58,6 +58,24 @@ EfficientViT (`efficientvit_modules`; the inverse of
 with k = b (+ 3 from stage 1 on), ConvBN_{0,1} the FFN's pw{1,2}, and
 merge's ConvBN_{0,1,2} and SqueezeExcite_0/Conv_{0,1} its conv{1,2,3} and
 se.conv_{reduce,expand}.
+
+Swin (`SWIN_MODULES`; the inverse of `torch_convert.convert_swin`):
+
+    JAX flat key                                        port state_dict key
+    patch_embed/*, patch_norm/*                         patch_embed.{proj,norm}.*
+    stage{s}_block{b}/{norm1,norm2}/*                   layers.{s}.blocks.{b}.{norm1,norm2}.*
+    stage{s}_block{b}/attn/{qkv,proj}/*                 layers.{s}.blocks.{b}.attn.{qkv,proj}.*
+    stage{s}_block{b}/attn/relative_position_bias_table layers.{s}.blocks.{b}.attn.<same>
+    stage{s}_block{b}/mlp/Dense_{0,1}/*                 layers.{s}.blocks.{b}.mlp.fc{1,2}.*
+    merge{s}/{norm,reduction}/*                         layers.{s}.downsample.{norm,reduction}.*
+    norm/*, head/*, norm{i}/* (features_only)           norm.*, head.*, norm{i}.*
+
+MobileNetV3, EfficientNet and DenseNet (`mobilenetv3_modules`,
+`efficientnet_modules`, `densenet_modules`; the inverses of
+`convert_mobilenetv3`, `convert_efficientnet` and `convert_densenet`, their
+batch statistics with the parameters). Their squeeze-excitations are Dense
+layers in JAX ([in, out] kernels) and 1x1 convs with bias in
+torchvision/timm ([out, in, 1, 1]): the "pointwise" layout.
 """
 
 from __future__ import annotations
@@ -198,6 +216,8 @@ def _to_torch_layout(v, kind: str) -> np.ndarray:
         return np.ascontiguousarray(v.transpose(3, 2, 0, 1))
     if kind == "dense":
         return _linear_w(v)
+    if kind == "pointwise":  # flax Dense [in, out] -> torch 1x1 conv [out, in, 1, 1]
+        return _linear_w(v)[:, :, None, None]
     return v
 
 
@@ -320,6 +340,101 @@ def efficientvit_modules(depths, num_heads):
             cbn(f"{attn}/proj", f"{port_attn}.proj.1")
             cbn(f"{jax_block}/dw1", f"{port_block}.dw1.m")
             ffn(f"{jax_block}/ffn1", f"{port_block}.ffn1.m")
+    return modules
+
+
+_SWIN_BLOCK = ("stage{n}_block{n}", "layers.{n}.blocks.{n}")
+SWIN_MODULES = [
+    ("patch_embed", "patch_embed.proj", _CONV),
+    ("patch_norm", "patch_embed.norm", _LN),
+    (_SWIN_BLOCK[0] + "/norm1", _SWIN_BLOCK[1] + ".norm1", _LN),
+    (_SWIN_BLOCK[0] + "/norm2", _SWIN_BLOCK[1] + ".norm2", _LN),
+    (_SWIN_BLOCK[0] + "/attn/qkv", _SWIN_BLOCK[1] + ".attn.qkv", _DENSE),
+    (_SWIN_BLOCK[0] + "/attn/proj", _SWIN_BLOCK[1] + ".attn.proj", _DENSE),
+    (_SWIN_BLOCK[0] + "/attn", _SWIN_BLOCK[1] + ".attn",
+     {"relative_position_bias_table": ("relative_position_bias_table", "same")}),
+    (_SWIN_BLOCK[0] + "/mlp/Dense_0", _SWIN_BLOCK[1] + ".mlp.fc1", _DENSE),
+    (_SWIN_BLOCK[0] + "/mlp/Dense_1", _SWIN_BLOCK[1] + ".mlp.fc2", _DENSE),
+    ("merge{n}/norm", "layers.{n}.downsample.norm", _LN),
+    ("merge{n}/reduction", "layers.{n}.downsample.reduction", {"kernel": ("weight", "dense")}),
+    ("norm", "norm", _LN),
+    ("norm{n}", "norm{n}", _LN),
+    ("head", "head", _DENSE),
+]
+_POINTWISE = {"kernel": ("weight", "pointwise"), "bias": ("bias", "same")}
+
+
+def _conv_bn(modules: list, jax_conv: str, jax_bn: str, port_conv: str, port_bn: str) -> None:
+    modules.extend([(jax_conv, port_conv, _CONV_KERNEL), (jax_bn, port_bn, _BN)])
+
+
+def mobilenetv3_modules(cfgs):
+    """The module table of a MobileNetV3 of block table `cfgs`: block i is
+    torchvision's features.{i+1}, whose sub-index j counts the expand conv
+    (where the block has one), the depthwise conv, the SE (where it has
+    one) and the project conv in turn."""
+    modules = [("pre_head", "classifier.0", _DENSE), ("head", "classifier.3", _DENSE)]
+    _conv_bn(modules, "stem_conv", "stem_bn", "features.0.0", "features.0.1")
+    for i, c in enumerate(cfgs):
+        jax_block, port_block = f"block_{i}", f"features.{i + 1}.block"
+        j = 0
+        parts = (["expand"] if c.expanded != c.in_ch else []) + ["dw"] + (
+            ["se"] if c.use_se else []) + ["project"]
+        for part in parts:
+            if part == "se":
+                modules += [(f"{jax_block}/se_fc{n}", f"{port_block}.{j}.fc{n}", _POINTWISE)
+                            for n in (1, 2)]
+            else:
+                _conv_bn(modules, f"{jax_block}/{part}_conv", f"{jax_block}/{part}_bn",
+                         f"{port_block}.{j}.0", f"{port_block}.{j}.1")
+            j += 1
+    last = len(cfgs) + 1
+    _conv_bn(modules, "conv_last", "bn_last", f"features.{last}.0", f"features.{last}.1")
+    return modules
+
+
+def efficientnet_modules(stage_repeats, expands):
+    """The module table of an EfficientNet whose stage s has
+    `stage_repeats[s]` blocks of expand ratio `expands[s]`: the JAX blocks
+    block_{i} numbered across stages, timm's blocks.{s}.{j}; a
+    depthwise-separable block (expand 1) names its convs and BatchNorms
+    conv_dw/bn1, conv_pw/bn2 in timm, an inverted residual conv_pw/bn1,
+    conv_dw/bn2, conv_pwl/bn3."""
+    modules = [("head", "classifier", _DENSE)]
+    _conv_bn(modules, "conv_stem", "bn_stem", "conv_stem", "bn1")
+    _conv_bn(modules, "conv_head", "bn_head", "conv_head", "bn2")
+    i = 0
+    for s, (repeats, e) in enumerate(zip(stage_repeats, expands)):
+        for j in range(repeats):
+            jb, pb = f"block_{i}", f"blocks.{s}.{j}"
+            pairs = ([("dw", "conv_dw", "bn1"), ("pwl", "conv_pw", "bn2")] if e == 1 else
+                     [("pw", "conv_pw", "bn1"), ("dw", "conv_dw", "bn2"),
+                      ("pwl", "conv_pwl", "bn3")])
+            for part, conv, bn in pairs:
+                _conv_bn(modules, f"{jb}/conv_{part}", f"{jb}/bn_{part}", f"{pb}.{conv}",
+                         f"{pb}.{bn}")
+            modules += [(f"{jb}/se_reduce", f"{pb}.se.conv_reduce", _POINTWISE),
+                        (f"{jb}/se_expand", f"{pb}.se.conv_expand", _POINTWISE)]
+            i += 1
+    return modules
+
+
+def densenet_modules(block_config):
+    """The module table of a DenseNet of `block_config`: the JAX
+    block{i}_layer{j} and transition{i}_* from 0, torchvision's
+    features.denseblock{i}.denselayer{j} and features.transition{i} from
+    1."""
+    modules = [("conv0", "features.conv0", _CONV_KERNEL), ("norm0", "features.norm0", _BN),
+               ("norm5", "features.norm5", _BN), ("head", "classifier", _DENSE)]
+    for i, layers in enumerate(block_config):
+        for j in range(layers):
+            jl, pl = f"block{i}_layer{j}", f"features.denseblock{i + 1}.denselayer{j + 1}"
+            for n in (1, 2):
+                modules += [(f"{jl}/norm{n}", f"{pl}.norm{n}", _BN),
+                            (f"{jl}/conv{n}", f"{pl}.conv{n}", _CONV_KERNEL)]
+        if i != len(block_config) - 1:
+            _conv_bn(modules, f"transition{i}_conv", f"transition{i}_norm",
+                     f"features.transition{i + 1}.conv", f"features.transition{i + 1}.norm")
     return modules
 
 

@@ -26,30 +26,40 @@ state flattens (`checkpoint/io.py::_flatten` there):
     adadelta:     inner_state/{i}/e_g/<path>, inner_state/{i}/e_x/<path>
     sgdp:         inner_state/{i}/momentum/<path>
     sgd/momentum: inner_state/{i}/trace/<path>
+    nvnovograd:   inner_state/{i}/count, inner_state/{i}/mu/<path>, .../nu/<path> (a scalar)
+    adafactor:    inner_state/{i}/0/count, inner_state/{i}/0/{v_row,v_col,v}/<path>
+    adahessian:   inner_state/{i}/count, inner_state/{i}/mu/<path>, .../nu/<path>
 
 where <path> is the JAX parameter path and i the index of the core
 transformation in the optax chain: 0, or 1 after the coupled weight decay
 of the optimizers that have it, each one more with --clip_grad (after the
 clip). With Lookahead the whole of it moves under `inner/`, beside the
-Lookahead state's own `count` and `slow/<path>`.
+Lookahead state's own `count` and `slow/<path>`. The states kept per JAX
+tensor (nvnovograd's nu, adafactor's) are written and read by the JAX names
+of `jax_leaves`, which the optimizer holds.
 """
 
 from __future__ import annotations
 
 import functools
 import re
-from typing import Callable, Dict, NamedTuple
+from typing import Callable, Dict, List, NamedTuple
 
 import numpy as np
 import torch
 
 from ..models.convnext import ConvNeXt
+from ..models.densenet import DenseNet
+from ..models.efficientnet import EfficientNet
 from ..models.efficientvit import EfficientViT
+from ..models.mobilenetv3 import MobileNetV3
 from ..models.resnet import ResNet
+from ..models.swin import SwinTransformer
 from ..models.vit import ViT
-from ..optim.factory import COUPLED_WD, MOMENTS, Optimizer
-from .from_jax import (CONVNEXT_MODULES, convnext_state_dict_with_sources,
-                       efficientvit_modules, match_module, resnet_modules, split_modules,
+from ..optim.factory import COUPLED_WD, MOMENTS, JaxLeaf, Optimizer
+from .from_jax import (CONVNEXT_MODULES, SWIN_MODULES, convnext_state_dict_with_sources,
+                       densenet_modules, efficientnet_modules, efficientvit_modules,
+                       match_module, mobilenetv3_modules, resnet_modules, split_modules,
                        state_dict_with_sources, vit_state_dict_with_sources)
 
 _ATTN = "MultiHeadDotProductAttention_0"
@@ -122,6 +132,8 @@ def flat_from_state_dict(sd: Dict[str, torch.Tensor], modules) -> Dict[str, np.n
             v = np.ascontiguousarray(v.transpose(2, 3, 1, 0))
         elif kind == "dense":
             v = np.ascontiguousarray(v.T)
+        elif kind == "pointwise":  # torch 1x1 conv [out, in, 1, 1] -> flax Dense [in, out]
+            v = np.ascontiguousarray(v[:, :, 0, 0].T)
         flat[f"{jax_module}/{name}"] = v
     return flat
 
@@ -141,70 +153,105 @@ class Carry(NamedTuple):
     to_jax: Callable
 
 
+def _table(model: torch.nn.Module):
+    """The module table of a model whose carry is one, or None."""
+    if isinstance(model, ConvNeXt):
+        return CONVNEXT_MODULES
+    if isinstance(model, SwinTransformer):
+        return SWIN_MODULES
+    if isinstance(model, ResNet):
+        return resnet_modules(model.stage_sizes, model.block_name)
+    if isinstance(model, EfficientViT):
+        return efficientvit_modules(model.depths, model.num_heads)
+    if isinstance(model, MobileNetV3):
+        return mobilenetv3_modules(model.cfgs)
+    if isinstance(model, EfficientNet):
+        return efficientnet_modules(*zip(*model.stage_layout))
+    if isinstance(model, DenseNet):
+        return densenet_modules(model.block_config)
+    return None
+
+
 def carry_for(model: torch.nn.Module) -> Carry:
-    """The weight carry of `model`'s family; NotImplementedError for a
-    family whose carry is not ported."""
+    """The weight carry of `model`'s family (every family of the registry);
+    TypeError for a module that is none of them."""
     if isinstance(model, ViT):
         return Carry(functools.partial(vit_state_dict_with_sources, num_heads=model.num_heads),
                      functools.partial(vit_flat_from_state_dict, num_heads=model.num_heads))
     if isinstance(model, ConvNeXt):
         return Carry(convnext_state_dict_with_sources, convnext_flat_from_state_dict)
-    if isinstance(model, (ResNet, EfficientViT)):
-        modules = (resnet_modules(model.stage_sizes, model.block_name)
-                   if isinstance(model, ResNet)
-                   else efficientvit_modules(model.depths, model.num_heads))
-        return Carry(functools.partial(state_dict_with_sources, modules=modules),
-                     functools.partial(flat_from_state_dict, modules=modules))
-    raise NotImplementedError(
-        f"weight carry for {type(model).__name__} is not ported yet (ROADMAP A14-A15)")
+    modules = _table(model)
+    if modules is None:
+        raise TypeError(f"no weight carry for {type(model).__name__}")
+    return Carry(functools.partial(state_dict_with_sources, modules=modules),
+                 functools.partial(flat_from_state_dict, modules=modules))
 
 
 # each optimizer's moments in the JAX optax state, in the order of
 # `factory.MOMENTS`: (the offset of its transformation from the core's
-# first, the JAX field); and whether the core keeps a count of its own
-_ADAM = (((0, "mu"), (0, "nu")), True)
-_RMS = (((0, "nu"), (1, "trace")), False)
+# first, the JAX field); and the key of the core's own count under its
+# inner_state, where it keeps one
+_ADAM = (((0, "mu"), (0, "nu")), "count")
+_RMS = (((0, "nu"), (1, "trace")), None)
 _JAX_LAYOUT = {
     "adamw": _ADAM, "adam": _ADAM, "nadam": _ADAM, "radam": _ADAM, "lamb": _ADAM,
-    "adamp": _ADAM, "lion": (((0, "mu"),), True), "rmsprop": _RMS, "rmsproptf": _RMS,
-    "adadelta": (((0, "e_g"), (0, "e_x")), False), "sgdp": (((0, "momentum"),), False),
-    "sgd": (((0, "trace"),), False), "momentum": (((0, "trace"),), False),
+    "adamp": _ADAM, "lion": (((0, "mu"),), "count"), "rmsprop": _RMS, "rmsproptf": _RMS,
+    "adadelta": (((0, "e_g"), (0, "e_x")), None), "sgdp": (((0, "momentum"),), None),
+    "sgd": (((0, "trace"),), None), "momentum": (((0, "trace"),), None),
+    "nvnovograd": _ADAM, "adahessian": _ADAM,
+    # optax.adafactor is a chain of its own: its factored-RMS state first
+    "adafactor": (((0, "0/v_row"), (0, "0/v_col"), (0, "0/v")), "0/count"),
 }
 
 
 def _jax_layout(name: str):
-    """([(the port's moment, offset, JAX field)], the core keeps a count)."""
-    fields, has_count = _JAX_LAYOUT[name]
-    return [(m, *f) for m, f in zip(MOMENTS[name], fields, strict=True)], has_count
+    """([(the port's moment, offset, JAX field)], the core's count key or
+    None)."""
+    fields, count_key = _JAX_LAYOUT[name]
+    return [(m, *f) for m, f in zip(MOMENTS[name], fields, strict=True)], count_key
 
 
 def _core_index(opt: Optimizer) -> int:
     return (opt.name in COUPLED_WD) + (opt.clip_grad is not None)
 
 
-def jax_leaves(model: torch.nn.Module, carry: Carry):
-    """Each parameter's JAX tensors as (start, length, JAX ndim) over the
-    parameter flattened, in `named_parameters()` order: one for a parameter
-    that is one JAX tensor, several for one the carry splits (ViT's fused
-    qkv: query, key and value, each a contiguous third). Found by carrying
-    the element indices; raises where a JAX tensor is not one contiguous
-    run of them."""
+def jax_leaves(model: torch.nn.Module, carry: Carry) -> List[List[JaxLeaf]]:
+    """Each parameter's JAX tensors, in `named_parameters()` order, as
+    `JaxLeaf`s: the JAX name, and where the JAX tensor lies in the (C
+    contiguous) parameter, in JAX axis order, as the offset and strides of
+    a view (`optim.factory.leaf_view`): one for a parameter that is one JAX
+    tensor (a conv kernel HWIO over the torch OIHW, a Dense kernel [in, out]
+    over the Linear's [out, in]), several for one the carry splits (ViT's
+    fused qkv: query, key and value, each [E, H, hd] over a third of the
+    rows). Found by carrying each torch axis's coordinates (small integers,
+    exact in the carry's fp32); raises where a JAX tensor is no strided view
+    of the parameter."""
     out = []
     for k, p in model.named_parameters():
-        whole = carry.to_jax({k: p})
-        if len(whole) == 1:
-            out.append([(0, p.numel(), next(iter(whole.values())).ndim)])
+        shape = tuple(p.shape)
+        strides = [int(np.prod(shape[d + 1:])) for d in range(len(shape))]
+        if not shape:
+            (key,) = carry.to_jax({k: p})
+            out.append([JaxLeaf(key, 0, (), ())])
             continue
-        # the carry computes in fp32: indices stay exact up to 2^24 elements
-        idx = torch.arange(p.numel(), dtype=torch.float64).reshape(p.shape)
+        index: Dict[str, np.ndarray] = {}
+        for d, n in enumerate(shape):
+            coord = torch.arange(n, dtype=torch.float32).reshape(
+                [n if i == d else 1 for i in range(len(shape))]).expand(shape)
+            for key, v in carry.to_jax({k: coord}).items():
+                index[key] = index.get(key, 0) + v.astype(np.int64) * strides[d]
         leaves = []
-        for v in carry.to_jax({k: idx}).values():
-            flat = np.sort(v.reshape(-1)).astype(np.int64)
-            start = int(flat[0])
-            if not np.array_equal(flat, np.arange(start, start + flat.size)):
-                raise ValueError(f"{k}: a JAX tensor is not a contiguous part of it")
-            leaves.append((start, int(flat.size), v.ndim))
-        out.append(sorted(leaves))
+        for key, idx in index.items():
+            idx = np.asarray(idx)
+            offset = int(idx.reshape(-1)[0])
+            stride = tuple(int(idx[tuple(1 if i == d else 0 for i in range(idx.ndim))]) - offset
+                           if idx.shape[d] > 1 else 1 for d in range(idx.ndim))
+            want = offset + sum(np.arange(n).reshape([n if i == d else 1 for i in range(idx.ndim)])
+                                * s for d, (n, s) in enumerate(zip(idx.shape, stride)))
+            if not np.array_equal(np.broadcast_to(want, idx.shape), idx):
+                raise ValueError(f"{k}: the JAX tensor {key} is no strided view of it")
+            leaves.append(JaxLeaf(key, offset, tuple(idx.shape), stride))
+        out.append(sorted(leaves, key=lambda leaf: leaf.offset))
     return out
 
 
@@ -215,15 +262,24 @@ def optimizer_to_jax(opt: Optimizer, model: torch.nn.Module,
     names = [k for k, _ in model.named_parameters()]
     count = np.asarray(opt.num_updates, np.int32)
     i = _core_index(opt)
-    moments, has_count = _jax_layout(opt.name)
+    moments, count_key = _jax_layout(opt.name)
     flat = {"count": count,
             "hyperparams/learning_rate": np.asarray(float(opt.lr), np.float32),
             "hyperparams/weight_decay": np.asarray(float(opt.weight_decay), np.float32)}
-    if has_count:
-        flat[f"inner_state/{i}/count"] = count
+    if count_key:
+        flat[f"inner_state/{i}/{count_key}"] = count
     for field, offset, jax_field in moments:
+        prefix = f"inner_state/{i + offset}/{jax_field}/"
+        if opt.leaf_layout[field]:  # one state a JAX tensor, by its JAX name
+            for pi, leaves in enumerate(opt.leaves):
+                for j, leaf in enumerate(leaves):
+                    if leaf.key is None:
+                        raise ValueError(f"{opt.name}'s state needs the JAX tensors of the "
+                                         "parameters (create_optimizer(leaves=jax_leaves(...)))")
+                    flat[prefix + leaf.key] = opt.leaf_state(field, pi, j).cpu().numpy().copy()
+            continue
         for k, v in carry.to_jax(dict(zip(names, opt.moments[field]))).items():
-            flat[f"inner_state/{i + offset}/{jax_field}/{k}"] = v
+            flat[prefix + k] = v
     if not opt.lookahead:
         return flat
     out = {"count": np.asarray(int(opt.lookahead_count), np.int32)}
@@ -244,20 +300,36 @@ def optimizer_from_jax(flat: Dict[str, np.ndarray], opt: Optimizer,
         return {index[k]: v for k, v in carry.to_port(sub)[0].items()
                 if k in index and tuple(v.shape) == tuple(opt.params[index[k]].shape)}
 
+    def per_leaf(prefix: str, field: str) -> Dict[int, List[np.ndarray]]:
+        out = {}
+        for j, leaves in enumerate(opt.leaves):
+            arrs = [flat.get(prefix + str(leaf.key)) for leaf in leaves]
+            shapes = [tuple(opt.leaf_state(field, j, n).shape) for n in range(len(leaves))]
+            if all(a is not None and tuple(np.shape(a)) == s for a, s in zip(arrs, shapes)):
+                out[j] = arrs
+        return out
+
     inner = "inner/" if opt.lookahead else ""
     i = _core_index(opt)
-    moments, _ = _jax_layout(opt.name)
-    count = int(np.asarray(flat.get(f"{inner}inner_state/{i}/count",
+    moments, count_key = _jax_layout(opt.name)
+    count = int(np.asarray(flat.get(f"{inner}inner_state/{i}/{count_key or 'count'}",
                                     flat.get(f"{inner}count", 0))))
     loaded = {}
     for field, offset, jax_field in moments:
-        for j, v in per_param(f"{inner}inner_state/{i + offset}/{jax_field}/").items():
+        prefix = f"{inner}inner_state/{i + offset}/{jax_field}/"
+        found = per_leaf(prefix, field) if opt.leaf_layout[field] else per_param(prefix)
+        for j, v in found.items():
             loaded.setdefault(j, {})[field] = v
     with torch.no_grad():
         for j, st in loaded.items():
             if len(st) == len(moments):
                 for field, v in st.items():
-                    opt.moments[field][j].copy_(v)
+                    if opt.leaf_layout[field]:
+                        for n, a in enumerate(v):
+                            opt.leaf_state(field, j, n).copy_(torch.from_numpy(np.asarray(
+                                a, np.float32)))
+                    else:
+                        opt.moments[field][j].copy_(v)
         if opt.lookahead:
             for j, v in per_param("slow/").items():
                 opt.slow[j].copy_(v)

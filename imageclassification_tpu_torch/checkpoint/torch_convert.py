@@ -19,9 +19,14 @@ ndarray} dict:
     attn.qkv/attn.proj/norm2/mlp.fc1/fc2/norm/head);
   * EfficientViT (MSRA): microsoft/Cream naming (patch_embed.{0,2,4,6},
     blocks{1-3} with Residual/Conv2d_BN/FFN/CascadedGroupAttention
-    submodules, BN_Linear head).
-MobileNetV3, EfficientNet, Swin and DenseNet files raise NotImplementedError
-until their models are ported.
+    submodules, BN_Linear head);
+  * MobileNetV3: torchvision naming (features.N.block...; a timm-layout
+    file raises ValueError, as in the JAX package);
+  * EfficientNet B0-B4: timm naming (conv_stem/bn1/blocks.{s}.{j}/conv_head);
+  * Swin: timm's classic naming (patch_embed/layers.{s}.blocks.{b}/
+    layers.{s}.downsample/norm/head);
+  * DenseNet: torchvision naming (features.denseblock{i}.denselayer{j}/
+    features.transition{i}/classifier).
 
 The result is the JAX package's flat parameter tree ("a/b/c" keys), which
 `checkpoint/io.load_params_with_pruning` carries onto the port's model,
@@ -32,6 +37,7 @@ dropping what does not match by name and shape with the JAX package's
 from __future__ import annotations
 
 import argparse
+import math
 import pickle
 import re
 from typing import Dict, Tuple
@@ -41,6 +47,9 @@ import torch
 import torch.nn.functional as F
 
 from ..models import vit
+from ..models.densenet import _CONFIGS
+from ..models.efficientnet import _B0_STAGES, _VARIANTS
+from ..models.mobilenetv3 import _LARGE, _SMALL
 from .io import _dequantize_weights
 
 Flat = Dict[str, np.ndarray]
@@ -330,12 +339,243 @@ def convert_efficientvit(sd: Flat, model_name: str) -> Tuple[Flat, Flat]:
     return params, stats
 
 
+# --------------------------------------------------------------- MobileNetV3
+
+
+def convert_mobilenetv3(sd: Flat, model_name: str) -> Tuple[Flat, Flat]:
+    """torchvision mobilenet_v3_{large,small} state_dict -> the JAX layout.
+
+    Source naming (torchvision/models/mobilenetv3.py):
+      features.0.{0,1}                 stem Conv2dNormActivation
+      features.{i}.block.{j}.{0,1}     expand? / depthwise / project convs
+      features.{i}.block.{j}.fc{1,2}   SqueezeExcitation 1x1 convs (w/ bias)
+      features.{last}.{0,1}            final 1x1 Conv2dNormActivation
+      classifier.{0,3}                 Linear / Linear
+    The block sub-index j shifts by whether the expand conv and SE exist, so
+    the walk mirrors torchvision's layer-append order."""
+
+    if "features.0.0.weight" not in sd:
+        hint = ("timm-layout (conv_stem.*/blocks.*)"
+                if any(k.startswith(("conv_stem", "blocks.")) for k in sd)
+                else "unrecognized-layout")
+        raise ValueError(
+            f"convert_mobilenetv3 supports torchvision-layout state_dicts "
+            f"only (features.N.block... keys); got a {hint} state_dict. "
+            f"Export from torchvision.models.mobilenet_v3_* instead."
+        )
+    cfgs = _SMALL if "small" in model_name else _LARGE
+    params: Flat = {}
+    stats: Flat = {}
+
+    def bn(dst: str, src: str) -> None:
+        params[f"{dst}/scale"] = sd[f"{src}.weight"]
+        params[f"{dst}/bias"] = sd[f"{src}.bias"]
+        stats[f"{dst}/mean"] = sd[f"{src}.running_mean"]
+        stats[f"{dst}/var"] = sd[f"{src}.running_var"]
+
+    params["stem_conv/kernel"] = _conv(sd["features.0.0.weight"])
+    bn("stem_bn", "features.0.1")
+
+    for i, c in enumerate(cfgs):
+        dst = f"block_{i}"
+        src = f"features.{i + 1}.block"
+        j = 0
+        if c.expanded != c.in_ch:
+            params[f"{dst}/expand_conv/kernel"] = _conv(sd[f"{src}.{j}.0.weight"])
+            bn(f"{dst}/expand_bn", f"{src}.{j}.1")
+            j += 1
+        params[f"{dst}/dw_conv/kernel"] = _conv(sd[f"{src}.{j}.0.weight"])
+        bn(f"{dst}/dw_bn", f"{src}.{j}.1")
+        j += 1
+        if c.use_se:
+            for fc in ("fc1", "fc2"):
+                w = sd[f"{src}.{j}.{fc}.weight"]  # [out, in, 1, 1] 1x1 conv
+                params[f"{dst}/se_{fc}/kernel"] = _t(w[:, :, 0, 0])
+                params[f"{dst}/se_{fc}/bias"] = sd[f"{src}.{j}.{fc}.bias"]
+            j += 1
+        params[f"{dst}/project_conv/kernel"] = _conv(sd[f"{src}.{j}.0.weight"])
+        bn(f"{dst}/project_bn", f"{src}.{j}.1")
+
+    last = len(cfgs) + 1
+    params["conv_last/kernel"] = _conv(sd[f"features.{last}.0.weight"])
+    bn("bn_last", f"features.{last}.1")
+    params["pre_head/kernel"] = _t(sd["classifier.0.weight"])
+    params["pre_head/bias"] = sd["classifier.0.bias"]
+    params["head/kernel"] = _t(sd["classifier.3.weight"])
+    params["head/bias"] = sd["classifier.3.bias"]
+    return params, stats
+
+
+# -------------------------------------------------------------- EfficientNet
+
+
+def convert_efficientnet(sd: Flat, model_name: str) -> Tuple[Flat, Flat]:
+    """timm efficientnet_b{0..4} state_dict -> the JAX layout.
+
+    Source naming (timm/models/efficientnet.py, non-TF variants):
+      conv_stem / bn1                        stem
+      blocks.{s}.{j}.conv_dw/bn1, se.conv_reduce/conv_expand, conv_pw/bn2
+                                             stage-0 DepthwiseSeparableConv
+      blocks.{s}.{j}.conv_pw/bn1, conv_dw/bn2, se.*, conv_pwl/bn3
+                                             InvertedResidual (expand>1)
+      conv_head / bn2 (top level)            pre-pool 1x1
+      classifier                             Linear head
+    The JAX model numbers its blocks block_{i} across stages, so the walk
+    recomputes the per-variant repeat counts."""
+    _, depth_mult = _VARIANTS[model_name]
+    params: Flat = {}
+    stats: Flat = {}
+
+    def bn(dst: str, src: str) -> None:
+        params[f"{dst}/scale"] = sd[f"{src}.weight"]
+        params[f"{dst}/bias"] = sd[f"{src}.bias"]
+        stats[f"{dst}/mean"] = sd[f"{src}.running_mean"]
+        stats[f"{dst}/var"] = sd[f"{src}.running_var"]
+
+    def se(dst: str, src: str) -> None:
+        for t_name, f_name in (("conv_reduce", "se_reduce"),
+                               ("conv_expand", "se_expand")):
+            w = sd[f"{src}.se.{t_name}.weight"]  # [out, in, 1, 1] 1x1 conv
+            params[f"{dst}/{f_name}/kernel"] = _t(w[:, :, 0, 0])
+            params[f"{dst}/{f_name}/bias"] = sd[f"{src}.se.{t_name}.bias"]
+
+    params["conv_stem/kernel"] = _conv(sd["conv_stem.weight"])
+    bn("bn_stem", "bn1")
+
+    i = 0
+    for s, (k, _, e, c, r) in enumerate(_B0_STAGES):
+        for j in range(int(math.ceil(r * depth_mult))):
+            dst = f"block_{i}"
+            src = f"blocks.{s}.{j}"
+            if e == 1:  # DepthwiseSeparableConv: dw/bn1, se, pw/bn2
+                params[f"{dst}/conv_dw/kernel"] = _conv(sd[f"{src}.conv_dw.weight"])
+                bn(f"{dst}/bn_dw", f"{src}.bn1")
+                se(dst, src)
+                params[f"{dst}/conv_pwl/kernel"] = _conv(sd[f"{src}.conv_pw.weight"])
+                bn(f"{dst}/bn_pwl", f"{src}.bn2")
+            else:       # InvertedResidual: pw/bn1, dw/bn2, se, pwl/bn3
+                params[f"{dst}/conv_pw/kernel"] = _conv(sd[f"{src}.conv_pw.weight"])
+                bn(f"{dst}/bn_pw", f"{src}.bn1")
+                params[f"{dst}/conv_dw/kernel"] = _conv(sd[f"{src}.conv_dw.weight"])
+                bn(f"{dst}/bn_dw", f"{src}.bn2")
+                se(dst, src)
+                params[f"{dst}/conv_pwl/kernel"] = _conv(sd[f"{src}.conv_pwl.weight"])
+                bn(f"{dst}/bn_pwl", f"{src}.bn3")
+            i += 1
+
+    params["conv_head/kernel"] = _conv(sd["conv_head.weight"])
+    bn("bn_head", "bn2")
+    params["head/kernel"] = _t(sd["classifier.weight"])
+    params["head/bias"] = sd["classifier.bias"]
+    return params, stats
+
+
+# ---------------------------------------------------------------------- Swin
+
+
+_SWIN_DEPTHS = {
+    "swin_tiny": (2, 2, 6, 2),
+    "swin_small": (2, 2, 18, 2),
+    "swin_base": (2, 2, 18, 2),
+}
+
+
+def convert_swin(sd: Flat, model_name: str) -> Tuple[Flat, Flat]:
+    """timm swin_{tiny,small,base}_patch4_window7_224 state_dict -> the JAX
+    layout.
+
+    Source naming (timm/models/swin_transformer.py, classic layout):
+      patch_embed.proj / patch_embed.norm
+      layers.{s}.blocks.{b}.{norm1,attn.qkv,attn.proj,
+        attn.relative_position_bias_table,norm2,mlp.fc1,mlp.fc2}
+      layers.{s}.downsample.{norm,reduction}   (end of stage s => merge{s})
+      norm / head
+    attn.relative_position_index buffers are skipped — the model makes
+    its own index."""
+    variant = "_".join(model_name.split("_")[:2])
+    depths = _SWIN_DEPTHS[variant]
+    params: Flat = {}
+    stats: Flat = {}
+
+    def ln(dst: str, src: str) -> None:
+        params[f"{dst}/scale"] = sd[f"{src}.weight"]
+        params[f"{dst}/bias"] = sd[f"{src}.bias"]
+
+    def dense(dst: str, src: str, bias: bool = True) -> None:
+        params[f"{dst}/kernel"] = _t(sd[f"{src}.weight"])
+        if bias:
+            params[f"{dst}/bias"] = sd[f"{src}.bias"]
+
+    params["patch_embed/kernel"] = _conv(sd["patch_embed.proj.weight"])
+    params["patch_embed/bias"] = sd["patch_embed.proj.bias"]
+    ln("patch_norm", "patch_embed.norm")
+
+    for s, depth in enumerate(depths):
+        for b in range(depth):
+            dst = f"stage{s}_block{b}"
+            src = f"layers.{s}.blocks.{b}"
+            ln(f"{dst}/norm1", f"{src}.norm1")
+            dense(f"{dst}/attn/qkv", f"{src}.attn.qkv")
+            params[f"{dst}/attn/relative_position_bias_table"] = sd[
+                f"{src}.attn.relative_position_bias_table"
+            ]
+            dense(f"{dst}/attn/proj", f"{src}.attn.proj")
+            ln(f"{dst}/norm2", f"{src}.norm2")
+            dense(f"{dst}/mlp/Dense_0", f"{src}.mlp.fc1")
+            dense(f"{dst}/mlp/Dense_1", f"{src}.mlp.fc2")
+        if f"layers.{s}.downsample.reduction.weight" in sd:
+            ln(f"merge{s}/norm", f"layers.{s}.downsample.norm")
+            dense(f"merge{s}/reduction", f"layers.{s}.downsample.reduction",
+                  bias=False)
+
+    ln("norm", "norm")
+    dense("head", "head")
+    return params, stats
+
+
+# ------------------------------------------------------------------ DenseNet
+
+
+def convert_densenet(sd: Flat, model_name: str) -> Tuple[Flat, Flat]:
+    """torchvision densenet{121,169,201} state_dict -> the JAX layout.
+
+    Source naming (torchvision/models/densenet.py):
+      features.conv0 / features.norm0
+      features.denseblock{i}.denselayer{j}.{norm1,conv1,norm2,conv2}  (1-based)
+      features.transition{i}.{norm,conv}
+      features.norm5 / classifier"""
+    cfg = _CONFIGS[model_name]
+    params: Flat = {}
+    stats: Flat = {}
+
+    def bn(dst: str, src: str) -> None:
+        params[f"{dst}/scale"] = sd[f"{src}.weight"]
+        params[f"{dst}/bias"] = sd[f"{src}.bias"]
+        stats[f"{dst}/mean"] = sd[f"{src}.running_mean"]
+        stats[f"{dst}/var"] = sd[f"{src}.running_var"]
+
+    params["conv0/kernel"] = _conv(sd["features.conv0.weight"])
+    bn("norm0", "features.norm0")
+    for i, layers in enumerate(cfg):
+        for j in range(layers):
+            dst = f"block{i}_layer{j}"
+            src = f"features.denseblock{i + 1}.denselayer{j + 1}"
+            bn(f"{dst}/norm1", f"{src}.norm1")
+            params[f"{dst}/conv1/kernel"] = _conv(sd[f"{src}.conv1.weight"])
+            bn(f"{dst}/norm2", f"{src}.norm2")
+            params[f"{dst}/conv2/kernel"] = _conv(sd[f"{src}.conv2.weight"])
+        if i != len(cfg) - 1:
+            bn(f"transition{i}_norm", f"features.transition{i + 1}.norm")
+            params[f"transition{i}_conv/kernel"] = _conv(
+                sd[f"features.transition{i + 1}.conv.weight"]
+            )
+    bn("norm5", "features.norm5")
+    params["head/kernel"] = _t(sd["classifier.weight"])
+    params["head/bias"] = sd["classifier.bias"]
+    return params, stats
+
+
 # ------------------------------------------------------------------- dispatch
-
-
-# families of the JAX converter whose models the port does not have yet
-_NOT_YET_PORTED = {("mobilenetv3", "mobilenet_v3"): "A15", ("efficientnet",): "A15",
-                   ("swin",): "A14", ("densenet",): "A15"}
 
 
 def convert_state_dict(sd: dict, model_name: str) -> Tuple[Flat, Flat]:
@@ -356,14 +596,18 @@ def convert_state_dict(sd: dict, model_name: str) -> Tuple[Flat, Flat]:
         return convert_vit(sd, model_name)
     if model_name.startswith("efficientvit"):
         return convert_efficientvit(sd, model_name)
-    for prefixes, item in _NOT_YET_PORTED.items():
-        if model_name.startswith(prefixes):
-            raise NotImplementedError(
-                f"converting a torch state_dict for {model_name!r} is not ported to "
-                f"imageclassification_tpu_torch yet (ROADMAP {item})")
+    if model_name.startswith(("mobilenetv3", "mobilenet_v3")):
+        return convert_mobilenetv3(sd, model_name)
+    if model_name.startswith("efficientnet"):
+        return convert_efficientnet(sd, model_name)
+    if model_name.startswith("swin"):
+        return convert_swin(sd, model_name)
+    if model_name.startswith("densenet"):
+        return convert_densenet(sd, model_name)
     raise ValueError(
         f"no torch converter for model family of {model_name!r} "
-        "(supported: resnet*, convnext*, vit*, efficientvit*)")
+        "(supported: resnet*, convnext*, vit*, efficientvit*, mobilenetv3*, "
+        "efficientnet_b*, swin_*, densenet*)")
 
 
 def resample_pos_embed(flat: Flat, target_flat: Flat) -> Flat:

@@ -148,13 +148,12 @@ class TrainConfig:
 
 _RUNTIME_FIELDS = {"rank", "distributed"}
 
-# the names of the JAX optimizer table the port runs (the `fused*` names are
-# aliases; any of them takes the "lookahead_" prefix) and those it does not
-# run yet
+# the names of the JAX optimizer table, every one ported (the `fused*` names
+# are aliases; any of them takes the "lookahead_" prefix)
 PORTED_OPTIMIZERS = ("adamw", "sgd", "nesterov", "momentum", "adam", "nadam", "radam", "lion",
-                     "lamb", "rmsprop", "rmsproptf", "adadelta", "adamp", "sgdp",
-                     "fusedadamw", "fusedsgd", "fusedmomentum", "fusedadam", "fusedlamb")
-NOT_YET_PORTED_OPTIMIZERS = ("adahessian", "adafactor", "nvnovograd", "fusednovograd")
+                     "lamb", "rmsprop", "rmsproptf", "adadelta", "adamp", "sgdp", "nvnovograd",
+                     "adafactor", "adahessian", "fusedadamw", "fusedsgd", "fusedmomentum",
+                     "fusedadam", "fusedlamb", "fusednovograd")
 
 
 def get_args_parser() -> argparse.ArgumentParser:
@@ -217,7 +216,9 @@ def check_ported(args: TrainConfig) -> None:
     """Raise NotImplementedError for a flag whose feature is not ported yet,
     naming its ROADMAP item; also for a launch of more than one process,
     which the JAX train.py joins into one training and this one would run as
-    independent trainings writing the same checkpoints."""
+    independent trainings writing the same checkpoints. Raise ValueError for
+    adahessian on a ViT with --flash_attn, a pair the JAX package cannot run
+    either."""
     processes, variable = _launcher_processes()
     unported = [
         (args.dist_on_itp, "--dist_on_itp true", "A9 (distributed)"),
@@ -225,11 +226,16 @@ def check_ported(args: TrainConfig) -> None:
         (args.fsdp, "--fsdp true", "A9 (distributed)"),
         (_mesh_devices(args.mesh_shape) > 1, f"--mesh_shape {args.mesh_shape}",
          "A9 (distributed)"),
-        (args.opt.lower().split("_")[-1] in NOT_YET_PORTED_OPTIMIZERS, f"--opt {args.opt}",
-         "A16 (rest: nvnovograd, adafactor, adahessian)"),
     ]
     for is_set, flag, item in unported:
         if is_set:
             raise NotImplementedError(
                 f"{flag} is not ported to imageclassification_tpu_torch yet (ROADMAP {item})"
             )
+    if (args.opt.lower().split("_")[-1] == "adahessian" and args.flash_attn
+            and args.model.startswith("vit")):
+        raise ValueError(
+            f"--opt {args.opt} with --flash_attn true: adahessian differentiates the loss "
+            "twice (its Hessian-vector product), and the flash attention has no second "
+            "derivative; the JAX package cannot differentiate its flash attention twice "
+            "either (jax.jvp of the gradient through its custom_vjp). Use --flash_attn false.")

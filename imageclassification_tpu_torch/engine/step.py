@@ -61,7 +61,16 @@ Prune masks (`prune_masks`, --prune_mask): the entries a mask holds False for
 are set to zero after each optimizer update and before the EMA sees the
 parameters (JAX `engine/step.py:254-262`), a masked fill on the device.
 
-AdaHessian (ROADMAP A16 (rest)) is not ported yet and raises.
+AdaHessian (--opt adahessian): at each boundary micro-step, as JAX
+computes it only inside its update branch, the gradients are taken with
+`create_graph=True` and a second backward of <g, z> gives Hz, the
+Hessian-vector product (JAX's `jax.jvp` of its grad function on the same
+loss, the same dropout masks: here the second backward reuses the first
+forward's graph); z is Rademacher, one tensor a parameter, drawn on the
+device from the step's Hessian generator (registered with the CUDA graphs
+as the others), and z * Hz goes to the optimizer as the Hessian diagonal.
+Every op on the path has a second derivative in plain PyTorch; the flash
+attention has none, and `config.check_ported` refuses that pair.
 """
 
 from __future__ import annotations
@@ -81,6 +90,7 @@ from ..data.mixup import (MixupConfig, mixup_cutmix, one_hot_smooth, pack_draws,
                           sample_mixup, unpack_draws)
 from ..models.layers import clear_batch_stats, commit_batch_stats
 from ..optim.ema import ema_update, warmup_decay
+from ..optim.factory import route
 from .state import TrainState
 
 # the packed metric vectors: scalars first, then the per-class counts
@@ -160,6 +170,18 @@ def global_norm(tensors, norm_type: float = 2.0) -> torch.Tensor:
     return norms.max() if math.isinf(norm_type) else torch.linalg.vector_norm(norms)
 
 
+def hutchinson_diag(grads: Sequence[torch.Tensor], params: Sequence[torch.Tensor],
+                    z: Sequence[torch.Tensor]) -> list:
+    """z * Hz, the Hutchinson estimate of the Hessian diagonal, from the
+    gradients of `params` taken with create_graph=True: Hz is the second
+    backward of <g, z> (zero where a gradient does not depend on the
+    parameters)."""
+    live = [i for i, g in enumerate(grads) if g.requires_grad]
+    hz = torch.autograd.grad([grads[i] for i in live], list(params),
+                             grad_outputs=[z[i] for i in live], allow_unused=True)
+    return [zi * (h if h is not None else torch.zeros_like(zi)) for zi, h in zip(z, hz)]
+
+
 def build_train_step(model: nn.Module, args, num_classes: int,
                      mixup_cfg: Optional[MixupConfig], lr_schedule, wd_schedule,
                      ema_decay: float = 0.9995, seed: int = 0, teacher=None,
@@ -210,6 +232,9 @@ def build_train_step(model: nn.Module, args, num_classes: int,
     # --remat: the recompute's generator, given drop_gen's state before each
     # step, so that it draws the first run's masks again
     redraw_gen = torch.Generator(device=device) if remat else None
+    # adahessian: the Rademacher draws of the Hutchinson estimate
+    use_hessian = route(args.opt)[0] == "adahessian"
+    hess_gen = torch.Generator(device=device).manual_seed(seed + 3) if use_hessian else None
 
     def sync_redraw() -> None:
         if remat:
@@ -253,9 +278,16 @@ def build_train_step(model: nn.Module, args, num_classes: int,
               ).sum(-1).mean() * (tau ** 2)
         return (1.0 - alpha) * loss + alpha * kd
 
-    def forward_backward(model: nn.Module, image, label, aug, mix):
+    def rademacher(params) -> list:
+        return [torch.where(torch.rand(p.shape, generator=hess_gen, device=p.device) < 0.5,
+                            1.0, -1.0).to(p.dtype) for p in params]
+
+    def forward_backward(model: nn.Module, image, label, aug, mix, hessian: bool = False,
+                         z=None):
         """(loss, logits, augmented un-mixed images, gradients of the
-        parameters in order) of one forward and backward."""
+        parameters in order, and with `hessian` the Hutchinson diagonal on
+        the Rademacher `z`, drawn when None; else None) of one forward and
+        backward."""
         images = augment(image, aug)
         if mixup_cfg is not None:
             mixed, targets = mixup_cutmix(images, label, mix, mixup_cfg)
@@ -277,8 +309,13 @@ def build_train_step(model: nn.Module, args, num_classes: int,
             loss, logits = loss_fn(model, mixed, targets, drop_gen)
         if distill:
             loss = distilled(loss, logits, mixed)
-        grads = torch.autograd.grad(loss, list(model.parameters()))
-        return loss.detach(), logits.detach(), images, grads
+        params = list(model.parameters())
+        grads = torch.autograd.grad(loss, params, create_graph=hessian)
+        diag = None
+        if hessian:
+            diag = hutchinson_diag(grads, params, rademacher(params) if z is None else list(z))
+            grads = tuple(g.detach() for g in grads)
+        return loss.detach(), logits.detach(), images, grads, diag
 
     def loss_and_grads(model: nn.Module, batch, draws):
         """`forward_backward` on `batch` with the draws of `sample_draws`."""
@@ -288,12 +325,15 @@ def build_train_step(model: nn.Module, args, num_classes: int,
         if mixup_cfg is not None:
             flat = to_device(torch.from_numpy(pack_draws(mixup_cfg, draws["mixup"])), device)
             mix = unpack_draws(mixup_cfg, flat, image.shape[0])
-        return forward_backward(model, image, batch["label"], draws["augment"], mix)
+        return forward_backward(model, image, batch["label"], draws["augment"], mix)[:4]
 
     def device_step(state: TrainState, image: torch.Tensor, label: torch.Tensor,
-                    inputs: torch.Tensor, boundary: bool, aug: Optional[Dict] = None):
+                    inputs: torch.Tensor, boundary: bool, aug: Optional[Dict] = None,
+                    hessian_z: Optional[Sequence[torch.Tensor]] = None):
         """One step on the device from `host_inputs`' vector on the device;
-        `aug` the pixel draws, drawn from the step's generator when None.
+        `aug` the pixel draws, drawn from the step's generator when None;
+        `hessian_z` adahessian's Rademacher draws, one tensor a parameter,
+        drawn from the step's generator when None.
         Updates the state's tensors in place (not `state.step`) and returns
         the packed metrics (`TRAIN_SCALARS`, then the counts). Reads nothing
         back to the host, so a CUDA graph can capture it."""
@@ -304,7 +344,8 @@ def build_train_step(model: nn.Module, args, num_classes: int,
         mix = unpack_draws(mixup_cfg, inputs[1:], B) if mixup_cfg is not None else None
         if aug is None:
             aug = augment.sample(B, H, W, aug_gen)
-        loss, logits, images, grads = forward_backward(model, image, label, aug, mix)
+        loss, logits, images, grads, diag = forward_backward(
+            model, image, label, aug, mix, hessian=use_hessian and boundary, z=hessian_z)
         finite = torch.isfinite(loss)
         commit_batch_stats(model, finite)
 
@@ -322,7 +363,7 @@ def build_train_step(model: nn.Module, args, num_classes: int,
             opt.set_hyperparams(lr, wd)
             grad_norm = torch.where(finite, global_norm(accum, norm_type), 0.0)
             if boundary:
-                opt.step(accum, keep=finite)
+                opt.step(accum, keep=finite, hessian=diag)
                 for p, held in pruned:
                     p.masked_fill_(held, 0.0)
                 if use_ema:
@@ -351,7 +392,8 @@ def build_train_step(model: nn.Module, args, num_classes: int,
         inputs = host_inputs(state.step, *image.shape[:3],
                              mixup_draws=draws["mixup"] if draws else None)
         flat = device_step(state, image, batch["label"], to_device(inputs, device),
-                           is_boundary(state.step), draws["augment"] if draws else None)
+                           is_boundary(state.step), draws["augment"] if draws else None,
+                           draws.get("hessian_z") if draws else None)
         state.step += 1
         return StepMetrics(flat, TRAIN_SCALARS, num_classes)
 
@@ -360,7 +402,8 @@ def build_train_step(model: nn.Module, args, num_classes: int,
     train_step.host_inputs = host_inputs
     train_step.device_step = device_step
     train_step.is_boundary = is_boundary
-    train_step.generators = (aug_gen, drop_gen) + ((redraw_gen,) if remat else ())
+    train_step.generators = ((aug_gen, drop_gen) + ((redraw_gen,) if remat else ())
+                             + ((hess_gen,) if use_hessian else ()))
     train_step.num_classes = num_classes
     return train_step
 

@@ -1,10 +1,11 @@
 """Model registry (port of imageclassification_tpu/models/__init__.py).
 
-Holds the ViT family with its timm-style `_224` aliases, the ConvNeXt
-and ConvNeXt-V2 families, the ResNet family (ResNet, ResNeXt, wide
-ResNet) and EfficientViT m0-m5. The other names of
-the JAX registry are known here so that asking for one says it is not ported
-yet, while an unknown name raises ValueError as in the JAX package.
+Every name of the JAX registry: the ViT family with its timm-style `_224`
+aliases, the ConvNeXt and ConvNeXt-V2 families, the ResNet family (ResNet,
+ResNeXt, wide ResNet), EfficientViT m0-m5, MobileNetV3 (timm and
+torchvision names), EfficientNet B0-B4, Swin T/S/B (with and without the
+`_patch4_window7_224` suffix) and DenseNet 121/169/201. An unknown name
+raises ValueError, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -13,19 +14,9 @@ from typing import Any, Callable, Dict
 
 import torch
 
-from . import convnext, efficientvit, resnet, vit
+from . import convnext, densenet, efficientnet, efficientvit, mobilenetv3, resnet, swin, vit
 
 _REGISTRY: Dict[str, Callable] = {}
-
-# names the JAX registry has and the port does not have yet
-_NOT_YET_PORTED = frozenset(
-    ["mobilenetv3_large_100", "mobilenetv3_small_100",
-     "mobilenet_v3_large", "mobilenet_v3_small"]
-    + [f"efficientnet_b{i}" for i in range(5)]
-    + [f"swin_{s}{suffix}" for s in ("tiny", "small", "base")
-       for suffix in ("", "_patch4_window7_224")]
-    + ["densenet121", "densenet169", "densenet201"]
-)
 
 
 def register(name: str, ctor: Callable) -> None:
@@ -44,8 +35,12 @@ for _n in convnext.NAMES:
     register(_n, getattr(convnext, _n))
 for _n in resnet.NAMES:
     register(_n, getattr(resnet, _n))
-for _n in efficientvit.NAMES:
-    register(_n, getattr(efficientvit, _n))
+for _mod in (efficientvit, mobilenetv3, efficientnet, densenet):
+    for _n in _mod.NAMES:
+        register(_n, getattr(_mod, _n))
+for _n in swin.NAMES:
+    register(_n, getattr(swin, _n))
+    register(_n.replace("_patch4_window7_224", ""), getattr(swin, _n))
 
 
 def create_model(
@@ -59,11 +54,6 @@ def create_model(
     `half_precision`, else fp32. Weights come from a checkpoint afterwards
     (checkpoint/io.py), so `pretrained`/`pretrained_path` build nothing here."""
     if name not in _REGISTRY:
-        if name in _NOT_YET_PORTED:
-            raise NotImplementedError(
-                f"model {name!r} is in the JAX registry but not yet ported to "
-                f"imageclassification_tpu_torch. Ported: {list_models()}"
-            )
         raise ValueError(f"Unknown model {name!r}. Available: {list_models()}")
     kwargs.pop("pretrained_path", None)
     dtype = torch.bfloat16 if half_precision else torch.float32

@@ -37,6 +37,15 @@ def trunc_normal_(t: torch.Tensor, std: float = 0.02,
     return nn.init.trunc_normal_(t, std=s, a=-2.0 * s, b=2.0 * s, generator=generator)
 
 
+def make_divisible(v: float, divisor: int = 8) -> int:
+    """Round to the nearest multiple of `divisor`, never dropping more than
+    10 % (torchvision's `_make_divisible`, timm's `round_channels`)."""
+    new_v = max(divisor, int(v + divisor / 2) // divisor * divisor)
+    if new_v < 0.9 * v:
+        new_v += divisor
+    return new_v
+
+
 def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
     """`layer(x)` computed in `dtype` (fp32 params cast at use)."""
     return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))

@@ -34,6 +34,27 @@ it, and its decay damped by 0.01 there), sgd (nesterov trace) and momentum
 (trace). The norms and projections of lamb, adamp and sgdp are taken over
 each JAX parameter: ViT's fused qkv is three JAX tensors (`leaves`).
 
+The rest of the table (optax 0.2 and `custom.py`, each over the JAX
+tensors, taken as views of the parameters in JAX axis order, `leaf_view`):
+* nvnovograd (and its alias fusednovograd): optax `scale_by_novograd(b1
+  0.95, b2 0.98)` with the decay inside: nu is one scalar a JAX tensor, the
+  EMA of its squared gradient norm; m = 0.95 m + g / (sqrt(nu) + eps) + wd
+  p; at the first update (a device select on the count) nu = |g|^2 and m
+  has no decayed term;
+* adafactor: optax `adafactor(lr, weight_decay_rate=wd)` with its defaults:
+  the second moment factored into row and column means on a JAX tensor
+  whose two largest dims are at least 128 (decided on the JAX shape), else
+  kept whole, with decay 1 - t^-0.8 and eps 1e-30; the scaled gradient
+  clipped to block RMS 1, times lr and max(RMS(p), 1e-3), plus wd p; lr
+  is applied inside, so a layer scale multiplies the whole update;
+* adahessian: `custom.scale_by_adahessian` (adam's moments over the
+  gradient and the Hutchinson Hessian diagonal that the train step passes,
+  `step(..., hessian=)`, averaged in |.| over the two spatial dims of a 4-D
+  JAX tensor), then the decoupled decay wd p.
+Their states are kept in the optax layout: nvnovograd's nu and adafactor's
+v_row, v_col and v as one flat tensor a parameter of the JAX tensors'
+states in turn (`leaf_states`).
+
 Everything an update reads or writes lives on the parameters' device: the
 moments, the update count, lr, wd and the per-group scalars, written by the
 train step with `copy_`; so an update makes no host read and can be
@@ -42,22 +63,21 @@ step with keep false leaves the parameters, every moment, the count and
 Lookahead's slow weights and counter exactly as they were (adamw: its decay
 factor is 1 and the fused step skips on `found_inf`; the others select
 between the old and the new state, as JAX does).
-
-nvnovograd, fusednovograd, adafactor and adahessian raise
-NotImplementedError (ROADMAP A16 (rest)).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from ..config import NOT_YET_PORTED_OPTIMIZERS, PORTED_OPTIMIZERS
+from ..config import PORTED_OPTIMIZERS
 
 _ALIAS = {"fusedadamw": "adamw", "fusedsgd": "sgd", "fusedmomentum": "momentum",
-          "nesterov": "sgd", "fusedadam": "adam", "fusedlamb": "lamb"}
+          "nesterov": "sgd", "fusedadam": "adam", "fusedlamb": "lamb",
+          "fusednovograd": "nvnovograd"}
 # optimizers whose weight decay enters the gradient (the JAX _COUPLED_WD)
 COUPLED_WD = {"sgd", "momentum", "adam", "nadam", "radam", "adadelta", "rmsprop", "rmsproptf"}
 MOMENTUM = 0.9
@@ -68,6 +88,11 @@ RADAM_THRESHOLD = 5.0
 PROJ_DELTA, PROJ_WD_RATIO = 0.1, 0.01  # custom.adamp / sgdp
 SGDP_EPS = 1e-8  # the JAX factory passes --opt_eps to adamp, not to sgdp
 LOOKAHEAD_SYNC, LOOKAHEAD_ALPHA = 6, 0.5
+NOVOGRAD_BETAS = (0.95, 0.98)  # the JAX factory's scale_by_novograd(b1, b2)
+# optax.adafactor's defaults
+FACTOR_MIN_DIM, FACTOR_DECAY, FACTOR_EPS, FACTOR_CLIP, FACTOR_MIN_SCALE = 128, 0.8, 1e-30, 1.0, 1e-3
+# the optimizers whose update takes each JAX tensor apart (`leaves`)
+LEAFWISE = {"lamb", "adamp", "sgdp", "nvnovograd", "adafactor", "adahessian"}
 # the moments of each optimizer by their torch names, with their initial
 # value (the JAX names are in checkpoint/to_jax.py)
 MOMENTS = {
@@ -77,9 +102,68 @@ MOMENTS = {
     "lion": ("exp_avg",), "rmsprop": ("square_avg", "momentum_buffer"),
     "rmsproptf": ("square_avg", "momentum_buffer"), "adadelta": ("square_avg", "acc_delta"),
     "sgdp": ("momentum_buffer",), "sgd": ("momentum_buffer",), "momentum": ("momentum_buffer",),
+    "nvnovograd": ("exp_avg", "grad_norm_sq"), "adafactor": ("v_row", "v_col", "v"),
+    "adahessian": ("exp_avg", "exp_avg_hessian"),
 }
 
-Leaves = List[Tuple[int, int, int]]  # (start, length, JAX ndim) over a flattened parameter
+
+class JaxLeaf(NamedTuple):
+    """One JAX tensor of a parameter: its JAX name (None where unknown), and
+    the offset and strides over the parameter's C-contiguous elements that
+    view it in JAX axis order (`checkpoint.to_jax.jax_leaves`)."""
+
+    key: Optional[str]
+    offset: int
+    shape: Tuple[int, ...]
+    stride: Tuple[int, ...]
+
+    @property
+    def numel(self) -> int:
+        return int(np.prod(self.shape, dtype=np.int64))
+
+
+Leaves = List[JaxLeaf]
+
+
+def leaf_view(t: torch.Tensor, leaf: JaxLeaf) -> torch.Tensor:
+    """The JAX tensor `leaf` of `t` (a C-contiguous tensor shaped like its
+    parameter) as a view in JAX axis order."""
+    flat = t.view(-1)
+    return flat.as_strided(leaf.shape, leaf.stride, flat.storage_offset() + leaf.offset)
+
+
+def own_leaves(p: torch.Tensor) -> Leaves:
+    """A parameter as one JAX tensor of its own shape."""
+    return [JaxLeaf(None, 0, tuple(p.shape), tuple(p.stride()))]
+
+
+def factored_dims(shape: Sequence[int]) -> Optional[Tuple[int, int]]:
+    """optax's `_factored_dims`: the axes of the second largest and the
+    largest dim, where the second largest is at least FACTOR_MIN_DIM."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < FACTOR_MIN_DIM:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+def leaf_states(name: str, leaf: JaxLeaf) -> Dict[str, Tuple[int, ...]]:
+    """The JAX shapes of a JAX tensor's per-tensor states under optimizer
+    `name`: nvnovograd's nu a scalar, adafactor's v_row, v_col and v as
+    optax lays them out; {} for the others (moments shaped like the
+    parameter)."""
+    if name == "nvnovograd":
+        return {"grad_norm_sq": ()}
+    if name != "adafactor":
+        return {}
+    dims = factored_dims(leaf.shape)
+    if dims is None:
+        return {"v_row": (1,), "v_col": (1,), "v": leaf.shape}
+    d1, d0 = dims
+    shape = list(leaf.shape)
+    return {"v_row": tuple(shape[:d0] + shape[d0 + 1:]),
+            "v_col": tuple(shape[:d1] + shape[d1 + 1:]), "v": (1,)}
 
 
 def _select_(dst: Sequence[torch.Tensor], new: Sequence[torch.Tensor], keep: torch.Tensor):
@@ -110,9 +194,22 @@ class Optimizer:
         self.weight_decay = torch.tensor(float(weight_decay), dtype=torch.float32,
                                          device=device)
         self.count = torch.zeros((), dtype=torch.int32, device=device)
+        self.leaves = ([own_leaves(p) for p in self.params]
+                       if leaves is None else [list(x) for x in leaves])
+        # the per-JAX-tensor states: (offset, JAX shape) of each in its
+        # parameter's flat state tensor, by state
+        self.leaf_layout = {k: [] for k in MOMENTS[name]}
+        for pl in self.leaves:
+            sizes = [leaf_states(name, leaf) for leaf in pl]
+            for k in {k for st in sizes for k in st}:
+                offsets = np.cumsum([0] + [int(np.prod(st[k], dtype=np.int64)) for st in sizes])
+                self.leaf_layout[k].append([(int(o), st[k]) for o, st in zip(offsets, sizes)])
         init = 1.0 if name == "rmsproptf" else 0.0  # optax scale_by_rms(initial_scale)
         self.moments: Dict[str, List[torch.Tensor]] = {
-            k: [torch.full_like(p, init if k == "square_avg" else 0.0) for p in self.params]
+            k: ([torch.full_like(p, init if k == "square_avg" else 0.0) for p in self.params]
+                if not self.leaf_layout[k] else
+                [p.new_zeros(int(sum(np.prod(s, dtype=np.int64) for _, s in lay)))
+                 for p, lay in zip(self.params, self.leaf_layout[k])])
             for k in MOMENTS[name]}
         scales = [1.0] * len(self.params) if layer_scales is None else list(layer_scales)
         if len(scales) != len(self.params):
@@ -124,8 +221,6 @@ class Optimizer:
         # lr * s and 1 - lr * s * wd of each group, derived in set_hyperparams
         self.group_lr = self.scales * self.lr
         self.group_decay = 1.0 - self.group_lr * self.weight_decay
-        self.leaves = ([[(0, p.numel(), p.dim())] for p in self.params]
-                       if leaves is None else [list(x) for x in leaves])
         self.lookahead = lookahead
         if lookahead:
             self.slow = [p.detach().clone() for p in self.params]
@@ -151,18 +246,29 @@ class Optimizer:
         torch.mul(self.scales, self.lr, out=self.group_lr)
         self.group_decay.copy_(1.0 - self.group_lr * self.weight_decay)
 
+    def leaf_state(self, k: str, i: int, j: int) -> torch.Tensor:
+        """Parameter i's JAX tensor j's state `k` (a view in its JAX shape)."""
+        offset, shape = self.leaf_layout[k][i][j]
+        return self.moments[k][i][offset:offset + int(np.prod(shape, dtype=np.int64))].view(shape)
+
+    def _like_params(self, ts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Each tensor in its parameter's layout (a conv weight's gradient
+        comes channels-last from a channels-last input): the fused step walks
+        each tensor's memory in order, and the per-tensor views index the
+        parameter's elements."""
+        return [t if t.stride() == p.stride() else torch.empty_like(p).copy_(t)
+                for t, p in zip(ts, self.params)]
+
     @torch.no_grad()
     def step(self, grads: Optional[Sequence[torch.Tensor]] = None,
-             keep: Optional[torch.Tensor] = None) -> None:
+             keep: Optional[torch.Tensor] = None,
+             hessian: Optional[Sequence[torch.Tensor]] = None) -> None:
         """One update from `grads` (default: the parameters' .grad), applied
-        where the 0-d bool `keep` holds (default: always)."""
-        grads = list(grads) if grads is not None else [p.grad for p in self.params]
-        # a gradient laid out unlike its parameter (a conv weight's,
-        # channels-last from a channels-last input) is copied to the
-        # parameter's layout: the fused step walks each tensor's memory in
-        # order, and the per-tensor norms index the parameter's elements
-        grads = [g if g.stride() == p.stride() else torch.empty_like(p).copy_(g)
-                 for g, p in zip(grads, self.params)]
+        where the 0-d bool `keep` holds (default: always). adahessian takes
+        the Hutchinson estimate of the Hessian diagonal, one tensor a
+        parameter, as `hessian`."""
+        grads = self._like_params(list(grads) if grads is not None
+                                  else [p.grad for p in self.params])
         if self.clip_grad is not None:
             norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
             scale = torch.where(norm < self.clip_grad, torch.ones_like(norm),
@@ -177,11 +283,19 @@ class Optimizer:
                 grads = torch._foreach_add(grads, torch._foreach_mul(self.params,
                                                                      self.weight_decay))
             t = (self.count + 1).to(torch.float32)
-            new, u = getattr(self, "_" + self.name)(grads, t)
+            if self.name == "adahessian":
+                if hessian is None:
+                    raise ValueError("adahessian needs the Hessian diagonal (`hessian`), which "
+                                     "the train step computes for it")
+                new, u = self._adahessian(grads, t, self._like_params(hessian))
+            else:
+                new, u = getattr(self, "_" + self.name)(grads, t)
             for k, ts in new.items():
                 _select_(self.moments[k], ts, keep)
+            # adafactor applies lr inside its chain: the layer scale alone
+            factor = self.scales if self.name == "adafactor" else self.group_lr
             for gi, idx in enumerate(self.groups):
-                torch._foreach_mul_([u[i] for i in idx], -self.group_lr[gi])
+                torch._foreach_mul_([u[i] for i in idx], -factor[gi])
             _select_(self.params, torch._foreach_add(self.params, u), keep)
         if self.lookahead:
             self._lookahead(keep)
@@ -251,12 +365,12 @@ class Optimizer:
         # optax scale_by_trust_ratio over each JAX parameter: |p| / |u|, 1
         # where either norm is 0
         for p, x, leaves in zip(self.params, u, self.leaves):
-            pf, xf = p.reshape(-1), x.view(-1)
-            for a, n, _ in leaves:
-                pn = torch.linalg.vector_norm(pf[a:a + n])
-                un = torch.linalg.vector_norm(xf[a:a + n])
+            for leaf in leaves:
+                pn = torch.linalg.vector_norm(leaf_view(p, leaf))
+                xs = leaf_view(x, leaf)
+                un = torch.linalg.vector_norm(xs)
                 ratio = torch.where((pn == 0) | (un == 0), torch.ones_like(pn), pn / un)
-                xf[a:a + n].mul_(ratio)
+                xs.mul_(ratio)
         return {"exp_avg": m, "exp_avg_sq": v}, u
 
     def _rmsprop(self, grads, t):
@@ -299,18 +413,18 @@ class Optimizer:
         dims, then its decay added: pert + wd * wd_scale * decay_factor * p,
         with wd_scale 0.01 where the radial part was projected out, else 1."""
         for p, g, x, leaves in zip(self.params, grads, pert, self.leaves):
-            pf, gf, xf = p.reshape(-1), g.reshape(-1), x.view(-1)
-            wd_scale = torch.ones_like(xf)
-            for a, n, ndim in leaves:
-                if ndim < 2:
+            wd_scale = torch.ones_like(x)
+            for leaf in leaves:
+                if len(leaf.shape) < 2:
                     continue
-                ps, gs, xs = pf[a:a + n], gf[a:a + n], xf[a:a + n]
+                ps, gs, xs = (leaf_view(t, leaf) for t in (p, g, x))
                 p_n = ps / (torch.linalg.vector_norm(ps) + eps)
                 g_n = gs / (torch.linalg.vector_norm(gs) + eps)
-                cond = torch.abs(torch.dot(p_n, g_n)) < PROJ_DELTA / math.sqrt(n)
+                cond = torch.abs(torch.sum(p_n * g_n)) < PROJ_DELTA / math.sqrt(leaf.numel)
                 xs.copy_(torch.where(cond, xs - p_n * torch.sum(p_n * xs), xs))
-                wd_scale[a:a + n] = torch.where(cond, PROJ_WD_RATIO, 1.0)
-            xf.add_(pf * wd_scale * (self.weight_decay * wd_scale_decay))
+                leaf_view(wd_scale, leaf).copy_(
+                    torch.where(cond, PROJ_WD_RATIO, 1.0).expand(leaf.shape))
+            x.add_(p * wd_scale * (self.weight_decay * wd_scale_decay))
         return pert
 
     def _adamp(self, grads, t):
@@ -329,6 +443,93 @@ class Optimizer:
         d_p = torch._foreach_add(grads, torch._foreach_mul(buf, MOMENTUM))  # nesterov
         return {"momentum_buffer": buf}, self._project(d_p, grads, 1.0 / (1.0 - MOMENTUM),
                                                        SGDP_EPS)
+
+    def _nvnovograd(self, grads, t):
+        """optax scale_by_novograd over each JAX tensor: nu its squared
+        gradient norm's EMA, m = b1 m + g / (sqrt(nu) + eps) + wd p; at the
+        first update nu = |g|^2 and m holds no decayed term."""
+        b1, b2 = NOVOGRAD_BETAS
+        first = self.count == 0
+        mus, nus = [], []
+        for i, (p, g, leaves) in enumerate(zip(self.params, grads, self.leaves)):
+            mu_add = torch.empty_like(g)
+            nu = torch.empty_like(self.moments["grad_norm_sq"][i])
+            for j, leaf in enumerate(leaves):
+                gs = leaf_view(g, leaf)
+                sq = torch.linalg.vector_norm(gs) ** 2
+                old = self.leaf_state("grad_norm_sq", i, j)
+                n_j = torch.where(first, sq, (1.0 - b2) * sq + b2 * old)
+                nu[self.leaf_layout["grad_norm_sq"][i][j][0]] = n_j
+                leaf_view(mu_add, leaf).copy_(gs / (torch.sqrt(n_j) + self.eps))
+            mu_add.add_(p * self.weight_decay)
+            mus.append(torch.where(first, mu_add, b1 * self.moments["exp_avg"][i] + mu_add))
+            nus.append(nu)
+        return {"exp_avg": mus, "grad_norm_sq": nus}, [m.clone() for m in mus]
+
+    def _adafactor(self, grads, t):
+        """optax adafactor over each JAX tensor (module docstring); u is the
+        whole update before the sign, lr included."""
+        decay = 1.0 - t ** -FACTOR_DECAY
+        new = {k: [torch.zeros_like(m) for m in self.moments[k]] for k in MOMENTS["adafactor"]}
+        us = []
+        for i, (p, g, leaves) in enumerate(zip(self.params, grads, self.leaves)):
+            u = torch.empty_like(g)
+            for j, leaf in enumerate(leaves):
+                gs = leaf_view(g, leaf)
+                sq = gs * gs + FACTOR_EPS
+                dims = factored_dims(leaf.shape)
+                state = {k: self.leaf_state(k, i, j) for k in MOMENTS["adafactor"]}
+                out = {k: new[k][i][o:o + int(np.prod(shape, dtype=np.int64))].view(shape)
+                       for k in MOMENTS["adafactor"]
+                       for o, shape in [self.leaf_layout[k][i][j]]}
+                if dims is not None:
+                    d1, d0 = dims
+                    v_row = decay * state["v_row"] + (1.0 - decay) * sq.mean(d0)
+                    v_col = decay * state["v_col"] + (1.0 - decay) * sq.mean(d1)
+                    row_mean = v_row.mean(d1 - 1 if d1 > d0 else d1, keepdim=True)
+                    x = (gs * ((v_row / row_mean) ** -0.5).unsqueeze(d0)
+                         * (v_col ** -0.5).unsqueeze(d1))
+                    out["v_row"].copy_(v_row)
+                    out["v_col"].copy_(v_col)
+                else:
+                    v = decay * state["v"] + (1.0 - decay) * sq
+                    x = gs * v ** -0.5
+                    out["v"].copy_(v)
+                # clip_by_block_rms, the lr, scale_by_param_block_rms, the decay
+                x = x / torch.clamp(torch.sqrt(torch.mean(x * x)) / FACTOR_CLIP, min=1.0)
+                ps = leaf_view(p, leaf)
+                x = x * self.lr * torch.clamp(torch.sqrt(torch.mean(ps * ps)),
+                                              min=FACTOR_MIN_SCALE)
+                leaf_view(u, leaf).copy_(x + self.weight_decay * ps)
+            us.append(u)
+        return new, us
+
+    def _adahessian(self, grads, t, hessian):
+        """custom.scale_by_adahessian, then the decoupled decay: adam's
+        moments over g and the Hessian diagonal d (|d| averaged over the
+        spatial dims of a 4-D JAX tensor), (m / c1) / ((v / c2)^(1/2) + eps)
+        + wd p."""
+        b1, b2 = self.betas
+        d = []
+        for h, leaves in zip(hessian, self.leaves):
+            if all(len(leaf.shape) != 4 for leaf in leaves):
+                d.append(h)
+                continue
+            dh = h.clone()
+            for leaf in leaves:
+                if len(leaf.shape) == 4:  # flax HWIO: the spatial dims lead
+                    hs = leaf_view(h, leaf)
+                    leaf_view(dh, leaf).copy_(
+                        hs.abs().mean(dim=(0, 1), keepdim=True).expand(leaf.shape))
+            d.append(dh)
+        m = self._moment("exp_avg", grads, b1)
+        v = torch._foreach_add(torch._foreach_mul(self.moments["exp_avg_hessian"], b2),
+                               torch._foreach_mul(torch._foreach_mul(d, d), 1.0 - b2))
+        c1, c2 = 1.0 - b1 ** t, 1.0 - b2 ** t
+        u = torch._foreach_div(torch._foreach_div(m, c1), torch._foreach_add(
+            torch._foreach_pow(torch._foreach_div(v, c2), 0.5), self.eps))
+        torch._foreach_add_(u, torch._foreach_mul(self.params, self.weight_decay))
+        return {"exp_avg": m, "exp_avg_hessian": v}, u
 
     def _adamw(self, grads, keep):
         """The decoupled decay as a factor a group, p *= 1 - lr * s * wd
@@ -363,14 +564,10 @@ class Optimizer:
 def route(opt: str) -> Tuple[str, bool]:
     """(base name, lookahead) of an --opt value, as the JAX factory routes
     it: the part after the last "_" (fused* aliases resolved), wrapped in
-    Lookahead with a "lookahead_" prefix. Raises NotImplementedError for a
-    name of the JAX table not ported yet, ValueError for an unknown one."""
+    Lookahead with a "lookahead_" prefix. Raises ValueError for a name that
+    is not in the table."""
     parts = opt.lower().split("_")
     base = parts[-1]
-    if base in NOT_YET_PORTED_OPTIMIZERS:
-        raise NotImplementedError(
-            f"optimizer {opt!r} is not ported to imageclassification_tpu_torch yet "
-            f"(ROADMAP A16 (rest)); ported: {sorted(PORTED_OPTIMIZERS)}")
     if base not in PORTED_OPTIMIZERS:
         raise ValueError(f"Invalid optimizer: {opt}")
     return _ALIAS.get(base, base), len(parts) > 1 and parts[0] == "lookahead"
@@ -383,9 +580,9 @@ def create_optimizer(opt: str, params: Iterable[torch.nn.Parameter], lr: float,
                      leaves: Optional[Sequence[Leaves]] = None) -> Optimizer:
     """Name-routed factory. `layer_scales`: each parameter's lr scale
     (`layer_decay.layer_decay_scales`); `leaves`: each parameter's JAX
-    tensors as (start, length, ndim) over it flattened
-    (`checkpoint.to_jax.jax_leaves`), which lamb, adamp and sgdp take their
-    norms over (default: each parameter one tensor of its own dims)."""
+    tensors as `JaxLeaf`s (`checkpoint.to_jax.jax_leaves`), which the
+    `LEAFWISE` optimizers take apart (default: each parameter one tensor of
+    its own shape)."""
     base, lookahead = route(opt)
     betas = tuple(opt_betas) if opt_betas else (0.9, 0.999)
     return Optimizer(base, params, lr, weight_decay, eps=opt_eps, betas=betas,

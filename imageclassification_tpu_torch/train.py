@@ -17,6 +17,10 @@
         --teacher_path <checkpoint> --distillation_alpha 0.5 --distillation_tau 2.0 ...
     python -m imageclassification_tpu_torch.train --data_path <ImageFolder> \\
         --pretrained_path <pruned checkpoint> --prune_mask true ...
+    python -m imageclassification_tpu_torch.train --data_path <ImageFolder> \\
+        --model swin_tiny --pretrained_path <timm state_dict> --opt adafactor ...
+    python -m imageclassification_tpu_torch.train --data_path <ImageFolder> \\
+        --model convnext_tiny --opt adahessian ...
     python -m imageclassification_tpu_torch.train --data_path <ImageFolder>  # efficientvit_m0
 
 The JAX train.py's flags, artifacts and epoch flow: `class_indices.json`
@@ -29,11 +33,12 @@ torch.profiler trace with --profile_dir, and a checkpoint on SIGTERM/SIGUSR1
 before a clean exit. On a card the train and eval steps run
 as CUDA graphs (`engine/compiled.py`, the counterpart of the JAX step's
 `jax.jit`); on the CPU, and with --check_nans (eager, with NaN checks, as
-JAX's jax_debug_nans), they run eagerly. One process on one device; the ViT,
-ConvNeXt, ConvNeXt-V2, ResNet (ResNeXt, wide ResNet) and EfficientViT
-families are built (other names raise NotImplementedError), --layer_decay,
---remat, the optimizer table (but nvnovograd, adafactor, adahessian), the
---aa policies (RandAugment, AutoAugment, AbelAugment), distillation
+JAX's jax_debug_nans), they run eagerly. One process on one device; every
+model of the JAX registry (ViT, ConvNeXt and V2, ResNet, ResNeXt and wide
+ResNet, EfficientViT, MobileNetV3, EfficientNet, Swin, DenseNet),
+--layer_decay, --remat, the whole optimizer table (adahessian with the
+Hutchinson diagonal from a second backward; not with --flash_attn on a
+ViT, as in JAX), the --aa policies (RandAugment, AutoAugment, AbelAugment), distillation
 (--teacher_path with --distillation_alpha > 0) and --prune_mask run, and the
 flags of features not ported yet raise (config.check_ported).
 """
@@ -66,7 +71,7 @@ from .engine.step import build_eval_step, build_train_step
 from .models import create_model, model_kwargs_for
 from .models.layers import batch_norm_stats
 from .optim.ema import init_ema, init_ema_stats
-from .optim.factory import create_optimizer, route
+from .optim.factory import LEAFWISE, create_optimizer, route
 from .optim.layer_decay import layer_decay_scales
 from .optim.schedules import build_schedules
 from .utils.loggers import TensorboardLogger, WandbLogger
@@ -124,13 +129,15 @@ def _load_pretrained(args, state) -> None:
 def optimizer_layout(args: TrainConfig, model) -> dict:
     """The per-parameter arguments of `create_optimizer` for `model`: the
     layer scales under --layer_decay < 1 (`layer_decay_scales`, as the JAX
-    train.py builds them), and for the optimizers that take norms over whole
-    tensors (lamb, adamp, sgdp) each parameter's JAX tensors."""
+    train.py builds them), and for the optimizers that take each JAX tensor
+    apart (`factory.LEAFWISE`: the norms of lamb, adamp, sgdp and
+    nvnovograd, adafactor's factoring, adahessian's spatial means) each
+    parameter's JAX tensors."""
     kw = {}
     if args.layer_decay and args.layer_decay < 1.0:
         kw["layer_scales"] = layer_decay_scales(
             [k for k, _ in model.named_parameters()], args.model, args.layer_decay)
-    if route(args.opt)[0] in ("lamb", "adamp", "sgdp"):
+    if route(args.opt)[0] in LEAFWISE:
         kw["leaves"] = jax_leaves(model, carry_for(model))
     return kw
 

@@ -14,9 +14,9 @@
 
 The eval transform is the squash resize (bilinear) on the host, then the
 ImageNet normalisation on the device; on a card the forward is replayed from
-a CUDA graph (`engine/compiled.py`). A ViT, ConvNeXt or ResNet checkpoint
-written by the JAX `train.py` loads and runs unchanged; a ViT trained with
---flash_attn runs the flash-attention kernel.
+a CUDA graph (`engine/compiled.py`). A checkpoint of any model of the
+registry written by the JAX `train.py` loads and runs unchanged; a ViT
+trained with --flash_attn runs the flash-attention kernel.
 """
 
 from __future__ import annotations

@@ -205,3 +205,16 @@ def step_draws(rng, step, B, H, W, args, mixup_cfg):
     return {"augment": augment_draws(k_aug, B, H, W, args),
             "mixup": mixup_draws(k_mix, mixup_cfg, B, H, W) if mixup_cfg else None}
 
+
+
+def hessian_z(rng, step, params):
+    """The Rademacher draws of the JAX train step's Hutchinson estimate
+    (adahessian) at state.step = step, as a flat {JAX name: array} dict:
+    one key a leaf of `params`, split from fold_in(fold_in(rng, step),
+    0x5E55) (engine/step.py:186-201)."""
+    k_hess = jax.random.fold_in(jax.random.fold_in(rng, step), 0x5E55)
+    flat, treedef = jax.tree_util.tree_flatten_with_path(params)
+    keys = jax.random.split(k_hess, len(flat))
+    return {"/".join(p.key for p in path): np.asarray(
+        jax.random.rademacher(k, leaf.shape, jnp.float32).astype(leaf.dtype))
+        for k, (path, leaf) in zip(keys, flat)}

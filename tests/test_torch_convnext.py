@@ -175,10 +175,9 @@ def test_bf16_model_keeps_an_fp32_head():
     assert [f.shape[-1] for f in feats] == [80, 320]
 
 
-def test_carry_of_an_unported_family_names_its_roadmap_item():
-    # checkpoint/io.py dispatches the carry by family: ViT, ConvNeXt,
-    # ResNet, EfficientViT; any other model raises, naming the ROADMAP items
-    # of the families left
+def test_carry_of_a_module_of_no_family_raises():
+    # checkpoint/io.py dispatches the carry by family, every family of the
+    # registry; a module of none of them raises
     assert carry_for(create_model("convnext_atto")).to_jax is convnext_flat_from_state_dict
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(TypeError, match="no weight carry for Linear"):
         carry_for(torch.nn.Linear(2, 2))

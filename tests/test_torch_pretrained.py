@@ -175,12 +175,27 @@ def test_repo_checkpoint_and_converted_file_through_both_loaders(tmp_path, capsy
         _assert_same_flat(got[tree], want[tree], tree)
 
 
-@pytest.mark.parametrize("name,item", [("swin_tiny", "A14"), ("mobilenetv3_large_100", "A15"),
-                                       ("mobilenet_v3_small", "A15"), ("efficientnet_b0", "A15"),
-                                       ("densenet121", "A15")])
-def test_unported_family_names_its_roadmap_item(name, item):
-    with pytest.raises(NotImplementedError, match=item):
-        port_convert.convert_state_dict({"x.weight": np.zeros(2)}, name)
+@pytest.mark.parametrize("name", ["swin_tiny", "mobilenetv3_large_100", "mobilenet_v3_small",
+                                  "efficientnet_b0", "densenet121"])
+def test_new_family_converts_as_jax(name):
+    # a seeded hub-layout state_dict of each family (the port's own keys,
+    # which are timm's / torchvision's, with the buffers a hub file also
+    # holds: BatchNorm's num_batches_tracked, Swin's relative_position_index)
+    # through the port's converter and the JAX one: the same flat parameters
+    # and batch statistics, exactly
+    model = create_model(name, num_classes=7)
+    sd = _seeded(model, 11)
+    for k in list(sd):
+        if k.endswith("running_var"):
+            sd[k[:-len("running_var")] + "num_batches_tracked"] = torch.tensor(5)
+    if name.startswith("swin"):
+        sd["layers.0.blocks.0.attn.relative_position_index"] = torch.zeros(49, 49,
+                                                                         dtype=torch.int64)
+    got = port_convert.convert_state_dict(dict(sd), name)
+    want = jax_convert.convert_state_dict(dict(sd), name)
+    for tree, g, w in zip(("model", "batch_stats"), got, want):
+        _assert_same_flat(g, w, tree)
+    assert len(got[0]) > 100 and (name.startswith("swin") or len(got[1]) > 50)
 
 
 def test_unknown_family_raises():

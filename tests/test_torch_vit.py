@@ -187,9 +187,11 @@ def test_registry_builds_vit_names(name):
     assert m.head.out_features == 3
 
 
-def test_registry_not_ported_and_unknown_names():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        port_models.create_model("swin_tiny")
+def test_registry_builds_swin_and_refuses_unknown_names():
+    from imageclassification_tpu_torch.models.swin import SwinTransformer
+
+    m = port_models.create_model("swin_tiny", num_classes=3, attn_layout="legacy")
+    assert isinstance(m, SwinTransformer) and m.attn_layout == "legacy"
     with pytest.raises(ValueError):
         port_models.create_model("no_such_model")
 
@@ -197,8 +199,7 @@ def test_registry_not_ported_and_unknown_names():
 def test_registry_knows_every_jax_name():
     from imageclassification_tpu.models import list_models as jax_list
 
-    for name in jax_list():
-        assert name in port_models._REGISTRY or name in port_models._NOT_YET_PORTED, name
+    assert port_models.list_models() == jax_list()
 
 
 @pytest.mark.parametrize("model", ["vit_base_patch16", "resnet50", "convnext_tiny",
