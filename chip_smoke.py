@@ -186,15 +186,35 @@ exit before the last line:
    the torch converter gives, reloaded exactly and served by val_precision
    (captured); ms a step captured and eager with traces, peak memory, ms a
    served batch;
-14. one JSON line with every kernel's numbers (at ConvNeXt-T's stage-0
+14. int8 serving and the checkpoint tools, in a child process
+   (`--lifecycle`, a fresh profiler as for phases 10-13), on a seeded
+   ViT-B/16 --flash_attn checkpoint of 1000 classes with an EMA and a seeded
+   ConvNeXt-T, phase 5's folder: 14a. the port's `modelchange --mode
+   quantize --dtype int8`, then `val_precision` on it (the raw int8 weights):
+   the int8 kernels kept (JAX's rule), one torch._int_mm a layer (no float
+   fallback), 12 flash forwards in each replayed batch (trace), the
+   probabilities and argmax agreement against the bf16 model of the source
+   checkpoint, ms a captured batch of 64 int8 and bf16; each int8 product at
+   ViT-B/16's four Linear shapes (and the head's at batch 8, padded) equal to
+   the CPU's int32 matmul, with its device ms beside the bf16 product's and
+   their bounds, and whether cuBLASLt takes a row-major second operand;
+   14b. `ema2model` (the model equals the source's EMA), `prune` (sparsity
+   0.50) and `aot` export of the source: the program reloaded equals the
+   live model on zeros and launches the flash forward 12 times a call; 14c.
+   Grad-CAM (the JAX layer pick; 12 forwards, 1 dQ and 1 dK/dV a batch of 8
+   on the ViT, in bf16 for the kernel) and summary through the visualize
+   CLI on both models;
+15. one JSON line with every kernel's numbers (at ConvNeXt-T's stage-0
    shape for the LayerNorm and depthwise-conv kernels and ResNet-50's
    stage-1 conv3 shape for the fused 1x1 conv; the other shapes are in the
    lines of phases 3c, 3d and 3e; the flash kernels' numbers on the
    fine-tuning path under "at_577", on the high-resolution path under
    "at_4097" and their launches on phase 12's paths under "recipe" and
    "prune" and on phase 13a's under "nvnovograd" and "adafactor"), phase
-   12's summary under "recipes" and phase 13's under "registry", then the
-   result line {"ok": true, "device": {...}}.
+   12's summary under "recipes", phase 13's under "registry" and phase 14's
+   under "lifecycle", the flash kernels' launches on phase 14's paths under
+   "int8_serving", "gradcam" and "export"), then the result line {"ok":
+   true, "device": {...}}.
 
 Phase 2 also builds the port's native JPEG decoder and says whether it
 built; the training phases say which decoder fed them. A device ms read
@@ -207,6 +227,8 @@ The JAX package is not imported.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -2091,8 +2113,6 @@ def run_finetune(work: str, device: str, model: dict, cfg: dict, num_classes: in
     cfg["img"], and val_precision serves it at that size (on a card with
     predict captured: the flash forward launched once a block in each
     replayed batch, read from a trace). cfg["flags"]: more train.py flags."""
-    import contextlib
-
     import torch
     import torch.nn.functional as F
 
@@ -2790,8 +2810,6 @@ def prune_checkpoint(src: str, dst: str, fraction: float = 0.5) -> int:
 
 def _printed_by(fn):
     """(fn(), what it printed), the output still shown."""
-    import contextlib
-
     tee = _Tee(sys.stdout)
     with contextlib.redirect_stdout(tee):
         out = fn()
@@ -3330,6 +3348,381 @@ def registry_main(keep: str, out: str) -> int:
     return 0
 
 
+# phase 14: int8 serving and the checkpoint tools on a ViT-B/16 --flash_attn
+# checkpoint of 1000 classes with an EMA (and Grad-CAM and the summary on
+# ConvNeXt-T): a batch of 64 at 224x224 served, 8 images explained
+# ViT-B/16's four Linear shapes at batch 64 (M = 64 x 197 tokens): (M, K, N)
+# of qkv, the attention's out-projection, fc1 and fc2; and the head's at
+# batch 8 (M <= 16 and N = 1000: the padded call)
+VIT_LINEARS = {"qkv": (12608, 768, 2304), "proj": (12608, 768, 768),
+               "fc1": (12608, 768, 3072), "fc2": (12608, 3072, 768), "head_b8": (8, 768, 1000)}
+LIFECYCLE = dict(img=224, batch=64, num_classes=1000, cam_batch=8, seed=14, gemm=VIT_LINEARS)
+# H100 SXM published dense int8 tensor-core rate (NVIDIA data sheet), the
+# denominator of the int8 products' bound
+INT8_OPS_PER_S = 1979e12
+# rows of each int8 product held against the CPU's int32 matmul (the plain
+# version, exact): the first rows only, to keep the CPU's integer matmul short
+INT8_CHECK_ROWS = 256
+
+
+def write_convnext_checkpoint(out_dir: str, rng, model: dict, img: int, num_classes: int) -> str:
+    """A seeded checkpoint of `model` (a CONVNEXT_T-like dict) in the JAX
+    layout: kernels N(0, 0.02), biases N(0, 0.01), LayerNorm scales 1 + N(0,
+    0.01), layer scales gamma N(0.1, 0.01)."""
+    os.makedirs(out_dir, exist_ok=True)
+    flat = {}
+    for k, shape in jax_convnext_shapes(model["depths"], model["dims"], num_classes).items():
+        std = 0.01 if k.endswith("bias") else 0.02
+        flat[k] = (std * rng.standard_normal(shape)).astype(np.float32)
+        if k.endswith("scale"):
+            flat[k] += 1.0
+        if k.endswith("gamma"):
+            flat[k] = (0.1 + 0.01 * rng.standard_normal(shape)).astype(np.float32)
+    ck = {"format_version": 1, "model_spec": {"name": model["name"], "kwargs": {}},
+          "step": 0, "epoch": 0, "input_shape": [1, img, img, 3], "num_classes": num_classes,
+          "args": {}, "model": flat}
+    path = os.path.join(out_dir, "checkpoint-0.pth")
+    with open(path, "wb") as f:
+        pickle.dump(ck, f, protocol=pickle.HIGHEST_PROTOCOL)
+    return path
+
+
+def int8_gemm_checks(device: str, shapes: dict) -> dict:
+    """At each (M, K, N): the int8 product as the int8 layers run it
+    (`ops/int8.py::padded_int_mm`, torch._int_mm on the card) held exactly
+    against the CPU's int32 matmul on its first INT8_CHECK_ROWS rows; on the
+    card its device ms beside the bf16 product of the same shape (F.linear,
+    cuBLAS) and the whole int8 layer (quantize, product, rescale, bias) by
+    CUDA events, and the bounds of the two products."""
+    import torch
+    import torch.nn.functional as F
+
+    from imageclassification_tpu_torch.ops import int8
+
+    gen = torch.Generator().manual_seed(3)
+    rows = {}
+    for name, (m, k, n) in shapes.items():
+        a = torch.randint(-127, 128, (m, k), dtype=torch.int8, generator=gen)
+        w = torch.randint(-127, 128, (n, k), dtype=torch.int8, generator=gen)
+        wp = int8.pad_weight(w).to(device)
+        got = int8.padded_int_mm(a.to(device), wp, n)
+        r = min(m, INT8_CHECK_ROWS)
+        want = a[:r].to(torch.int32) @ w.t().to(torch.int32)
+        if got.shape != (m, n) or not torch.equal(got[:r].cpu(), want):
+            raise AssertionError(f"int8 product {name} {(m, k, n)} differs from the int32 matmul")
+        row = {"shape": [m, k, n], "padded": list(wp.shape) != [n, k] or m < int8.MIN_ROWS,
+               "exact": True}
+        if device == "cuda":
+            ad = a.to(device)
+            x = (torch.randn(m, k, generator=gen) * 0.5).to(device, torch.bfloat16)
+            wb = (w.float() * 0.01).to(device, torch.bfloat16)
+            scale, bias = torch.full((n,), 0.01, device=device), torch.zeros(n, device=device)
+            mm = lambda: int8.padded_int_mm(ad, wp, n)  # noqa: E731
+            bf = lambda: F.linear(x, wb)  # noqa: E731
+            layer = lambda: int8.int8_matmul(x, wp, scale, bias, torch.bfloat16)  # noqa: E731
+            ev = {"int8": time_ms(mm, iters=20), "bf16": time_ms(bf, iters=20),
+                  "layer": time_ms(layer, iters=20)}
+            ops = 2 * m * k * n
+            # cuBLASLt's layout rule for the second operand: the layers pass the
+            # [N, K] weight transposed (column-major); row-major [K, N] here
+            try:
+                same = torch.equal(torch._int_mm(ad, w.t().contiguous().to(device))[:r].cpu(),
+                                   want)
+                row["row_major_b"] = "taken, " + ("equal" if same else "NOT equal")
+            except RuntimeError as e:
+                row["row_major_b"] = "refused: " + str(e).strip().splitlines()[0][:120]
+            row.update(ms_int8=ev["int8"], ms_bf16=ev["bf16"], ms_int8_layer=ev["layer"],
+                       device_ms_int8=_library_device_ms(mm, events_ms=ev["int8"]),
+                       device_ms_bf16=_library_device_ms(bf, events_ms=ev["bf16"]),
+                       bound_ms_int8=max(ops / INT8_OPS_PER_S,
+                                         (m * k + n * k + 4 * m * n) / HBM_BYTES_PER_S) * 1e3,
+                       bound_ms_bf16=max(ops / BF16_FLOPS_PER_S,
+                                         2 * (m * k + n * k + m * n) / HBM_BYTES_PER_S) * 1e3)
+        rows[name] = row
+    return rows
+
+
+def _images_batch(folder: str, img: int, batch: int, device: str):
+    import torch
+
+    from imageclassification_tpu_torch import val
+
+    paths = sorted(os.path.join(folder, d, f) for d in os.listdir(folder)
+                   for f in os.listdir(os.path.join(folder, d)))[:batch]
+    return next(val._batched(paths, img, batch, torch.device(device)))[1]
+
+
+def int8_serving(work: str, device: str, ck: str, images: str, cfg: dict, depth: int) -> dict:
+    """14a: the checkpoint through the port's `modelchange --mode quantize
+    --dtype int8`, then the port's val.py on it (the raw int8 weights,
+    --model_ema false); the int8 predict against the bf16 model of the
+    source checkpoint on one batch."""
+    import torch
+
+    from imageclassification_tpu_torch import modelchange, val
+    from imageclassification_tpu_torch.ops import int8
+    from imageclassification_tpu_torch.ops.flash_attention import reset_launches
+
+    img, b = cfg["img"], cfg["batch"]
+    os.makedirs(work, exist_ok=True)
+    q = modelchange.main(["--ckpt", ck, "--mode", "quantize", "--dtype", "int8",
+                          "--out", os.path.join(work, "int8.pth")])
+    reset_launches()
+    t0 = time.perf_counter()
+    # its per-class lines (1000 classes) are counted, not shown
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        tp, fp, fn = val.val_precision(images, q, img, model_ema=False, batch_size=b,
+                                       device=device)
+    res = {"val_s": time.perf_counter() - t0, "totals": _launch_counts(),
+           "val_images": int(tp.sum() + fp.sum()),
+           "val_lines": len(printed.getvalue().splitlines())}
+    if "Dense kernels stay int8" not in printed.getvalue():
+        raise AssertionError("val_precision did not run the int8 checkpoint int8")
+    m8, ck8 = val.initialize_model(q, False, return_checkpoint=True, device=device)
+    mbf, _ = val.initialize_model(ck, False, device=device)
+    res["kept"] = len(ck8["quant_exec_scales"])
+    layers = [m for m in m8.modules() if isinstance(m, int8.Int8Linear)]
+    res["int8_layers"] = len(layers)
+    imgs = _images_batch(images, img, b, device)
+    p8, pbf = val._predict_fn(m8), val._predict_fn(mbf)
+    int8.int_mm.calls = 0
+    eager8 = getattr(p8, "eager", p8)(imgs)
+    res["int_mm_calls_a_forward"] = int8.int_mm.calls
+    if device == "cuda" and int8.int_mm.calls != len(layers):
+        raise AssertionError(f"{int8.int_mm.calls} torch._int_mm calls in a forward of "
+                             f"{len(layers)} int8 layers: a float fallback")
+    a, ref = p8(imgs), pbf(imgs)
+    if a.shape != (b, cfg["num_classes"]) or not torch.isfinite(a).all():
+        raise AssertionError(f"bad int8 probabilities: shape {tuple(a.shape)}")
+    res["probs_vs_bf16"] = (a - ref).abs().max().item()
+    res["argmax_agree_bf16"] = (a.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    res["captured_vs_eager"] = (a - eager8).abs().max().item()
+    if device == "cuda":
+        res["per_replay"] = replay_launches(lambda: p8(imgs), ["fwd"] * depth)
+        res["ms_int8"] = time_ms(lambda: p8(imgs), iters=10)
+        res["ms_bf16"] = time_ms(lambda: pbf(imgs), iters=10)
+        res["trace_int8"] = trace(lambda: p8(imgs))
+    res["gemm"] = int8_gemm_checks(device, cfg["gemm"])
+    return res
+
+
+def export_checks(work: str, device: str, ck: str, depth: int) -> dict:
+    """14b: `ema2model`, `prune` and `aot` of the checkpoint through the
+    port's modelchange; the program reloaded, run on zeros against the live
+    model, its flash launches counted (the int8 checkpoint's program: the
+    card test of tests/test_torch_modelchange.py)."""
+    import torch
+
+    from imageclassification_tpu_torch import modelchange, val
+    from imageclassification_tpu_torch.checkpoint.io import load_checkpoint
+    from imageclassification_tpu_torch.ops import int8
+    from imageclassification_tpu_torch.ops.flash_attention import reset_launches
+
+    res = {}
+    ema = modelchange.main(["--ckpt", ck, "--mode", "ema2model",
+                            "--out", os.path.join(work, "ema.pth")])
+    src, got = load_checkpoint(ck), load_checkpoint(ema)
+    if set(got["model"]) != set(src["model_ema"]) or any(
+            not np.array_equal(got["model"][k], v) for k, v in src["model_ema"].items()):
+        raise AssertionError("ema2model: the model is not the source's EMA")
+    pruned = load_checkpoint(modelchange.main(["--ckpt", ck, "--mode", "prune", "--sparsity",
+                                               "0.5", "--out", os.path.join(work, "pruned.pth")]))
+    res["prune_sparsity"] = pruned["prune_sparsity"]
+    if abs(pruned["prune_sparsity"] - 0.5) > 0.01:
+        raise AssertionError(f"prune: sparsity {pruned['prune_sparsity']}")
+    for name, path in (("bf16", ck),):
+        t0 = time.perf_counter()
+        out = modelchange.main(["--ckpt", path, "--mode", "aot", "--device", device,
+                                "--out", os.path.join(work, f"{name}.aot.pt2")])
+        seconds = time.perf_counter() - t0
+        program = modelchange.load_exported(out).module()
+        live, lck = val.initialize_model(path, False, return_checkpoint=True, device=device)
+        x = torch.zeros(lck["input_shape"], device=device)
+        reset_launches()
+        int8.int_mm.calls = 0
+        with torch.no_grad():
+            y = program(x)
+        row = {"seconds": seconds, "launches": _launch_counts(), "int_mm_calls": int8.int_mm.calls,
+               "bytes": os.path.getsize(out)}
+        with torch.no_grad():
+            row["max_abs_vs_live"] = (y.float() - live(x).float()).abs().max().item()
+        if device == "cuda":
+            if row["launches"]["fwd"] != depth:
+                raise AssertionError(f"the reloaded {name} program launched the flash forward "
+                                     f"{row['launches']['fwd']} times, not {depth}")
+            with torch.no_grad():
+                row["ms_program"] = time_ms(lambda: program(x), iters=10)
+                row["ms_live"] = time_ms(lambda: live(x), iters=10)
+        res[name] = row
+    return res
+
+
+def gradcam_checks(work: str, device: str, ck: str, images: str, cfg: dict) -> dict:
+    """14c for one checkpoint: Grad-CAM of one batch through the port's
+    visualize functions (the flash launches counted from 0 over it), the
+    visualize CLI's gradcam and summary, and its features."""
+    import torch
+
+    from imageclassification_tpu_torch import val, visualize
+    from imageclassification_tpu_torch.checkpoint.io import load_checkpoint
+    from imageclassification_tpu_torch.ops.flash_attention import reset_launches
+
+    img, b = cfg["img"], cfg["cam_batch"]
+    spec = load_checkpoint(ck, dequantize=False)["model_spec"]
+    half = device == "cuda" and bool(spec["kwargs"].get("flash_attn"))
+    model, _ = val.initialize_model(ck, False, half_precision=half, dequantize=True,
+                                    device=device)
+    model.requires_grad_(False)
+    layer, module, shape = visualize.resolve_layer(model, img)
+    fn = visualize.make_gradcam_fn(model, module, img)
+    imgs = _images_batch(images, img, b, device)
+    reset_launches()
+    probs, cams = fn(imgs, -1)
+    res = {"layer": layer, "shape": list(shape), "launches": _launch_counts(), "half": half}
+    if cams.shape != (b, img, img) or not torch.isfinite(cams).all() or cams.min() < 0 \
+            or cams.max() > 1 + 1e-6 or not torch.isfinite(probs).all():
+        raise AssertionError(f"bad Grad-CAM maps on {spec['name']}")
+    cam_dir = os.path.join(work, f"cam_{spec['name']}")
+    os.makedirs(cam_dir, exist_ok=True)
+    from PIL import Image
+
+    for i, arr in enumerate(imgs.cpu().numpy()):
+        Image.fromarray(arr).save(os.path.join(cam_dir, f"x{i}.png"))
+    out_dir = os.path.join(work, f"viz_{spec['name']}")
+    common = ["--model_weight_path", ck, "--img_path", cam_dir, "--img_size", str(img),
+              "--device", device, "--out_dir", out_dir]
+    visualize.main(["--mode", "gradcam", "--batch_size", str(b)] + common)
+    res["pngs"] = len(os.listdir(out_dir))
+    if res["pngs"] != b:
+        raise AssertionError(f"visualize gradcam wrote {res['pngs']} of {b} overlays")
+    summary = visualize.main(["--mode", "summary"] + common)
+    res.update(params=summary["params"], gflops=summary["flops"] / 1e9,
+               peak_bytes=summary["peak_bytes"])
+    n_ck = sum(int(np.size(v)) for v in load_checkpoint(ck)["model"].values())
+    if summary["params"] != n_ck:
+        raise AssertionError(f"summary counts {summary['params']} parameters, the checkpoint "
+                             f"holds {n_ck}")
+    if device == "cuda":
+        res["ms_batch"] = time_ms(lambda: fn(imgs, -1), iters=5, reps=3)
+    return res
+
+
+def lifecycle_phase(work: str, device: str, cfg: dict, vit: dict, convnext: dict,
+                    images: str) -> dict:
+    """Phase 14 (module docstring) at `cfg`'s sizes on the folder `images`
+    (written here when missing): logs its lines and returns its summary
+    (JSON-ready)."""
+    rng = np.random.default_rng(cfg["seed"])
+    if not os.path.isdir(images):
+        write_image_folder(images, rng, 2, cfg["batch"] // 2)
+    ck = write_checkpoint(os.path.join(work, "vit"), rng, vit, cfg["img"], cfg["num_classes"])
+    with open(ck, "rb") as f:
+        src = pickle.load(f)
+    src["model_ema"] = {k: (v + 0.002 * rng.standard_normal(v.shape)).astype(np.float32)
+                        for k, v in src["model"].items()}
+    with open(ck, "wb") as f:
+        pickle.dump(src, f, protocol=pickle.HIGHEST_PROTOCOL)
+    cnx = write_convnext_checkpoint(os.path.join(work, "convnext"), rng, convnext, cfg["img"],
+                                    cfg["num_classes"])
+    out, t0 = {"seconds": {}}, time.perf_counter()
+    a = int8_serving(os.path.join(work, "int8"), device, ck, images, cfg, vit["depth"])
+    out["seconds"]["14a"] = time.perf_counter() - t0
+    log(f"int8 serving (14a): modelchange --mode quantize --dtype int8 of {vit['name']} "
+        f"--flash_attn ({cfg['num_classes']} classes, with an EMA), then val_precision with "
+        f"--model_ema false on {a['val_images']} images at batch {cfg['batch']} ({a['val_lines']} "
+        f"lines of per-class precision/recall printed, not shown): {a['kept']} "
+        f"Dense kernels kept int8 (JAX's rule), {a['int8_layers']} Int8Linear layers, "
+        f"{a['int_mm_calls_a_forward']} int8 products a forward; flash launches counted by the "
+        f"wrappers over val.py {a['totals']}; probabilities against the bf16 model of the source "
+        f"checkpoint max|d| {a['probs_vs_bf16']:.3e}, argmax agreement "
+        f"{a['argmax_agree_bf16']:.3f}; captured vs eager {a['captured_vs_eager']:.3e}")
+    summary = {k: a[k] for k in ("kept", "int8_layers", "int_mm_calls_a_forward", "totals",
+                                 "probs_vs_bf16", "argmax_agree_bf16", "gemm")}
+    if device == "cuda":
+        log(f"int8 serving (14a): launches per replayed batch (trace) {dict(a['per_replay'][0])}; "
+            f"captured predict, batch {cfg['batch']} {cfg['img']}x{cfg['img']}: int8 "
+            f"{a['ms_int8']:.3f} ms, bf16 on the same weights {a['ms_bf16']:.3f} ms (CUDA events)")
+        log_trace(f"{vit['name']} int8 batch {cfg['batch']} forward, captured", a["trace_int8"],
+                  "batch")
+        summary.update(per_replay=dict(a["per_replay"][0]), ms_int8=a["ms_int8"],
+                       ms_bf16=a["ms_bf16"])
+    for name, row in a["gemm"].items():
+        line = (f"int8 product (14a) {name} M,K,N {tuple(row['shape'])}"
+                f"{' (padded)' if row['padded'] else ''}: equal to the CPU's int32 matmul")
+        if device == "cuda":
+            line += (f"; torch._int_mm {row['ms_int8']:.4f} ms (dev {row['device_ms_int8']:.4f}, "
+                     f"bound {row['bound_ms_int8']:.4f}), bf16 F.linear {row['ms_bf16']:.4f} ms "
+                     f"(dev {row['device_ms_bf16']:.4f}, bound {row['bound_ms_bf16']:.4f}), the "
+                     f"whole int8 layer {row['ms_int8_layer']:.4f} ms; torch._int_mm with B "
+                     f"row-major: {row['row_major_b']}")
+        log(line)
+    out["int8"] = summary
+    t0 = time.perf_counter()
+    b = export_checks(os.path.join(work, "int8"), device, ck, vit["depth"])
+    out["seconds"]["14b"] = time.perf_counter() - t0
+    for name, row in (("bf16", b["bf16"]),):
+        log(f"export (14b): modelchange --mode aot of the {name} checkpoint on {device}: "
+            f"{row['bytes']} bytes in {row['seconds']:.1f} s; the reloaded program against the "
+            f"live model on zeros max|d| {row['max_abs_vs_live']:.3e}; flash launches in one "
+            f"call {row['launches']}, int8 products {row['int_mm_calls']}"
+            + (f"; {row['ms_program']:.3f} ms a call, live eager {row['ms_live']:.3f} ms"
+               if device == "cuda" else ""))
+    log(f"ema2model (14b): the model equals the source's EMA key for key; prune --sparsity 0.5: "
+        f"achieved {b['prune_sparsity']:.4f}")
+    out["export"] = b
+    t0 = time.perf_counter()
+    out["gradcam"] = {}
+    for name, path in ((vit["name"], ck), (convnext["name"], cnx)):
+        c = gradcam_checks(work, device, path, images, cfg)
+        log(f"Grad-CAM (14c) {name}: layer {c['layer']} {tuple(c['shape'])} (the JAX pick)"
+            f"{', bf16 (flash kernel)' if c['half'] else ', fp32'}; flash launches of one batch "
+            f"of {cfg['cam_batch']} {c['launches']}; {c['pngs']} overlays written by the CLI; "
+            f"summary: {c['params']} parameters (the checkpoint's), "
+            f"{c['gflops']:.3f} GFLOPs a batch-1 forward"
+            + (f", peak {c['peak_bytes'] / 1e6:.1f} MB; {c['ms_batch']:.3f} ms a Grad-CAM batch "
+               f"(CUDA events)" if device == "cuda" else ""))
+        out["gradcam"][name] = c
+    out["seconds"]["14c"] = time.perf_counter() - t0
+    if device == "cuda":
+        want = {"fwd": vit["depth"], "fwd_lse": 1, "bwd_dkv": 1, "bwd_dq": 1}
+        if out["gradcam"][vit["name"]]["launches"] != want:
+            raise AssertionError(f"ViT Grad-CAM launches {out['gradcam'][vit['name']]['launches']},"
+                                 f" expected {want}")
+    log(f"phase 14 wall seconds: {out['seconds']}")
+    return out
+
+
+def lifecycle_phases(keep: str) -> dict:
+    """Phase 14 in a child process of this script (`--lifecycle`), with a
+    fresh profiler as phases 10-13, on phase 5's folder linked into `keep`;
+    returns its summary through a file."""
+    out = os.path.join(keep, "phase14.json")
+    sys.stdout.flush()
+    rc = subprocess.run([sys.executable, os.path.abspath(__file__), "--lifecycle", keep, out],
+                        timeout=600).returncode
+    if rc != 0:
+        raise AssertionError(f"phase 14 (a child process) exited with {rc}")
+    with open(out) as f:
+        return json.load(f)
+
+
+def lifecycle_main(keep: str, out: str) -> int:
+    """The child of `lifecycle_phases`: phase 14 on the card (`keep`'s
+    images/ folder, written there when missing)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as work:
+        res = lifecycle_phase(work, "cuda", LIFECYCLE, VIT_B16, CONVNEXT_T,
+                              os.path.join(keep, "images"))
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3622,6 +4015,10 @@ def main() -> int:
     # 13c Swin-T, MobileNetV3-Large, EfficientNet-B0, DenseNet-121; the
     # launches counted from 0 over each run
     registry = registry_phases(keep.name)
+
+    # 14. int8 serving, the checkpoint tools and visualization on ViT-B/16
+    # --flash_attn and ConvNeXt-T; the launches counted from 0 over each path
+    lifecycle = lifecycle_phases(keep.name)
     keep.cleanup()
 
     # results
@@ -3757,7 +4154,24 @@ def main() -> int:
             entry[opt] = {"path": f"--opt {opt}, ViT-B/16 --flash_attn (chip_smoke.py phase 13a)",
                           "launches": row["totals"][total],
                           "launches_per_replay": row["per_replay"][kind]}
+    # the flash kernels on phase 14's paths: int8 serving (the wrappers over
+    # val.py, the eager first batch and its capture; a replayed batch from a
+    # trace), Grad-CAM of one batch, and one call of each reloaded program
+    cam = lifecycle["gradcam"][VIT_B16["name"]]["launches"]
+    kernels[0]["int8_serving"] = {
+        "path": "int8 ViT-B/16 served by val.py (chip_smoke.py phase 14a)",
+        "launches": lifecycle["int8"]["totals"]["fwd"],
+        "launches_per_replay": lifecycle["int8"]["per_replay"]["fwd"]}
+    kernels[0]["export"] = {
+        "path": "the reloaded torch.export program of ViT-B/16 (chip_smoke.py phase 14b)",
+        "launches": lifecycle["export"]["bf16"]["launches"]["fwd"]}
+    for entry, total in zip(kernels[:3], ("fwd", "bwd_dkv", "bwd_dq")):
+        entry["gradcam"] = {"path": "Grad-CAM of ViT-B/16, one batch (chip_smoke.py phase 14c)",
+                            "launches": cam[total]}
     for k in kernels:
+        for path in ("int8_serving", "export", "gradcam"):
+            if path in k and k[path]["launches"] <= 0:
+                raise AssertionError(f"{k['name']} was not launched on the {path} path")
         for path in ("recipe", "prune", *NEW_OPTS):
             if path in k and k[path]["launches"] <= 0:
                 raise AssertionError(f"{k['name']} was not launched on the {path} path")
@@ -3768,7 +4182,8 @@ def main() -> int:
             raise AssertionError(f"{k['name']} was not launched on the fine-tuning path")
         if "at_4097" in k and k["at_4097"]["launches"] <= 0:
             raise AssertionError(f"{k['name']} was not launched on the high-resolution path")
-    log(json.dumps({"kernels": kernels, "recipes": recipes, "registry": registry}))
+    log(json.dumps({"kernels": kernels, "recipes": recipes, "registry": registry,
+                    "lifecycle": lifecycle}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
@@ -3818,4 +4233,6 @@ if __name__ == "__main__":
         sys.exit(recipes_main(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--registry"]:
         sys.exit(registry_main(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--lifecycle"]:
+        sys.exit(lifecycle_main(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -200,7 +200,7 @@ class ConvNeXt(nn.Module):
         if self.features_only:
             return features
         x = layer_norm(x.mean(dim=(1, 2)), self.head.norm, self.dtype)
-        return F.linear(x.float(), self.head.fc.weight, self.head.fc.bias)
+        return linear(x, self.head.fc, torch.float32)
 
 
 def _make(depths, dims, v2: bool = False):

@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import BatchNorm, conv2d_nhwc, lecun_normal_
+from .layers import BatchNorm, conv2d_nhwc, lecun_normal_, linear
 
 _CONFIGS = {
     "densenet121": (6, 12, 24, 16),
@@ -116,7 +116,7 @@ class DenseNet(nn.Module):
             if i != len(self.block_config) - 1:
                 x = getattr(f, f"transition{i + 1}")(x)
         x = F.relu(f.norm5(x)).mean(dim=(1, 2))
-        return F.linear(x.float(), self.classifier.weight, self.classifier.bias)
+        return linear(x, self.classifier, torch.float32)
 
 
 def _make(name: str):

@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import BatchNorm, conv2d_nhwc, dropout, lecun_normal_, make_divisible
+from .layers import BatchNorm, conv2d_nhwc, dropout, lecun_normal_, linear, make_divisible
 from .mobilenetv3 import pointwise
 
 # b0's stage table: (kernel, stride, expand ratio, out channels, repeats)
@@ -167,7 +167,7 @@ class EfficientNet(nn.Module):
         x = F.silu(self.bn2(conv2d_nhwc(x, self.conv_head, self.dtype))).mean(dim=(1, 2))
         if self.training:
             x = dropout(x, self.drop_rate, generator)
-        return F.linear(x.float(), self.classifier.weight, self.classifier.bias)
+        return linear(x, self.classifier, torch.float32)
 
 
 def _make(name: str):

@@ -40,7 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import BatchNorm, conv2d_nhwc, dropout, lecun_normal_
+from .layers import BatchNorm, conv2d_nhwc, dropout, lecun_normal_, linear
 
 
 def _down(r: int) -> int:
@@ -244,7 +244,7 @@ class BNLinear(nn.Module):
         x = self.bn(x.float()[:, None, None, :])[:, 0, 0]
         if self.training:
             x = dropout(x, self.drop_rate, generator)
-        return F.linear(x, self.l.weight, self.l.bias)
+        return linear(x, self.l, torch.float32)
 
 
 class EfficientViT(nn.Module):

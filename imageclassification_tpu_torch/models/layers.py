@@ -25,6 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.int8 import Int8Linear
+
 # flax's truncated_normal(stddev) divides by the std of a unit normal
 # truncated to [-2, 2], so the truncated draw has exactly `stddev`
 _TRUNC_STD = 0.87962566103423978
@@ -46,9 +48,28 @@ def make_divisible(v: float, divisor: int = 8) -> int:
     return new_v
 
 
-def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
-    """`layer(x)` computed in `dtype` (fp32 params cast at use)."""
-    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+def run_forward_hooks(module: nn.Module, x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """Run `module`'s forward hooks on a call made through one of the
+    helpers below, which apply a module's parameters without calling it (so
+    `nn.Module.__call__` runs no hook): visualize.py's probes and
+    `--check_nans` see those modules too. A hook's non-None return replaces
+    the output, as in `__call__`."""
+    for hook in tuple(module._forward_hooks.values()):
+        res = hook(module, (x,), out)
+        if res is not None:
+            out = res
+    return out
+
+
+def linear(x: torch.Tensor, layer: nn.Module, dtype: torch.dtype) -> torch.Tensor:
+    """`layer(x)` computed in `dtype` (fp32 params cast at use; no bias where
+    the layer has none). An `Int8Linear` (an int8 checkpoint's layer,
+    ops/int8.py) runs its int8 product with its result in `dtype`."""
+    if isinstance(layer, Int8Linear):
+        return layer(x, dtype)
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    y = F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+    return run_forward_hooks(layer, x, y) if layer._forward_hooks else y
 
 
 def init_conv_(conv: nn.Conv2d, generator: torch.Generator, std: float = 0.02) -> None:
@@ -80,7 +101,8 @@ def conv2d_nhwc(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.T
     y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), conv.weight.to(dtype), None,
                  stride=conv.stride, padding=conv.padding, groups=conv.groups)
     y = y.permute(0, 2, 3, 1)
-    return y if conv.bias is None else y + conv.bias.to(dtype)
+    y = y if conv.bias is None else y + conv.bias.to(dtype)
+    return run_forward_hooks(conv, x, y) if conv._forward_hooks else y
 
 
 class BatchNorm(nn.Module):
@@ -160,7 +182,8 @@ def clear_batch_stats(model: nn.Module) -> None:
 
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:
     """LayerNorm with fp32 statistics and fp32 affine, result in `dtype`."""
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps).to(dtype)
+    y = F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps).to(dtype)
+    return run_forward_hooks(ln, x, y) if ln._forward_hooks else y
 
 
 def _need(generator: Optional[torch.Generator]) -> torch.Generator:

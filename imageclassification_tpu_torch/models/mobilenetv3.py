@@ -30,7 +30,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import BatchNorm, conv2d_nhwc, dropout, lecun_normal_, linear, make_divisible
+from ..ops.int8 import Int8Linear
+from .layers import (BatchNorm, conv2d_nhwc, dropout, lecun_normal_, linear, make_divisible,
+                     run_forward_hooks)
 
 
 class BlockCfg(NamedTuple):
@@ -93,9 +95,13 @@ class ConvBN(nn.Sequential):
 
 def pointwise(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
     """A 1x1 conv with bias applied to vectors [B, C] as a Linear in `dtype`
-    (the JAX model's Dense on the pooled vector)."""
+    (the JAX model's Dense on the pooled vector); an int8 checkpoint's
+    `Int8Linear` in its place runs its int8 product."""
+    if isinstance(conv, Int8Linear):
+        return conv(x, dtype)
     w = conv.weight.reshape(conv.out_channels, conv.in_channels)
-    return F.linear(x.to(dtype), w.to(dtype), conv.bias.to(dtype))
+    y = F.linear(x.to(dtype), w.to(dtype), conv.bias.to(dtype))
+    return run_forward_hooks(conv, x, y) if conv._forward_hooks else y
 
 
 class SqueezeExcitation(nn.Module):
@@ -183,7 +189,7 @@ class MobileNetV3(nn.Module):
         if self.training:
             x = dropout(x, self.drop_rate, generator)
         head = self.classifier[3]
-        return F.linear(x.float(), head.weight, head.bias)
+        return linear(x, head, torch.float32)
 
 
 def mobilenetv3_large_100(num_classes=1000, dtype=torch.float32, drop_rate=0.2, generator=None,

@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import BatchNorm, conv2d_nhwc, he_normal_
+from .layers import BatchNorm, conv2d_nhwc, he_normal_, linear
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1, groups: int = 1) -> nn.Conv2d:
@@ -152,7 +152,7 @@ class ResNet(nn.Module):
         for stage in self.stages():
             x = stage(x)
         x = x.mean(dim=(1, 2))
-        return F.linear(x.float(), self.fc.weight, self.fc.bias)
+        return linear(x, self.fc, torch.float32)
 
 
 def _make(stage_sizes, block):

@@ -212,7 +212,7 @@ class PatchMerging(nn.Module):
         y = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2], x[:, 0::2, 1::2], x[:, 1::2, 1::2]],
                       dim=-1)
         y = layer_norm(y, self.norm, self.dtype)
-        return F.linear(y, self.reduction.weight.to(self.dtype))
+        return linear(y, self.reduction, self.dtype)
 
 
 class SwinStage(nn.Module):
@@ -310,7 +310,7 @@ class SwinTransformer(nn.Module):
         if self.features_only:
             return features
         x = layer_norm(x, self.norm, self.dtype).mean(dim=(1, 2))
-        return F.linear(x.float(), self.head.weight, self.head.bias)
+        return linear(x, self.head, torch.float32)
 
 
 def _make(dim, depths, heads):

@@ -142,7 +142,7 @@ class ViT(nn.Module):
         for blk in self.blocks:
             x = blk(x, generator)
         x = layer_norm(x, self.norm, self.dtype)[:, 0]
-        return F.linear(x.float(), self.head.weight, self.head.bias)
+        return linear(x, self.head, torch.float32)
 
 
 def _make(patch, dim, depth, heads):

@@ -46,6 +46,8 @@ import ctypes
 import functools
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 
@@ -272,35 +274,99 @@ def flash_attention_bwd(q, k, v, o, lse, do):
     return dq, dk, dv
 
 
+# The launches as torch operators with fake implementations, so that
+# torch.export (which traces with fake tensors) records them in a program
+# instead of running the ctypes launches, and the reloaded program launches
+# the kernels (modelchange.py's export of a --flash_attn model on the card).
+# FlopCounterMode counts the forward's products through its operator too.
+# Otherwise the calls launch directly (`_fwd`, `_bwd`): an operator's
+# dispatch adds ~23 us of host time a call, which the eager paths would pay.
+@torch.library.custom_op("imageclassification_tpu_torch::flash_attention_fwd", mutates_args=())
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            with_lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """Forward kernel: (out, lse); lse is empty unless `with_lse`."""
+    out, lse = _launch(q, k, v, with_lse)
+    return out, lse if with_lse else q.new_empty((0,), dtype=torch.float32)
+
+
+@_fwd_op.register_fake
+def _(q, k, v, with_lse):
+    B, N, H, D = q.shape
+    return (q.new_empty((B, N, H, D)),
+            q.new_empty((B, H, N) if with_lse else (0,), dtype=torch.float32))
+
+
+@torch.library.custom_op("imageclassification_tpu_torch::flash_attention_bwd", mutates_args=())
+def _bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+            lse: torch.Tensor, do: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The two backward kernels: (dq, dk, dv)."""
+    return flash_attention_bwd(q, k, v, o, lse, do)
+
+
+@_bwd_op.register_fake
+def _(q, k, v, o, lse, do):
+    return tuple(q.new_empty(q.shape) for _ in range(3))
+
+
+@register_flop_formula(torch.ops.imageclassification_tpu_torch.flash_attention_fwd)
+def _fwd_flops(q_shape, *args, **kwargs) -> int:
+    """FlopCounterMode's count of a forward launch: the two products."""
+    B, N, H, D = q_shape
+    return 4 * B * H * N * N * D
+
+
+def _watched() -> bool:
+    """Whether torch traces the call (torch.export, torch.compile) or a
+    dispatch mode sees it (fake tensors, FlopCounterMode)."""
+    return torch.compiler.is_compiling() or _get_current_dispatch_mode() is not None
+
+
+def _fwd(q, k, v, with_lse: bool):
+    """(out, lse) of the forward kernel: through its operator where
+    `_watched`, else launched directly."""
+    if _watched():
+        return _fwd_op(q, k, v, with_lse)
+    return _launch(q, k, v, with_lse)
+
+
+def _bwd(q, k, v, o, lse, do):
+    """(dq, dk, dv) of the two backward kernels, as `_fwd` launches."""
+    if _watched():
+        return _bwd_op(q, k, v, o, lse, do)
+    return flash_attention_bwd(q, k, v, o, lse, do)
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v):
         needs_grad = any(ctx.needs_input_grad)
-        out, lse = _launch(q, k, v, with_lse=needs_grad)
+        out, lse = _fwd(q, k, v, needs_grad)
         if needs_grad:
             ctx.save_for_backward(q, k, v, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        return flash_attention_bwd(*ctx.saved_tensors, grad_out)
+        return _bwd(*ctx.saved_tensors, grad_out)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """softmax(q k^T * D^-0.5) v over [B, N, H, D] tensors, differentiable.
 
     CPU tensors take `flash_attention_ref`; CUDA tensors launch the kernels
-    (bf16, D = 64); only a call that needs a gradient builds an autograd
-    node. Counts, as plain integers on this function: `launches`
-    (forward kernel), `launches_lse` (of those, the ones that wrote lse for a
-    backward), `launches_dkv` and `launches_dq` (one each per backward)."""
+    (bf16, D = 64), through the operators `_fwd_op` and `_bwd_op` where
+    torch traces or a dispatch mode watches; only a call that needs a
+    gradient builds an autograd node.
+    Counts, as plain integers on this function: `launches` (forward kernel),
+    `launches_lse` (of those, the ones that wrote lse for a backward),
+    `launches_dkv` and `launches_dq` (one each per backward)."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v)
     if q.device.type != "cuda":
         raise NotImplementedError(f"flash_attention runs on cpu or cuda, not {q.device.type}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashAttention.apply(q, k, v)
-    return _launch(q, k, v)[0]
+    return _fwd(q, k, v, False)[0]
 
 
 def reset_launches() -> None:

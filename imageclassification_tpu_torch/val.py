@@ -16,7 +16,9 @@ The eval transform is the squash resize (bilinear) on the host, then the
 ImageNet normalisation on the device; on a card the forward is replayed from
 a CUDA graph (`engine/compiled.py`). A checkpoint of any model of the
 registry written by the JAX `train.py` loads and runs unchanged; a ViT
-trained with --flash_attn runs the flash-attention kernel.
+trained with --flash_attn runs the flash-attention kernel. An int8
+checkpoint of either package's `modelchange --mode quantize` runs its
+Dense-style layers as int8 products (`ops/int8.py`), captured too.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from .data.loader import decode_image
 from .device import DEVICES, resolve_device
 from .engine.compiled import captured_predict
 from .models import create_model
+from .ops.int8 import quantize_linears_, split_executable_quant
 from .utils.metrics import per_class_precision_recall
 
 
@@ -46,18 +49,21 @@ def initialize_model(model_weight_path: str, model_ema: bool, half_precision=Tru
     them. With return_checkpoint=True the second element is the loaded
     checkpoint dict instead of num_classes.
 
-    int8 checkpoints run quantized in the JAX package (ops/int8.py); that
-    path is not ported yet, so one raises NotImplementedError unless
-    dequantize=True asks for fp32 weights."""
+    An int8 checkpoint (`modelchange --mode quantize --dtype int8`) keeps
+    its Dense-style kernels int8: each Linear whose JAX kernel stayed int8
+    becomes an `ops/int8.py::Int8Linear`, so the forward runs int8 products
+    (`torch._int_mm` on the card); conv kernels are dequantized at load. The
+    kept scales are `checkpoint["quant_exec_scales"]` ({} for any other
+    checkpoint). With model_ema and no EMA in the checkpoint the raw int8
+    weights serve, as in JAX; an fp32 EMA under them stays float.
+    dequantize=True restores fp32 kernels instead, for callers that need
+    float weights (the distillation teacher, Grad-CAM)."""
     device = resolve_device(device)
     checkpoint = load_checkpoint(model_weight_path, dequantize=dequantize)
-    if checkpoint.get("quant_scales") and checkpoint.get("quant_dtype") == "int8":
-        raise NotImplementedError(
-            "int8 execution of a quantized checkpoint is not ported yet; "
-            "pass dequantize=True to run it with fp32 weights"
-        )
-    checkpoint.pop("quant_scales", None)
-    checkpoint.pop("quant_dtype", None)
+    # after a dequantizing load nothing is left int8, and this pops the
+    # metadata of an fp16/bf16 checkpoint
+    qscales = split_executable_quant(checkpoint)
+    checkpoint["quant_exec_scales"] = qscales
     num_classes = checkpoint["num_classes"]
     spec = checkpoint["model_spec"]
     kwargs = dict(spec.get("kwargs", {}))
@@ -66,11 +72,13 @@ def initialize_model(model_weight_path: str, model_ema: bool, half_precision=Tru
     kwargs.setdefault("img_size", shape[1])
     model = create_model(spec["name"], num_classes=num_classes,
                          half_precision=half_precision, **kwargs)
+    flat = checkpoint["model"]
     if model_ema and "model_ema" in checkpoint:
-        load_params_with_pruning(model, checkpoint["model_ema"], verbose=False)
+        flat = checkpoint["model_ema"]
         print("initialize model_ema success")
-    else:
-        load_params_with_pruning(model, checkpoint["model"], verbose=False)
+    load_params_with_pruning(model, flat, verbose=False)
+    if qscales:
+        quantize_linears_(model, flat, qscales)
     # BatchNorm running statistics: the EMA's with --model_ema where the
     # checkpoint has them, else the model's
     stats = checkpoint.get("batch_stats")
