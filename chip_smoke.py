@@ -14,7 +14,9 @@ exit before the last line:
    qkv tensor), at the main path's shape and larger ones, with the kernel's,
    the plain version's and one PyTorch library call's times (CUDA events,
    median, host cost of each call included) beside the least time the card
-   could take (the bound), and the factor kernel ms / library ms: 3a the
+   could take (the bound), and the factor kernel ms / library ms, for the
+   bf16 kernels and again for the fp32 ones (tolerances 2^-14 and 2^-12 of
+   max|ref| against the plain version with TF32 off, SDPA in fp32): 3a the
    forward, 3b the backward (the dQ kernel, which also writes di, then the
    dK/dV kernel; and the forward's lse): one launch of each and no other
    kernel in its trace, two runs bitwise equal, its device time against
@@ -63,6 +65,14 @@ exit before the last line:
    no more than they do); then a step with the head bias set to inf inside
    the captured run's replays must leave parameters, EMA, moments and count
    bitwise as they were, and the next step apply;
+   5d. the fp32 path of --flash_attn: `train.main` with --half_precision
+   false on the same folder (1 epoch of 10 steps), captured; a trace of its
+   step must show 12 + 12 forwards, 12 dQ and 12 dK/dV, every one the fp32
+   kernel (csrc/flash_attention_f32.cu), and the bf16 kernels' counts stay
+   0; its step timed captured and eager; the checkpoint served by
+   val_precision (bf16 compute, as the JAX val.py), and an fp32 served
+   batch (`val.initialize_model(half_precision=False)`, captured): 12 fp32
+   forwards a replay, probabilities against the fp32 plain attention path;
 6. the ConvNeXt-T training path: `train.main --model convnext_tiny` at
    224x224, batch 64, the default training flags, 2 epochs of 10 steps on the
    folder of phase 5; losses finite, no kernel launched (the model runs
@@ -93,13 +103,14 @@ exit before the last line:
    classes saved with torch.save (timm names, zip) stands in for a hub file,
    and `train.main --model vit_base_patch16_224 --flash_attn true
    --input_size 384 --pretrained_path <file>` trains from it with the
-   default flags, batch 64, 2 epochs of 10 steps on the folder of phase 5:
-   the load prints the pos_embed resample 14x14 -> 24x24 and `Skipping
+   default flags, batch 64, 1 epoch of 10 steps (cut from 2 for the command's
+   time) on the folder of phase 5: the load prints the pos_embed resample 14x14 -> 24x24
+   and `Skipping
    mismatched key:` for the head alone, every other parameter equals the
    file's and pos_embed a plain fp32 antialiased bicubic resample of the
    file's; losses finite; three replays of the run's captured step launch
    the flash kernels at N = 577 as in phase 5 (24 forwards, 12 dQ, 12
-   dK/dV); checkpoint-1.pth holds input_shape 384 and val_precision serves
+   dK/dV); checkpoint-0.pth holds input_shape 384 and val_precision serves
    it at 384 (predict captured: 12 forward launches a replayed batch);
    ms per batch, ms per step and img/s, captured and eager, with traces;
    the flash kernels against their plain versions and SDPA at the path's
@@ -107,16 +118,18 @@ exit before the last line:
    training phases);
 9. the CLI's default model: `train.main` with no --model (EfficientViT-M0,
    its head's dropout from --drop_path) at 224x224, batch 64, the default
-   flags, 2 epochs of 10 steps on the folder of phase 5; losses finite, no
-   kernel launched (the model runs F.conv2d, its BatchNorm and plain
-   attention, as the JAX model runs lax.conv, nn.BatchNorm and einsums),
-   checkpoint-1.pth in the JAX layout with batch_stats, reloaded exactly and
+   flags, 1 epoch of 10 steps (cut from 2 for the command's time) on the folder of phase 5;
+   losses finite, no kernel launched (the model runs F.conv2d, its
+   BatchNorm and plain attention, as the JAX model runs lax.conv,
+   nn.BatchNorm and einsums), checkpoint-0.pth in the JAX layout with
+   batch_stats, reloaded exactly and
    served by val_precision; ms per step, img/s and a trace, captured and
    eager;
 10. the high-resolution path: the same hub file through `train.main
    --flash_attn true --input_size 1024 --layer_decay 0.65 --remat true` (the
    default adamw) at batch 16, or 8 where an eager step without --remat at
-   16 runs out of memory, 2 epochs of 10 steps on a seeded 5-class folder of
+   16 runs out of memory, 1 epoch of 10 steps (cut from 2 for the command's time) on a seeded
+   5-class folder of
    1280 x 960 JPEGs fed by the port's native decoder (phases 10 and 11 run
    in a child process, whose profiler is fresh; it first finds the batch
    and holds the flash kernels against their plain versions and SDPA at the
@@ -137,27 +150,27 @@ exit before the last line:
    inside the replays, as in 5c;
 11. the feed: `BatchLoader` img/s at batch 64, 224x224, on the train path
    over 500 x 375 JPEGs with the native decoder and with PIL at 8 and 32
-   threads, the host's os.cpu_count(), and `train.main` of ViT-B/16
-   --flash_attn on those JPEGs, each epoch split into its steps, the time
-   they waited for the loader, the eval and the checkpoint writes;
+   threads, one pass each, and the host's os.cpu_count() (`feed_epochs`,
+   train.main's epochs on those JPEGs split into steps, loader waits, eval
+   and checkpoint writes, no longer runs here, for the command's time);
 12. the training recipes, in a child process (`--recipes`, a fresh
    profiler as for phases 10-11), on phase 5's checkpoint-1.pth and folder:
    12a. `train.main` of ViT-B/16 --flash_attn with --aa
    rand-m9-mstd0.5-inc1 and distillation from that checkpoint
    (--teacher_path, --distillation_alpha 0.5, --distillation_tau 2.0) at
-   224x224, batch 64, 2 epochs of 10 steps: losses finite, three replays
-   of the run's captured step launch per replay 12 forwards with lse (the
-   student), 12 without (the teacher), 12 x (dQ, dK/dV), 12 without lse
-   (the accuracy forward), in that order, and checkpoint-1.pth loads in the
-   port's val.py; captured and eager ms a step of the recipe's step and of
-   the default step (phase 5's cell) in the same process, and the device
-   ms (traces) of the augmentation with the policy and with ColorJitter and
-   of the teacher's forward, each alone;
+   224x224, batch 64, 1 epoch of 10 steps (cut from 2 for the command's
+   time): losses finite, three replays of the run's captured step launch
+   per replay 12 forwards with lse (the student), 12 without (the
+   teacher), 12 x (dQ, dK/dV), 12 without lse (the accuracy forward), in
+   that order, and checkpoint-0.pth loads in the port's val.py; captured
+   and eager ms a step of the recipe's step, and the device ms (traces) of
+   the augmentation with the policy and with ColorJitter and of the
+   teacher's forward, each alone;
    12b. each policy alone (rand-m9-mstd0.5-inc1, rand-m9-n3-mstd0.5,
-   original, v0, abel-n2) at batch 64 x 224x224 against the port on the
+   original, v0, abel-n2) at batch 64 x 224x224, against the port on the
    CPU with the same draws copied over (every value to 1e-3 but at most
-   1e-3 of them), a captured run equal to the eager one bitwise, and ms a
-   batch eager and captured beside ColorJitter's;
+   1e-3 of them), a captured run equal to the eager
+   one bitwise, and ms a batch eager and captured beside ColorJitter's;
    12c. phase 5's checkpoint with the 50 % smallest |w| of each eligible
    weight zeroed (numpy here, written by the port's checkpoint/io.py), then
    `train.main --pretrained_path <it> --prune_mask true --flash_attn true
@@ -172,20 +185,21 @@ exit before the last line:
    adafactor: three replays of each run's captured step launch 24 forwards
    (12 with lse), 12 dQ and 12 dK/dV each, read from traces; the
    checkpoint's optimizer state in the optax layout (nvnovograd's nu a
-   scalar a JAX tensor, adafactor's factored v_row / v_col); 6 captured
-   steps held against 6 eager ones with a non-finite step inside the
-   replays, as 5c; ms a step captured and eager beside adamw's;
+   scalar a JAX tensor, adafactor's factored v_row / v_col); with each,
+   6 captured steps held against 6 eager ones with a non-finite step inside
+   the replays, as 5c (for the command's time, the steps are no longer
+   timed here);
    13b. ConvNeXt-T with --opt adahessian (the Hutchinson diagonal from a
    second backward at every step): the same checks but the launches (no
-   kernel), captured against eager as 13a, ms a step beside adamw's and
-   the idle share; ViT-B/16 --flash_attn true --opt adahessian refused
-   before its first step;
+   kernel), with 3 captured steps against 3 eager ones; ViT-B/16
+   --flash_attn true --opt adahessian refused before its first step (its
+   ~1 s step is no longer timed here, for the command's time);
    13c. Swin-T (starting from a seeded timm-layout state_dict through
    --pretrained_path), MobileNetV3-Large, EfficientNet-B0 and DenseNet-121
    at full width: no kernel launched, the checkpoint in the JAX layout that
    the torch converter gives, reloaded exactly and served by val_precision
-   (captured); ms a step captured and eager with traces, peak memory, ms a
-   served batch;
+   (captured); ms a served batch (the steps no longer timed here, for the
+   command's time);
 14. int8 serving and the checkpoint tools, in a child process
    (`--lifecycle`, a fresh profiler as for phases 10-13), on a seeded
    ViT-B/16 --flash_attn checkpoint of 1000 classes with an EMA and a seeded
@@ -201,10 +215,21 @@ exit before the last line:
    14b. `ema2model` (the model equals the source's EMA), `prune` (sparsity
    0.50) and `aot` export of the source: the program reloaded equals the
    live model on zeros and launches the flash forward 12 times a call; 14c.
-   Grad-CAM (the JAX layer pick; 12 forwards, 1 dQ and 1 dK/dV a batch of 8
-   on the ViT, in bf16 for the kernel) and summary through the visualize
-   CLI on both models;
-15. one JSON line with every kernel's numbers (at ConvNeXt-T's stage-0
+   Grad-CAM (the JAX layer pick; fp32, as visualize.py loads every model:
+   12 fp32 forwards, 1 dQ and 1 dK/dV a batch of 8 on the ViT) and summary
+   through the visualize CLI on both models;
+15. UPerNet segmentation in one process, in a child process
+   (`--segmentation <dir> <out.json>`, the way to run it alone): the port's
+   `seg_train.main` on the tiny ADE20K recipe at full width (ConvNeXt-T,
+   channels 512, crop 512, batch 16, 150 classes), 20 iterations with whole
+   eval every 10, on a seeded synthetic folder in the mmseg layout; losses
+   finite, checkpoint-iter20.pth in the JAX layout and reloaded exactly;
+   slide eval and ms eval (6 scales x flip, on 1 image) of the trained
+   model with their mIoU; ms an eager iteration, peak memory and a trace;
+   one iteration's backbone LayerNorms and depthwise convs replayed through
+   K3, K4 and K5 and held against the model's results, and those kernels
+   timed at the backbone's four stage shapes beside F.layer_norm and cuDNN;
+16. one JSON line with every kernel's numbers (at ConvNeXt-T's stage-0
    shape for the LayerNorm and depthwise-conv kernels and ResNet-50's
    stage-1 conv3 shape for the fused 1x1 conv; the other shapes are in the
    lines of phases 3c, 3d and 3e; the flash kernels' numbers on the
@@ -213,8 +238,11 @@ exit before the last line:
    "prune" and on phase 13a's under "nvnovograd" and "adafactor"), phase
    12's summary under "recipes", phase 13's under "registry" and phase 14's
    under "lifecycle", the flash kernels' launches on phase 14's paths under
-   "int8_serving", "gradcam" and "export"), then the result line {"ok":
-   true, "device": {...}}.
+   "int8_serving", "gradcam" (on the fp32 kernels' entries) and "export";
+   the fp32 kernels' entries (3a, 3b at 64 x 197; their launches over phase
+   5d's run; their other shapes under "shapes"); K3-K5 on phase 15's replay
+   under "upernet"; phase 15's summary under "segmentation"), then the
+   result line {"ok": true, "device": {...}}.
 
 Phase 2 also builds the port's native JPEG decoder and says whether it
 built; the training phases say which decoder fed them. A device ms read
@@ -240,6 +268,7 @@ import sys
 import tempfile
 import time
 from collections import Counter
+from types import SimpleNamespace
 from unittest import mock
 
 import numpy as np
@@ -265,12 +294,27 @@ ATTN_RTOL = 2.0 ** -7
 # each carry the inputs' rounding; 2^-6 covers those, and each check proves
 # the tolerance lies below what dropping the last key changes.
 ATTN_BWD_RTOL = 2.0 ** -6
+# fp32 kernels (csrc/flash_attention_f32.cu) against the fp32 plain version
+# with TF32 off: every product and sum in fp32 on both sides, only the order
+# of the sums differs; 2^-14 of max|reference| for the output and 2^-12 for
+# each gradient, 128x and 64x below the bf16 tolerances (TF32's unit
+# roundoff 2^-11 cannot meet them)
+ATTN_F32_RTOL = 2.0 ** -14
+ATTN_F32_BWD_RTOL = 2.0 ** -12
+# the K1 kernels by part; a dtype's kernels and launch counts carry the
+# suffix that ops/flash_attention.py gives it (`k1_dtype`)
+K1_PARTS = {"fwd": "flash_attention_fwd", "dq": "flash_attention_bwd_dq",
+            "dkv": "flash_attention_bwd_dkv"}
 # the forward's lse (fp32 sums of exp2) against logsumexp of the fp32 scores
 LSE_ATOL = 1e-3
 # bf16 model (flash path) against the same weights in fp32 on the plain
 # attention path: bf16 rounding over 12 blocks of activations, 5-class
 # probabilities
 PROBS_ATOL = 5e-2
+# an fp32 served batch, the fp32 flash path against the same fp32 weights on
+# the plain attention path: both fp32 throughout, only the order of sums
+# differs; 5-class probabilities
+FP32_PROBS_ATOL = 1e-4
 # one train step's gradients, bf16 flash path against the same weights, batch
 # and draws in fp32 (plain attention) and in bf16 on the plain attention path:
 # relative global L2 error ||g - ref|| / ||ref||. bf16 keeps 8 bits (2^-8 ~
@@ -297,6 +341,16 @@ SUM_RTOL = 1e-4
 # and sums in another order: 1e-3 of max|reference|
 MODEL_RTOL = 2.0 ** -6
 MODEL_SUM_RTOL = 1e-3
+# the replays' column sums (dgamma, dbeta over every row of a train step,
+# phases 6b and 15) are held per column to the rtol above plus this many fp32
+# units (2^-24) of the column's sum of |terms|: the rounding of two orders of
+# summation and of two ways to the statistics (a few units of xhat) scale with
+# the terms, not with the sum, and where the terms cancel (the bias gradients
+# of the UPerNet backbone's stage-0 and stage-1 out norms, ~1e-10) the sum is
+# all rounding. 64 units of a column of N = 262,144 random-signed terms are
+# about one term's mean |term|; a row tile left out moves it by about
+# sqrt(rows of the tile) terms
+SUM_ROUNDING_UNITS = 64
 # ConvNeXt-T at batch 64, 224x224: (rows, C) of the LayerNorms at the four
 # stages and the head, and ViT-B/16's token LayerNorm at batch 64 (64 * 197
 # rows: no Pallas row block divides it)
@@ -335,8 +389,16 @@ K2_SHAPES = [(200704, 64, 256, True), (200704, 256, 64, False), (50176, 128, 512
              (3136, 512, 2048, True), (3136, 2048, 512, False), (3136, 1024, 2048, False)]
 
 
+_T0 = time.perf_counter()  # this process's start, for `stamp`
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def stamp(label: str) -> None:
+    """A line with the seconds since this process started, at a phase's start."""
+    log(f"[{time.perf_counter() - _T0:.1f} s] {label}")
 
 
 def jax_vit_params(rng: np.random.Generator, dim: int, depth: int, heads: int,
@@ -436,11 +498,18 @@ def time_ms(fn, iters: int, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def attention_bound(B, N, H, D):
-    """(bound_ms, bound_by): q, k, v read once and o written once in bf16,
-    against 4*B*H*N^2*D flops (two products) on the bf16 tensor cores."""
-    t_bytes = 4 * B * N * H * D * 2 / HBM_BYTES_PER_S
-    t_flops = 4 * B * H * N * N * D / BF16_FLOPS_PER_S
+def _rate(dtype: str) -> tuple:
+    """(bytes an element, flop/s) of K1 in `dtype`: bf16 on the tensor cores,
+    fp32 on the CUDA cores (the fp32 kernels use no tensor core)."""
+    return (2, BF16_FLOPS_PER_S) if dtype == "bf16" else (4, FP32_FLOPS_PER_S)
+
+
+def attention_bound(B, N, H, D, dtype: str = "bf16"):
+    """(bound_ms, bound_by): q, k, v read once and o written once in `dtype`,
+    against 4*B*H*N^2*D flops (two products) at `dtype`'s rate (`_rate`)."""
+    itemsize, rate = _rate(dtype)
+    t_bytes = 4 * B * N * H * D * itemsize / HBM_BYTES_PER_S
+    t_flops = 4 * B * H * N * N * D / rate
     return max(t_bytes, t_flops) * 1e3, ("bytes" if t_bytes >= t_flops else "operations")
 
 
@@ -465,9 +534,9 @@ def by_batch(fn, *tensors):
     return torch.cat(parts)
 
 
-def compare_attention(out, q, k, v):
+def compare_attention(out, q, k, v, rtol: float = ATTN_RTOL):
     """Hold `out` against the fp32 plain version on the same inputs, with a
-    tolerance of ATTN_RTOL * max|reference|. Also checks that the tolerance
+    tolerance of rtol * max|reference| (ATTN_RTOL for bf16). Also checks that the tolerance
     lies below what leaving out the last key changes in the reference: a
     ragged tail of one key is the tail a kernel masks wrongly most easily, and
     a tolerance above that change could not see the fault. Returns
@@ -477,7 +546,7 @@ def compare_attention(out, q, k, v):
     qf, kf, vf = (t.float() for t in (q, k, v))
     ref = by_batch(flash_attention_ref, qf, kf, vf)
     tail = (by_batch(flash_attention_ref, qf, kf[:, :-1], vf[:, :-1]) - ref).abs().max().item()
-    tol = ATTN_RTOL * ref.abs().max().item()
+    tol = rtol * ref.abs().max().item()
     err = (out.float() - ref).abs().max().item()
     if not tail > tol:
         raise AssertionError(f"attention shape {tuple(q.shape)}: tolerance {tol} does not "
@@ -487,22 +556,34 @@ def compare_attention(out, q, k, v):
     return err, tol, tail
 
 
-def check_attention(shape, device):
+def _check_fp32_reference(dtype: str) -> None:
+    """The fp32 plain version is the yardstick of the fp32 kernels only with
+    TF32 off for its matmuls (full fp32, cuBLAS's "highest")."""
+    import torch
+
+    if dtype == "fp32" and (torch.backends.cuda.matmul.allow_tf32
+                            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("the fp32 plain version needs TF32 off for its matmuls")
+
+
+def check_attention(shape, device, dtype: str = "bf16"):
     """Kernel vs plain version (and the SDPA yardstick) at one shape, on q, k, v
-    read strided out of one [B, N, 3, H, D] tensor as ViT's fused qkv gives
-    them."""
+    of `dtype` ("bf16" or "fp32": the kernels of that dtype) read strided out
+    of one [B, N, 3, H, D] tensor as ViT's fused qkv gives them."""
     import torch
     import torch.nn.functional as F
 
     from imageclassification_tpu_torch.ops import flash_attention as fa
 
+    _check_fp32_reference(dtype)
     B, N, H, D = shape
     g = torch.Generator(device=device).manual_seed(N)
-    qkv = torch.randn((B, N, 3, H, D), generator=g, device=device).to(torch.bfloat16)
-    q, k, v = qkv.unbind(2)
+    qkv = torch.randn((B, N, 3, H, D), generator=g, device=device)
+    q, k, v = qkv.to(k1_dtype(dtype)[0]).unbind(2)
     out = fa.flash_attention(q, k, v)
     torch.cuda.synchronize()
-    err, tol, tail = compare_attention(out, q, k, v)
+    rtol = ATTN_RTOL if dtype == "bf16" else ATTN_F32_RTOL
+    err, tol, tail = compare_attention(out, q, k, v, rtol)
     iters = max(5, min(200, int(2e9 // (B * H * N * N * D))))
     ms = time_ms(lambda: fa.flash_attention(q, k, v), iters)
     plain_ms = time_ms(lambda: by_batch(fa.flash_attention_ref, q, k, v), max(3, iters // 10))
@@ -512,41 +593,44 @@ def check_attention(shape, device):
         return F.scaled_dot_product_attention(qt, kt, vt)
 
     library_ms = time_ms(sdpa, iters)
-    bound_ms, bound_by = attention_bound(B, N, H, D)
-    device_ms = _device_ms(lambda: fa.flash_attention(q, k, v), {"flash_attention_fwd_kernel": 1},
+    bound_ms, bound_by = attention_bound(B, N, H, D, dtype)
+    device_ms = _device_ms(lambda: fa.flash_attention(q, k, v), {k1_kernels(dtype)["fwd"]: 1},
                            events_ms=ms)
     library_device_ms = _library_device_ms(sdpa, events_ms=library_ms)
     row = dict(shape=list(shape), max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                device_ms=device_ms, library_device_ms=library_device_ms,
                host_ms=host_ms(lambda: fa.flash_attention(q, k, v)))
-    log(f"flash_attention_fwd B,N,H,D={shape} (strided qkv): max|d| vs fp32 plain "
-        f"{err:.3e} (tol {tol:.3e} = 2^-7 of max|ref|; dropping the last key moves "
+    log(f"{K1_PARTS['fwd']}{k1_dtype(dtype)[1]} {dtype} B,N,H,D={shape} "
+        f"(strided qkv): max|d| vs fp32 plain {err:.3e} (tol {tol:.3e} = "
+        f"2^{round(math.log2(rtol))} of max|ref|; dropping the last key moves "
         f"the reference by {tail:.3e}), kernel {ms:.4f} ms (device {device_ms:.4f}), plain "
-        f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms (device {library_device_ms:.4f}), "
+        f"{plain_ms:.4f} ms, sdpa {dtype} {library_ms:.4f} ms (device {library_device_ms:.4f}), "
         f"kernel/sdpa {ms / library_ms:.3f} (device {device_ms / library_device_ms:.3f}), "
         f"bound {bound_ms:.4f} ms ({bound_by}), bound/device {bound_ms / device_ms:.3f}")
     return row
 
 
-def backward_bound(B, N, H, D, part="all"):
+def backward_bound(B, N, H, D, part="all", dtype: str = "bf16"):
     """(bound_ms, bound_by) of the attention backward. 'all': the function,
     q, k, v, o, dO and lse read and dq, dk, dv written (bf16; lse fp32), and
     its five products S, dP, dV, dK, dQ (10*B*H*N^2*D flops); 'two_kernel':
     the same bytes and the seven products of the two-kernel design (S and dP
     in both kernels); 'dq': q, k, v, o, dO and lse in, dq and di (fp32) out,
     products S, dP, dQ; 'dkv': q, k, v, dO, lse and di in, dk and dv out,
-    products S, dP, dV, dK."""
+    products S, dP, dV, dK. The tensors in `dtype` at its rate (`_rate`)."""
     tensors, stats, products = {"all": (8, 1, 5), "two_kernel": (8, 1, 7), "dq": (6, 2, 3),
                                 "dkv": (6, 2, 4)}[part]
-    t_bytes = (tensors * B * N * H * D * 2 + stats * B * H * N * 4) / HBM_BYTES_PER_S
-    t_flops = products * 2 * B * H * N * N * D / BF16_FLOPS_PER_S
+    itemsize, rate = _rate(dtype)
+    t_bytes = (tensors * B * N * H * D * itemsize + stats * B * H * N * 4) / HBM_BYTES_PER_S
+    t_flops = products * 2 * B * H * N * N * D / rate
     return max(t_bytes, t_flops) * 1e3, ("bytes" if t_bytes >= t_flops else "operations")
 
 
-def compare_backward(grads, q, k, v, do):
+def compare_backward(grads, q, k, v, do, rtol: float = ATTN_BWD_RTOL):
     """Hold the kernels' (dq, dk, dv) against the fp32 plain backward on the
-    same inputs, each with a tolerance of ATTN_BWD_RTOL * max|reference|, and
+    same inputs, each with a tolerance of rtol * max|reference| (ATTN_BWD_RTOL
+    for bf16), and
     check that each tolerance lies below what leaving out the last key
     changes in that reference gradient: every row of dq moves through the
     softmax, and dk and dv lose the last key's row (counted as zeros, as a
@@ -572,7 +656,7 @@ def compare_backward(grads, q, k, v, do):
         dropped = torch.zeros_like(r)
         dropped[:, : t.shape[1]] = t
         tail_change = (dropped - r).abs().max().item()
-        tol = ATTN_BWD_RTOL * r.abs().max().item()
+        tol = rtol * r.abs().max().item()
         err = (g.float() - r).abs().max().item()
         if not tail_change > tol:
             raise AssertionError(f"attention backward {tuple(q.shape)} {name}: tolerance {tol} "
@@ -584,12 +668,27 @@ def compare_backward(grads, q, k, v, do):
     return out
 
 
-BWD_KERNELS = ("flash_attention_bwd_dq_kernel", "flash_attention_bwd_dkv_kernel")
+def k1_dtype(dtype: str) -> tuple:
+    """(torch dtype, the suffix of its K1 kernels' names and launch counts)
+    of `dtype`, "bf16" or "fp32"."""
+    import torch
+
+    from imageclassification_tpu_torch.ops.flash_attention import _COUNT_SUFFIX
+
+    torch_dtype = torch.bfloat16 if dtype == "bf16" else torch.float32
+    return torch_dtype, _COUNT_SUFFIX[torch_dtype]
 
 
-def check_backward(shape, device):
-    """The backward kernels (and the forward's lse) against their plain
-    versions at one shape, on q, k, v read strided out of one fused qkv
+def k1_kernels(dtype: str) -> dict:
+    """The K1 kernels of `dtype` by part, as their launches are named in a
+    trace."""
+    sfx = k1_dtype(dtype)[1]
+    return {part: f"{base}{sfx}_kernel" for part, base in K1_PARTS.items()}
+
+
+def check_backward(shape, device, dtype: str = "bf16"):
+    """The backward kernels of `dtype` (and the forward's lse) against their
+    plain versions at one shape, on q, k, v read strided out of one fused qkv
     tensor: one backward is one launch of each kernel by the counts and the
     only kernels in its trace (di included), and two runs give the same
     bits. Kernel ms (both, and each alone; CUDA events), device ms (both and
@@ -600,18 +699,22 @@ def check_backward(shape, device):
 
     from imageclassification_tpu_torch.ops import flash_attention as fa
 
+    _check_fp32_reference(dtype)
+    names = k1_kernels(dtype)
+    torch_dtype, suffix = k1_dtype(dtype)
     B, N, H, D = shape
     g = torch.Generator(device=device).manual_seed(N + 1)
-    qkv = torch.randn((B, N, 3, H, D), generator=g, device=device).to(torch.bfloat16)
+    qkv = torch.randn((B, N, 3, H, D), generator=g, device=device).to(torch_dtype)
     q, k, v = qkv.unbind(2)
-    do = torch.randn((B, N, H, D), generator=g, device=device).to(torch.bfloat16)
+    do = torch.randn((B, N, H, D), generator=g, device=device).to(torch_dtype)
     o, lse = fa._launch(q, k, v, with_lse=True)
     lse_err = (lse - by_batch(fa.flash_attention_lse_ref, q, k)).abs().max().item()
     if not lse_err <= LSE_ATOL:
         raise AssertionError(f"forward lse {shape}: max|d| {lse_err} > {LSE_ATOL}")
     fa.reset_launches()
     grads = fa.flash_attention_bwd(q, k, v, o, lse, do)
-    counts = (fa.flash_attention.launches_dq, fa.flash_attention.launches_dkv)
+    counts = (getattr(fa.flash_attention, f"launches_dq{suffix}"),
+              getattr(fa.flash_attention, f"launches_dkv{suffix}"))
     again = fa.flash_attention_bwd(q, k, v, o, lse, do)
     torch.cuda.synchronize()
     if counts != (1, 1):
@@ -620,13 +723,15 @@ def check_backward(shape, device):
     for name, a, b in zip(("dq", "dk", "dv"), grads, again):
         if not torch.equal(a, b):
             raise AssertionError(f"attention backward {shape}: {name} differs between two runs")
-    errs = compare_backward(grads, q, k, v, do)
+    rtol = ATTN_BWD_RTOL if dtype == "bf16" else ATTN_F32_BWD_RTOL
+    errs = compare_backward(grads, q, k, v, do, rtol)
+    bwd_kernels = (names["dq"], names["dkv"])
 
     def bwd():
         return fa.flash_attention_bwd(q, k, v, o, lse, do)
 
     others = [name for name in trace(bwd, steps=3)[2]
-              if not any(kernel in name for kernel in BWD_KERNELS)]
+              if not any(kernel in name for kernel in bwd_kernels)]
     if others:
         raise AssertionError(f"attention backward {shape}: kernels besides the two in its "
                              f"trace: {others}")
@@ -637,12 +742,15 @@ def check_backward(shape, device):
     alone = {"dq": lambda: fa._launch_dq(q, k, v, o, do, lse, strides),
              "dkv": lambda: fa._launch_dkv(q, k, v, do, lse, di, strides)}
     ms_dq, ms_dkv = time_ms(alone["dq"], iters), time_ms(alone["dkv"], iters)
-    host_each = {part: host_ms(fn) for part, fn in alone.items()}
+    # each kernel alone's host ms and events ms on the same calls: its floor
+    # in the backward's trace (`alone_floor`, held to the lesser events ms)
+    pairs = {part: host_and_events_ms(fn) for part, fn in alone.items()}
+    host_each = {part: host for part, (host, _) in pairs.items()}
     plain_ms = time_ms(lambda: by_batch(fa.flash_attention_bwd_ref, q, k, v, o, lse, do),
                        max(3, iters // 10))
-    device_ms = _device_ms(bwd, {name: 1 for name in BWD_KERNELS}, events_ms=ms)
-    device_each = {part: _device_ms(bwd, {f"flash_attention_bwd_{part}_kernel": 1},
-                                    floor_ms=alone_floor(events, host_each[part]))
+    device_ms = _device_ms(bwd, {name: 1 for name in bwd_kernels}, events_ms=ms)
+    device_each = {part: _device_ms(bwd, {names[part]: 1}, floor_ms=alone_floor(
+                       min(events, pairs[part][1]), host_each[part]))
                    for part, events in (("dq", ms_dq), ("dkv", ms_dkv))}
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
     dot = do.transpose(1, 2)
@@ -663,15 +771,16 @@ def check_backward(shape, device):
                device_ms=device_ms, device_ms_dq=device_each["dq"],
                device_ms_dkv=device_each["dkv"],
                library_device_ms=sdpa_fwd_bwd_device - sdpa_device,
-               bounds={part: backward_bound(B, N, H, D, part)
+               bounds={part: backward_bound(B, N, H, D, part, dtype)
                        for part in ("all", "two_kernel", "dq", "dkv")})
-    log(f"flash_attention_bwd B,N,H,D={shape} (strided qkv): forward lse max|d| {lse_err:.3e} "
-        f"(tol {LSE_ATOL}); " + "; ".join(
-            f"{n} max|d| {e:.3e} (tol {t:.3e} = 2^-6 of max|ref|; dropping the last key "
-            f"moves it by {c:.3e})" for n, (e, t, c) in errs.items())
+    log(f"flash_attention_bwd{suffix} {dtype} B,N,H,D={shape} (strided qkv): forward lse "
+        f"max|d| {lse_err:.3e} (tol {LSE_ATOL}); " + "; ".join(
+            f"{n} max|d| {e:.3e} (tol {t:.3e} = 2^{round(math.log2(rtol))} of max|ref|; "
+            f"dropping the last key moves it by {c:.3e})" for n, (e, t, c) in errs.items())
         + "; one launch each of dQ and dK/dV, no other kernel in the trace; two runs "
           "bitwise equal")
-    log(f"flash_attention_bwd B,N,H,D={shape}: kernels {ms:.4f} ms (dQ {ms_dq:.4f}, dK/dV "
+    log(f"flash_attention_bwd{suffix} {dtype} B,N,H,D={shape}: kernels {ms:.4f} ms (dQ "
+        f"{ms_dq:.4f}, dK/dV "
         f"{ms_dkv:.4f}; di included, wrapper checks in the first), device {device_ms:.4f} ms "
         f"(dQ {device_each['dq']:.4f}, dK/dV {device_each['dkv']:.4f}), plain {plain_ms:.4f} "
         f"ms, sdpa backward {row['library_ms']:.4f} ms (fwd+bwd {sdpa_fwd_bwd_ms:.4f} - fwd "
@@ -812,11 +921,30 @@ def log_trace(label: str, tr, per: str) -> None:
         log(f"  {ms:8.4f} ms {ms / device_ms:6.1%} {n:5.1f} launches  {k[:100]}")
 
 
-def _launch_counts():
+def _launch_counts(dtype: str = "bf16"):
+    """The wrappers' launch counts of the K1 kernels of `dtype`."""
     from imageclassification_tpu_torch.ops.flash_attention import flash_attention as f
 
-    return {"fwd": f.launches, "fwd_lse": f.launches_lse, "bwd_dkv": f.launches_dkv,
-            "bwd_dq": f.launches_dq}
+    sfx = k1_dtype(dtype)[1]
+    return {"fwd": getattr(f, f"launches{sfx}"), "fwd_lse": getattr(f, f"launches_lse{sfx}"),
+            "bwd_dkv": getattr(f, f"launches_dkv{sfx}"), "bwd_dq": getattr(f, f"launches_dq{sfx}")}
+
+
+def flash_kernel_names(fn) -> set:
+    """The names of the K1 kernels in a trace of three calls of fn()."""
+    return {name for name in trace(fn, steps=3)[2]
+            if any(k in name for k in FLASH_KINDS)}
+
+
+def check_flash_dtype(fn, dtype: str, what: str) -> set:
+    """Raise unless every K1 kernel in a trace of fn() is one of `dtype`'s
+    (and there is one); returns their names."""
+    names = flash_kernel_names(fn)
+    want = k1_kernels(dtype).values()
+    if not names or not all(any(w in name for w in want) for name in names):
+        raise AssertionError(f"{what}: K1 kernels in the trace {sorted(names)}, expected only "
+                             f"the {dtype} ones {list(want)}")
+    return names
 
 
 def _train_main(work: str, images: str, flags: list):
@@ -862,8 +990,7 @@ def _train_main(work: str, images: str, flags: list):
 # the flash kernels of one ViT train step in the order the device runs them:
 # the forward with lse (12 blocks), the backward (per block the dQ kernel,
 # which writes di, then dK/dV), the exact-mode accuracy forward without lse
-FLASH_KINDS = {"flash_attention_fwd": "fwd", "flash_attention_bwd_dq": "dq",
-               "flash_attention_bwd_dkv": "dkv"}
+FLASH_KINDS = {base: part for part, base in K1_PARTS.items()}
 
 
 def flash_step_pattern(depth: int, remat: bool = False, teacher: bool = False) -> list:
@@ -922,7 +1049,8 @@ def _train_images(work: str, num_classes: int, per_class: int, seed: int) -> str
 
 def run_training(work: str, device: str, model: dict, img: int, num_classes: int,
                  per_class: int, batch: int, epochs: int, seed: int = 0,
-                 images: str = None, pretrained_path: str = None, flags: tuple = ()):
+                 images: str = None, pretrained_path: str = None, flags: tuple = (),
+                 dtype: str = "bf16"):
     """The training path through the port's train.main on `device`, on a
     seeded image folder (`images`, written when not given), with the default
     training flags and --flash_attn. Every step's metrics are recorded, the
@@ -935,6 +1063,9 @@ def run_training(work: str, device: str, model: dict, img: int, num_classes: int
     extra flags, the forward 24 times with lse first; with a teacher, its
     12 forwards without lse before the first dQ). With
     `pretrained_path` the run starts from that file (--pretrained_path).
+    With `dtype` "fp32" the run passes --half_precision false: its counts
+    are the fp32 kernels', the bf16 kernels' stay 0, and on a card every
+    K1 kernel of the replayed steps' trace must be an fp32 one.
     Returns a dict: the trained state,
     the args, the per-step records, the launch totals of the run, the
     launches a replay made, the checkpoint checks and timings."""
@@ -947,14 +1078,19 @@ def run_training(work: str, device: str, model: dict, img: int, num_classes: int
              "--device", device]
     if pretrained_path:
         flags += ["--pretrained", "true", "--pretrained_path", pretrained_path]
+    if dtype == "fp32":
+        flags += ["--half_precision", "false"]
     flags += list(extra)
     reset_launches()
     state, args, records, wall_s, step = _train_main(work, images, flags)
-    totals = _launch_counts()
+    totals = _launch_counts(dtype)
+    other = _launch_counts("fp32" if dtype == "bf16" else "bf16")
     out = args.output_dir
-    if not (all(totals.values()) if device == "cuda" else not any(totals.values())):
+    if not (all(totals.values()) if device == "cuda" else not any(totals.values())) \
+            or any(other.values()):
         # on the CPU the plain versions run, no kernel
-        raise AssertionError(f"{device} training run, flash launches {totals}")
+        raise AssertionError(f"{device} {dtype} training run, flash launches {totals}, of the "
+                             f"other dtype's kernels {other}")
 
     # the last epoch's checkpoint: the JAX layout, and the port's val.py reads
     # it back to the very weights the run ended with
@@ -978,6 +1114,7 @@ def run_training(work: str, device: str, model: dict, img: int, num_classes: int
         distill = bool(args.teacher_path) and args.distillation_alpha > 0
         per_replay = replay_launches(lambda: step(state, fixed),
                                      flash_step_pattern(model["depth"], args.remat, distill))
+        check_flash_dtype(lambda: step(state, fixed), dtype, "the run's captured step")
     return {"state": state, "args": args, "records": records, "totals": totals,
             "per_replay": per_replay, "wall_s": wall_s, "checkpoint": path, "images": images,
             "steps_per_epoch": len(records) // epochs, "num_classes": num_classes,
@@ -1084,6 +1221,61 @@ def train_step_checks(run: dict, model: dict, device: str, timed: bool = True):
         for name, st, fn in (("flash", flash, step), ("plain", plain, plain_step)):
             res[name] = time_captured_and_eager(st, fn, batch)
     return res
+
+
+def fp32_path(work: str, device: str, model: dict, cfg: dict, images: str) -> dict:
+    """5d: the fp32 path of --flash_attn (C1): train.main with
+    --half_precision false on `model` at phase 5's cell (1 epoch of 10
+    steps), captured, every K1 kernel of a replayed step the fp32 one (12 +
+    12 forwards, 12 dQ, 12 dK/dV); the captured and eager step timed beside
+    phase 5's bf16 one; its checkpoint served by val.py (which serves in
+    bf16, as the JAX val.py); and an fp32 served batch of the same weights
+    (`val.initialize_model(half_precision=False)`, captured predict), whose
+    replays launch the fp32 forward 12 times, held against the fp32 model
+    on the plain attention path."""
+    import torch
+
+    from imageclassification_tpu_torch import val
+    from imageclassification_tpu_torch.models import create_model
+    from imageclassification_tpu_torch.ops.flash_attention import reset_launches
+
+    run = run_training(work, device, model, cfg["img"], cfg["num_classes"], cfg["per_class"],
+                       cfg["batch"], 1, images=images, dtype="fp32")
+    if run["state"].model.dtype != torch.float32:
+        raise AssertionError(f"--half_precision false trained {run['state'].model.dtype}")
+    out = {"records": run["records"], "totals": run["totals"], "per_replay": run["per_replay"],
+           "wall_s": run["wall_s"], "steps": len(run["records"])}
+    if device == "cuda":
+        out["timing"] = step_timing(run, device)
+    ck = run["checkpoint"]
+    n_images = cfg["num_classes"] * cfg["per_class"]
+    reset_launches()
+    tp, fp, fn = val.val_precision(images, ck, cfg["img"], model_ema=False,
+                                   batch_size=cfg["batch"], device=device)
+    if not (tp.sum() + fp.sum() == n_images and tp.sum() + fn.sum() == n_images):
+        raise AssertionError(f"val_precision counts do not cover {n_images} images")
+    out["val_top1"] = float(tp.sum() / n_images)
+    out["val_launches"] = _launch_counts()
+    del run
+    m32, _ = val.initialize_model(ck, False, half_precision=False, device=device)
+    plain = create_model(model["name"], num_classes=cfg["num_classes"], half_precision=False,
+                         img_size=cfg["img"]).to(device).eval()
+    plain.load_state_dict(m32.state_dict())
+    predict, predict_plain = val._predict_fn(m32), val._predict_fn(plain)
+    imgs = _images_batch(images, cfg["img"], cfg["batch"], device)
+    reset_launches()
+    p32 = predict(imgs)
+    out["serve_launches"] = _launch_counts("fp32")
+    out["probs_flash_vs_plain"] = (p32 - predict_plain(imgs)).abs().max().item()
+    if not torch.isfinite(p32).all() or out["probs_flash_vs_plain"] > FP32_PROBS_ATOL:
+        raise AssertionError(f"fp32 served batch: flash vs plain attention probabilities "
+                             f"max|d| {out['probs_flash_vs_plain']} > {FP32_PROBS_ATOL}")
+    if device == "cuda":
+        out["serve_per_replay"] = replay_launches(lambda: predict(imgs), ["fwd"] * model["depth"])
+        check_flash_dtype(lambda: predict(imgs), "fp32", "the fp32 served batch")
+        out["serve_ms"] = time_ms(lambda: predict(imgs), iters=10)
+        out["serve_trace"] = trace(lambda: predict(imgs))
+    return out
 
 
 def head_bias(model):
@@ -1225,11 +1417,19 @@ def dwconv_bound(B: int, H: int, W: int, C: int, itemsize: int = 2):
     return max(t_bytes, t_flops) * 1e3, ("bytes" if t_bytes >= t_flops else "operations")
 
 
-def _hold(name: str, got, want, rtol: float) -> tuple:
+def _hold(name: str, got, want, rtol: float, terms=None) -> tuple:
     """(max_abs_err, tol) of `got` against `want` with a tolerance of rtol *
-    max|want|; raises when it is not within it."""
+    max|want|; raises when it is not within it. For column sums, `terms`
+    holds each column's sum of |terms| and column c is held to rtol *
+    max|want| + SUM_ROUNDING_UNITS * 2^-24 * terms[c] (SUM_ROUNDING_UNITS);
+    tol is then the tolerance of the column nearest its limit."""
+    err_c = (got.float() - want.float()).abs()
     tol = rtol * want.float().abs().max().item()
-    err = (got.float() - want.float()).abs().max().item()
+    if terms is not None:
+        tol_c = tol + SUM_ROUNDING_UNITS * 2.0 ** -24 * terms
+        worst = int((err_c / tol_c).argmax())
+        err_c, tol = err_c[worst:worst + 1], tol_c[worst].item()
+    err = err_c.max().item()
     if not (math.isfinite(err) and err <= tol):
         raise AssertionError(f"{name}: max|d| {err} > {tol}")
     return err, tol
@@ -1250,6 +1450,45 @@ def host_ms(fn, calls: int = 5) -> float:
     return ms
 
 
+def host_and_events_ms(fn, calls: int = 20, reps: int = 3) -> tuple[float, float]:
+    """Host ms and CUDA events ms a call of fn(), both read on the same
+    `calls` back-to-back calls after a synchronize (perf_counter until the
+    last call returns, events until the device has run it), over `reps` runs:
+    the pair of the run whose host / events ratio is the median. A host-bound
+    call reads about as long on both however slow the shared host is at that
+    moment; host ms and events ms read on different calls do not (F.layer_norm
+    forward and backward once read 0.078 device ms against 0.3926 ms of
+    events, about twice the events of its host-bound call at 12544 x 384,
+    beside a host ms of another moment, and was refused as a misreading)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        host = (time.perf_counter() - t0) / calls * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        pairs.append((host, start.elapsed_time(end) / calls))
+    return sorted(pairs, key=lambda p: p[0] / p[1])[reps // 2]
+
+
+def _device_bound(fn, events_ms: float = None) -> tuple[bool, float]:
+    """Whether fn() is device-bound (host ms a call under half its events ms,
+    both from `host_and_events_ms`), and the events ms a reading of it is held
+    to: the lesser of that run's and `events_ms` (the caller's timing of the
+    same call, where given), since no events time of a call is shorter than
+    its device time. The caller's events ms sizes the run (2 to 20 calls)."""
+    calls = 20 if events_ms is None else int(min(20, max(2, 10 / events_ms)))
+    host, events = host_and_events_ms(fn, calls)
+    return host < 0.5 * events, events if events_ms is None else min(events_ms, events)
+
+
 def alone_floor(events_ms: float, host: float) -> float:
     """The least device ms a reading of a kernel may give, from a call of it
     alone: half that call's CUDA events ms where it is device-bound (host ms
@@ -1266,18 +1505,16 @@ def _device_ms(fn, launches: dict, traces: int = 3, steps: int = 10,
     five times `traces`), each kernel at its mean time per traced launch,
     times its whole launches a call (the larger of `launches` and the most
     one trace kept, rounded up). Every reading is held against the CUDA
-    events ms of the same call (`events_ms`, else timed here): where the call
-    is device-bound (host ms a call under half its events ms), the reading
-    plus the call's other kernels must reach half the events ms. Where the
+    events ms of the same call (`_device_bound`, with `events_ms` where the
+    caller timed it): where the call is device-bound, the reading plus the
+    call's other kernels must reach half the events ms. Where the
     kernels are a small part of the call (one kernel inside a train step),
     `floor_ms` holds the reading itself: the least it may be, from CUDA
     events of those launches alone (`alone_floor`). A reading below either
     is traced again once, and then raises: it is never returned. (One trace
     of a flash forward at 64 x 577 x 12 x 64 read 0.1106 ms a launch where
     CUDA events give 0.249; PERF.md section 6.)"""
-    if events_ms is None:
-        events_ms = time_ms(fn, iters=20, reps=3)
-    device_bound = host_ms(fn) < 0.5 * events_ms
+    device_bound, events_ms = _device_bound(fn, events_ms)
     readings = []
     for _ in range(2):
         seen, others = {}, []
@@ -1317,12 +1554,10 @@ def _library_device_ms(fn, traces: int = 3, events_ms: float = None) -> float:
     `_device_ms` reads a kernel that a trace may have dropped launches of. A
     trace that kept no kernel at all (seen at 64 x 577 x 12 x 64 after the
     training phases) is taken again, up to five times `traces`. The reading
-    is held against the CUDA events ms of the same call (`events_ms`, else
-    timed here) as `_device_ms` holds one: where the call is device-bound, a
-    reading under half its events ms is traced again once, and then raises."""
-    if events_ms is None:
-        events_ms = time_ms(fn, iters=20, reps=3)
-    device_bound = host_ms(fn) < 0.5 * events_ms
+    is held against the CUDA events ms of the same call (`_device_bound`) as
+    `_device_ms` holds one: where the call is device-bound, a reading under
+    half its events ms is traced again once, and then raises."""
+    device_bound, events_ms = _device_bound(fn, events_ms)
     readings = []
     for _ in range(2):
         seen, kept = {}, 0
@@ -1635,10 +1870,11 @@ def _fixed_batch(run: dict, device: str):
                                  device=device, seed=args.seed, num_workers=8)))
 
 
-def time_captured_and_eager(state, step, batch, iters: int = 10, reps: int = 3,
+def time_captured_and_eager(state, step, batch, iters: int = 5, reps: int = 2,
                             trace_steps: int = 3) -> dict:
-    """ms per train step (CUDA events, `reps` of `iters` back-to-back steps
-    on one fixed batch) and a torch.profiler trace of `trace_steps` train
+    """ms per train step (CUDA events, the median of `reps` runs of `iters`
+    back-to-back steps on one fixed batch; cut from 10 x 3 for the command's
+    time) and a torch.profiler trace of `trace_steps` train
     steps, for the step captured as train.main runs it (`CapturedTrainStep`)
     and for the eager `step`, on `state` (the steps go on updating it):
     {"captured": (ms, trace), "eager": (ms, trace)}."""
@@ -1742,18 +1978,12 @@ def replay_convnext_ops(run: dict, device: str):
     finally:
         undo()
     grad_of = {p: g for p, g in zip(model.parameters(), grads)}
-    errs = {}
-
-    def hold(key, got, want, rtol):
-        err, _ = _hold(key, got, want, rtol)
-        errs[key] = max(errs.get(key, 0.0), err)
-
     _reset_op_launches()
     with torch.no_grad():
-        _replay(records, grad_of, hold)
+        errs, nearest = _replay(records, grad_of)
     if device == "cuda":
         torch.cuda.synchronize()
-    return {"launches": _op_launch_counts(), "errs": errs,
+    return {"launches": _op_launch_counts(), "errs": errs, "nearest": nearest,
             "n_ln": len(records["ln"]), "n_dw": len(records["dw"]),
             "ln_shapes": sorted({(r["x"].numel() // r["x"].shape[-1], r["x"].shape[-1])
                                  for r in records["ln"]}),
@@ -1761,28 +1991,48 @@ def replay_convnext_ops(run: dict, device: str):
             "dw_counts": Counter(tuple(r["x"].shape) for r in records["dw"])}
 
 
-def _replay(records, grad_of, hold) -> None:
+def _replay(records, grad_of) -> tuple:
     """The kernels on the captured tensors of `replay_convnext_ops`, each
-    result held by `hold(key, got, want, rtol)`."""
+    result held by `_hold`; returns ({key: the largest max_abs_err},
+    {key: (max_abs_err, tol) of the op nearest its tolerance})."""
     import torch
 
     from imageclassification_tpu_torch.ops import dwconv as dw
     from imageclassification_tpu_torch.ops import layernorm as ln
 
+    errs, nearest = {}, {}
+
+    def share(err, tol):  # of its tolerance (0 where both are 0)
+        return err / tol if tol else 0.0
+
+    def hold(key, got, want, rtol, terms=None):
+        err, tol = _hold(key, got, want, rtol, terms)
+        errs[key] = max(errs.get(key, 0.0), err)
+        if key not in nearest or share(err, tol) > share(*nearest[key]):
+            nearest[key] = (err, tol)
+
     for rec in records["ln"]:
         m, x, dy = rec["module"], rec["x"], rec["dy"]
         y = ln.fused_layer_norm(x, m.weight, m.bias, m.eps)
         dx, dg, db = ln.layer_norm_bwd(x, m.weight, dy, m.eps)
+        # dgamma and dbeta are column sums over every row of dy * xhat and
+        # dy: each column's sum of |terms| scales its rounding
+        C = x.shape[-1]
+        dyf = dy.float().reshape(-1, C)
+        xhat = torch.nn.functional.layer_norm(x.float(), (C,), eps=m.eps).reshape(-1, C)
+        terms = {"dgamma": (dyf * xhat).abs().sum(0), "dbeta": dyf.abs().sum(0)}
+        del dyf, xhat
         hold("layer_norm_fwd vs model", y, rec["y"], MODEL_RTOL)
         hold("layer_norm_bwd dx vs model", dx, rec["dx"], MODEL_RTOL)
-        hold("layer_norm_bwd dgamma vs model", dg, grad_of[m.weight], MODEL_SUM_RTOL)
-        hold("layer_norm_bwd dbeta vs model", db, grad_of[m.bias], MODEL_SUM_RTOL)
+        hold("layer_norm_bwd dgamma vs model", dg, grad_of[m.weight], MODEL_SUM_RTOL,
+             terms["dgamma"])
+        hold("layer_norm_bwd dbeta vs model", db, grad_of[m.bias], MODEL_SUM_RTOL, terms["dbeta"])
         want_dx, want_dg, want_db = ln.layer_norm_bwd_ref(x.float(), m.weight, dy.float(), m.eps)
         hold("layer_norm_fwd vs plain", y, ln.layer_norm_ref(x.float(), m.weight, m.bias, m.eps),
              OP_RTOL)
         hold("layer_norm_bwd dx vs plain", dx, want_dx, OP_RTOL)
-        hold("layer_norm_bwd dgamma vs plain", dg, want_dg, SUM_RTOL)
-        hold("layer_norm_bwd dbeta vs plain", db, want_db, SUM_RTOL)
+        hold("layer_norm_bwd dgamma vs plain", dg, want_dg, SUM_RTOL, terms["dgamma"])
+        hold("layer_norm_bwd dbeta vs plain", db, want_db, SUM_RTOL, terms["dbeta"])
     for rec in records["dw"]:
         m, x, dy = rec["module"], rec["x"], rec["dy"]
         # the model's weights as it uses them: [C, 1, 7, 7] fp32 cast to the
@@ -1797,6 +2047,16 @@ def _replay(records, grad_of, hold) -> None:
         hold("dwconv7x7 dx vs plain", dx, dw.dwconv7x7_ref(dy.float(), w.float(), flip=True),
              OP_RTOL)
         hold("dwconv7x7_dw vs plain", dwg, dw.dwconv7x7_dw_ref(x, dy, torch.float32), OP_RTOL)
+    return errs, nearest
+
+
+def replay_note(nearest: dict) -> str:
+    """A log note of `_replay`'s errors, each beside its tolerance."""
+    return ("max|d| (tolerance) of the op nearest its tolerance: "
+            + ", ".join(f"{k} {e:.3e} ({t:.3e})" for k, (e, t) in nearest.items())
+            + f" (vs model {MODEL_RTOL:g} of max|ref|, vs plain {OP_RTOL:g}; dgamma and dbeta "
+            f"per column {MODEL_SUM_RTOL:g} and {SUM_RTOL:g} of max|ref| + "
+            f"{SUM_ROUNDING_UNITS} x 2^-24 of the column's sum of |terms|)")
 
 
 def conv1x1_bound(M: int, K: int, N: int, bn_in: bool, itemsize: int = 2):
@@ -2349,7 +2609,7 @@ def feed_note(images: str) -> str:
 # of 500 x 375 (a common photo size), 10 batches a pass, with the thread
 # counts of chip_smoke.py's training runs (8) and of the CLI's default (32)
 FEED = dict(size=(500, 375), batch=64, img=224, steps=10, num_classes=5, workers=(8, 32),
-            reps=3)
+            reps=1)  # one pass a setting (3 before, cut for the command's time)
 
 
 def measure_feed(work: str, device: str, cfg: dict = FEED) -> dict:
@@ -2540,7 +2800,7 @@ def remat_timing(run: dict, depth: int, floors: dict) -> dict:
         def fn():
             return captured(state, batch)
 
-        ms = time_ms(fn, iters=5, reps=3)
+        ms = time_ms(fn, iters=3, reps=2)
         res = {"ms": ms, "peak_bytes": torch.cuda.max_memory_allocated(), "trace": trace(fn, 3)}
         if remat:
             launches = {"flash_attention_fwd": 3 * depth, "flash_attention_bwd_dq": depth,
@@ -2739,15 +2999,9 @@ def feed_phase(work: str) -> None:
         f"of {FEED['reps']}, host os.cpu_count() {feed['cpu_count']}: " + ", ".join(
             f"{k.replace('_', ' ')} threads {v:.1f} img/s" for k, v in feed.items()
             if k.startswith(("native_", "pil_")) and k != "native_built"))
-    fe = feed_epochs(os.path.join(work, "feed_run"), feed["images"], "cuda", VIT_B16,
-                     FEED["img"], FEED["batch"])
-    for e, ep in enumerate(fe):
-        log(f"feed: train.main ViT-B/16 --flash_attn {FEED['img']}x{FEED['img']} batch "
-            f"{FEED['batch']}, epoch {e} ({'eager warm-up and captures' if e == 0 else 'steady'}"
-            f"): {ep['steps']} steps {ep['steps_s']:.3f} s ({ep['steps_s'] / ep['steps'] * 1e3:.1f}"
-            f" ms a step), of which waiting for the loader {ep['loader_wait_s']:.3f} s; eval "
-            f"{ep['eval_s']:.3f} s" + (f"; checkpoint writes {ep['checkpoint_s']:.3f} s"
-                                       if "checkpoint_s" in ep else ""))
+    # (train.main's epochs on these JPEGs, split into steps, loader waits,
+    # eval and checkpoint writes by `feed_epochs`, are no longer run here,
+    # for the command's time; PERF.md keeps the earlier readings)
 
 
 def launch_gap(rows, counts, key, gap) -> tuple:
@@ -2825,10 +3079,10 @@ def _events_and_device_ms(fn) -> tuple:
 def run_recipe(work: str, device: str, model: dict, cfg: dict, teacher: str, images: str):
     """12a: `run_training` with --aa rand-m9-mstd0.5-inc1 and distillation
     from `teacher` (alpha 0.5, tau 2): the three replays launch the
-    teacher's forwards too. On a card, the recipe's step and the default
-    step (phase 5's cell) captured and eager on the trained weights, and
-    the device ms of the augmentation (with the policy, and with
-    ColorJitter) and of the teacher's forward, each alone."""
+    teacher's forwards too. On a card, the recipe's step captured and eager
+    on the trained weights, and the device ms of the augmentation (with the
+    policy, and with ColorJitter) and of the teacher's forward, each
+    alone."""
     import torch
 
     from imageclassification_tpu_torch import val
@@ -2848,10 +3102,11 @@ def run_recipe(work: str, device: str, model: dict, cfg: dict, teacher: str, ima
                                       device=device)
     batch = _fixed_batch(run, device)
     plain = args.replace(aa="", teacher_path="", distillation_alpha=0.0)
-    for key, a, t in (("timing", args, t_model), ("timing_default", plain, None)):
-        step = build_train_step(state.model, a, nc, build_mixup(a, nc), [a.lr],
-                                [a.weight_decay], seed=a.seed, teacher=t)
-        run[key] = time_captured_and_eager(state, step, batch)
+    # the recipe's step timed (the default step beside it no longer, for the
+    # command's time: phase 5b times that cell)
+    step = build_train_step(state.model, args, nc, build_mixup(args, nc), [args.lr],
+                            [args.weight_decay], seed=args.seed, teacher=t_model)
+    run["timing"] = time_captured_and_eager(state, step, batch)
     B, H, W = batch["image"].shape[:3]
     gen = torch.Generator(device=device).manual_seed(1)
     for key, a in (("augment", args), ("augment_jitter", plain)):
@@ -2994,8 +3249,6 @@ def recipes_phase(work: str, device: str, model: dict, cfg: dict, teacher: str,
             f"{rec['totals']}")
         log_step_timing(f"ViT-B/16 {img}x{img} bf16, DeiT-style recipe (--aa rand, distillation)",
                         b, rec["timing"])
-        log_step_timing(f"ViT-B/16 {img}x{img} bf16, default flags (phase 5's cell, same process)",
-                        b, rec["timing_default"])
         for key, what in (("augment", "the augmentation with --aa rand-m9-mstd0.5-inc1 (flips, "
                                       "policy, normalize, erasing; draws included)"),
                           ("augment_jitter", "the augmentation with ColorJitter (default flags)"),
@@ -3004,7 +3257,6 @@ def recipes_phase(work: str, device: str, model: dict, cfg: dict, teacher: str,
                 f"device {rec[key][1]:.3f} ms (trace)")
         out["recipe"].update(per_replay=dict(rec["per_replay"][0]),
                              timing=_timing_summary(rec["timing"]),
-                             timing_default=_timing_summary(rec["timing_default"]),
                              **{k: {"ms": rec[k][0], "device_ms": rec[k][1]}
                                 for k in ("augment", "augment_jitter", "teacher_forward")})
     del rec
@@ -3065,7 +3317,9 @@ def recipes_main(keep: str, out: str) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     with tempfile.TemporaryDirectory() as work:
-        res = recipes_phase(work, "cuda", VIT_B16, TRAIN, os.path.join(keep, "teacher.pth"),
+        # 12a at 1 epoch of 10 steps (cut from 2 for the command's time)
+        res = recipes_phase(work, "cuda", VIT_B16, dict(TRAIN, epochs=1),
+                            os.path.join(keep, "teacher.pth"),
                             os.path.join(keep, "images"))
     with open(out, "w") as f:
         json.dump(res, f)
@@ -3083,34 +3337,15 @@ NEW_OPTS = ("nvnovograd", "adafactor")
 NEW_FAMILIES = ("swin_tiny", "mobilenetv3_large_100", "efficientnet_b0", "densenet121")
 
 
-def timing_with_opt(run: dict, device: str, opt: str, **kw) -> dict:
-    """`time_captured_and_eager` (with `kw`) of the step of `run`'s flags
-    with --opt `opt` (a fresh optimizer) on the run's trained model and
-    fixed batch."""
-    from imageclassification_tpu_torch.data.mixup import build_mixup
-    from imageclassification_tpu_torch.engine.state import create_train_state
-    from imageclassification_tpu_torch.engine.step import build_train_step
-    from imageclassification_tpu_torch.optim.factory import create_optimizer
-    from imageclassification_tpu_torch.train import optimizer_layout
-
-    args, model, nc = run["args"].replace(opt=opt), run["state"].model, run["num_classes"]
-    state = create_train_state(model, create_optimizer(
-        opt, model.parameters(), lr=args.lr, weight_decay=args.weight_decay,
-        **optimizer_layout(args, model)), use_ema=args.model_ema)
-    step = build_train_step(model, args, nc, build_mixup(args, nc), [args.lr],
-                            [args.weight_decay], seed=args.seed)
-    return time_captured_and_eager(state, step, _fixed_batch(run, device), **kw)
-
-
 def optimizer_rest_runs(work: str, device: str, model: dict, cfg: dict, images: str) -> dict:
     """13a: `run_training` of `model` (ViT, --flash_attn) with --opt
     nvnovograd and with --opt adafactor: the launches of three replays of
     each run's captured step read from traces (24 forwards, 12 dQ, 12 dK/dV
     a step), the checkpoint's optimizer state in the optax layout; on a
-    card, ms a step captured and eager beside adamw's in the same process,
-    and `captured_vs_eager` with the optimizer (6 steps, a non-finite one
-    inside the replays). adamw's step is timed once, beside both."""
-    out, adamw = {}, None
+    card, `captured_vs_eager` with the optimizer (6 steps, a non-finite one
+    inside the replays). (Their steps are no longer timed here, for the
+    command's time; PERF.md §5 keeps the earlier readings.)"""
+    out = {}
     for opt in NEW_OPTS:
         run = run_training(os.path.join(work, opt), device, model, cfg["img"], cfg["num_classes"],
                            cfg["per_class"], cfg["batch"], cfg["epochs"], images=images,
@@ -3119,10 +3354,6 @@ def optimizer_rest_runs(work: str, device: str, model: dict, cfg: dict, images: 
                "wall_s": run["wall_s"]}
         if device == "cuda":
             row["per_replay"] = dict(run["per_replay"][0])
-            row["timing"] = timing_with_opt(run, device, opt)
-            # adamw's step once, on the first run's model and batch
-            adamw = adamw or timing_with_opt(run, device, "adamw")
-            row["timing_adamw"] = adamw
             del run
             row["captured_vs_eager"] = captured_vs_eager(model, cfg["img"], cfg["batch"],
                                                          cfg["num_classes"], flags=("--opt", opt))
@@ -3132,11 +3363,11 @@ def optimizer_rest_runs(work: str, device: str, model: dict, cfg: dict, images: 
 
 def adahessian_run(work: str, device: str, model: dict, cfg: dict, images: str) -> dict:
     """13b: `run_convnext_training` of `model` with --opt adahessian (the
-    Hutchinson diagonal from a second backward at every step); on a card,
-    ms a step captured and eager beside adamw's in the same process, and
-    `captured_vs_eager` with adahessian; and train.main of ViT-B/16 with
-    --flash_attn true --opt adahessian, which must raise before anything is
-    written."""
+    Hutchinson diagonal from a second backward at every step), captured on a
+    card, its checkpoint in the optax layout and reloaded exactly; on a
+    card, `captured_vs_eager` with adahessian (3 steps of ~1 s); and
+    train.main of ViT-B/16 with --flash_attn true --opt adahessian, which
+    must raise before anything is written."""
     run = run_convnext_training(os.path.join(work, "adahessian"), device, model, cfg["img"],
                                 cfg["num_classes"], cfg["per_class"], cfg["batch"],
                                 cfg["epochs"], images=images, flags=("--opt", "adahessian"))
@@ -3152,10 +3383,8 @@ def adahessian_run(work: str, device: str, model: dict, cfg: dict, images: str) 
     else:
         raise AssertionError("--flash_attn true --opt adahessian trained")
     if device == "cuda":
-        # its step takes ~1 s on an H100 (PERF.md §5): fewer timed steps
-        out["timing"] = timing_with_opt(run, device, "adahessian", iters=2, reps=1,
-                                        trace_steps=2)
-        out["timing_adamw"] = timing_with_opt(run, device, "adamw")
+        # its step is no longer timed here, for the command's time (PERF.md
+        # §5 keeps the earlier readings)
         del run
         out["captured_vs_eager"] = captured_vs_eager(model, cfg["img"], cfg["batch"],
                                                      cfg["num_classes"], steps=3,
@@ -3199,9 +3428,7 @@ def family_runs(work: str, device: str, cfg: dict, images: str, names=NEW_FAMILI
     checkpoint in the JAX layout the torch converter gives, reloaded
     exactly, served by val_precision); a Swin starts from a seeded
     timm-layout state_dict through --pretrained_path (the 1000-class head
-    skipped). On a card: ms a step captured and eager with traces, the peak
-    of torch.cuda.max_memory_allocated over those steps, and ms a served
-    batch (val.py's captured predict)."""
+    skipped). On a card: ms a served batch (val.py's captured predict)."""
     import torch
 
     from imageclassification_tpu_torch import val
@@ -3225,10 +3452,8 @@ def family_runs(work: str, device: str, cfg: dict, images: str, names=NEW_FAMILI
                "val_top1": run["val_top1"],
                "params": sum(p.numel() for p in run["state"].model.parameters())}
         if device == "cuda":
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            row["timing"] = step_timing(run, device)
-            row["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            # (its step is no longer timed here, for the command's time; PERF.md
+            # §5 keeps the earlier readings)
             m, _ = val.initialize_model(run["checkpoint"], False, device=device)
             predict = val._predict_fn(m)
             imgs = _fixed_batch(run, device)["image"]
@@ -3265,13 +3490,7 @@ def registry_phase(work: str, device: str, cfg: dict, vit: dict, convnext: dict,
                 f"step (trace) {row['per_replay']}; {ce['steps']} captured steps against eager "
                 f"ones: eager vs eager {ce['eager_gap']:.3e}, captured vs eager "
                 f"{ce['captured_gap']:.3e}, a non-finite replayed step skipped and inert")
-            log_step_timing(f"ViT-B/16 {img}x{img} bf16, --opt {opt}", b, row["timing"])
-            if opt == NEW_OPTS[0]:
-                log_step_timing(f"ViT-B/16 {img}x{img} bf16, --opt adamw (beside "
-                                f"{' and '.join(NEW_OPTS)})", b, row["timing_adamw"])
-            summary.update(per_replay=row["per_replay"], timing=_timing_summary(row["timing"]),
-                           timing_adamw=_timing_summary(row["timing_adamw"]),
-                           captured_vs_eager=ce)
+            summary.update(per_replay=row["per_replay"], captured_vs_eager=ce)
         out["optimizers"][opt] = summary
     out["seconds"]["13a"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -3287,12 +3506,7 @@ def registry_phase(work: str, device: str, cfg: dict, vit: dict, convnext: dict,
         log(f"adahessian path (13b): {ce['steps']} captured ConvNeXt-T steps against eager ones: "
             f"eager vs eager {ce['eager_gap']:.3e}, captured vs eager {ce['captured_gap']:.3e}, "
             f"a non-finite replayed step skipped and inert")
-        log_step_timing(f"ConvNeXt-T {img}x{img} bf16, --opt adahessian", b, ah["timing"])
-        log_step_timing(f"ConvNeXt-T {img}x{img} bf16, --opt adamw (beside adahessian)", b,
-                        ah["timing_adamw"])
-        out["adahessian"].update(timing=_timing_summary(ah["timing"]),
-                                 timing_adamw=_timing_summary(ah["timing_adamw"]),
-                                 captured_vs_eager=ce)
+        out["adahessian"].update(captured_vs_eager=ce)
     out["seconds"]["13b"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     for name, row in family_runs(os.path.join(work, "families"), device, cfg, images,
@@ -3306,12 +3520,9 @@ def registry_phase(work: str, device: str, cfg: dict, vit: dict, convnext: dict,
             f"{row['val_top1']:.3f})")
         summary = {k: row[k] for k in ("losses", "val_top1", "params")}
         if device == "cuda":
-            log_step_timing(f"{name} {img}x{img} bf16 (default flags)", b, row["timing"])
-            log(f"family path (13c), {name}: peak memory {row['peak_gib']:.2f} GiB over the "
-                f"timed steps (torch.cuda.max_memory_allocated); served batch of {b} (val.py's "
-                f"captured predict) {row['ms_served']:.3f} ms (CUDA events)")
-            summary.update(timing=_timing_summary(row["timing"]), peak_gib=row["peak_gib"],
-                           ms_served=row["ms_served"])
+            log(f"family path (13c), {name}: served batch of {b} (val.py's captured predict) "
+                f"{row['ms_served']:.3f} ms (CUDA events)")
+            summary.update(ms_served=row["ms_served"])
         out["families"][name] = summary
     out["seconds"]["13c"] = time.perf_counter() - t0
     log(f"phase 13 wall seconds: {out['seconds']}")
@@ -3563,22 +3774,26 @@ def gradcam_checks(work: str, device: str, ck: str, images: str, cfg: dict) -> d
     visualize CLI's gradcam and summary, and its features."""
     import torch
 
-    from imageclassification_tpu_torch import val, visualize
+    from imageclassification_tpu_torch import visualize
     from imageclassification_tpu_torch.checkpoint.io import load_checkpoint
     from imageclassification_tpu_torch.ops.flash_attention import reset_launches
 
     img, b = cfg["img"], cfg["cam_batch"]
     spec = load_checkpoint(ck, dequantize=False)["model_spec"]
-    half = device == "cuda" and bool(spec["kwargs"].get("flash_attn"))
-    model, _ = val.initialize_model(ck, False, half_precision=half, dequantize=True,
-                                    device=device)
-    model.requires_grad_(False)
+    model, _ = visualize._load(SimpleNamespace(model_weight_path=ck, model_ema=False,
+                                               device=device), dequantize=True)
     layer, module, shape = visualize.resolve_layer(model, img)
     fn = visualize.make_gradcam_fn(model, module, img)
     imgs = _images_batch(images, img, b, device)
     reset_launches()
     probs, cams = fn(imgs, -1)
-    res = {"layer": layer, "shape": list(shape), "launches": _launch_counts(), "half": half}
+    # visualize loads every model in fp32, as the JAX CLI: a --flash_attn
+    # ViT runs the fp32 kernels, no bf16 one
+    res = {"layer": layer, "shape": list(shape), "launches": _launch_counts("fp32"),
+           "launches_bf16": _launch_counts(), "dtype": str(model.dtype).split(".")[-1]}
+    if any(res["launches_bf16"].values()) or model.dtype != torch.float32:
+        raise AssertionError(f"Grad-CAM of {spec['name']} ran {res['dtype']}, bf16 kernel "
+                             f"launches {res['launches_bf16']}")
     if cams.shape != (b, img, img) or not torch.isfinite(cams).all() or cams.min() < 0 \
             or cams.max() > 1 + 1e-6 or not torch.isfinite(probs).all():
         raise AssertionError(f"bad Grad-CAM maps on {spec['name']}")
@@ -3674,9 +3889,9 @@ def lifecycle_phase(work: str, device: str, cfg: dict, vit: dict, convnext: dict
     out["gradcam"] = {}
     for name, path in ((vit["name"], ck), (convnext["name"], cnx)):
         c = gradcam_checks(work, device, path, images, cfg)
-        log(f"Grad-CAM (14c) {name}: layer {c['layer']} {tuple(c['shape'])} (the JAX pick)"
-            f"{', bf16 (flash kernel)' if c['half'] else ', fp32'}; flash launches of one batch "
-            f"of {cfg['cam_batch']} {c['launches']}; {c['pngs']} overlays written by the CLI; "
+        log(f"Grad-CAM (14c) {name}: layer {c['layer']} {tuple(c['shape'])} (the JAX pick), "
+            f"{c['dtype']}; fp32 flash launches of one batch of {cfg['cam_batch']} "
+            f"{c['launches']}; {c['pngs']} overlays written by the CLI; "
             f"summary: {c['params']} parameters (the checkpoint's), "
             f"{c['gflops']:.3f} GFLOPs a batch-1 forward"
             + (f", peak {c['peak_bytes'] / 1e6:.1f} MB; {c['ms_batch']:.3f} ms a Grad-CAM batch "
@@ -3723,6 +3938,254 @@ def lifecycle_main(keep: str, out: str) -> int:
     return 0
 
 
+# phase 15: UPerNet segmentation in one process (A19) at full width: the
+# tiny ADE20K recipe (ConvNeXt-T, channels 512, crop 512, batch 16, 150
+# classes), cut in iterations only (20, eval every 10), on a seeded
+# synthetic folder in the mmseg layout (ADE20K is not in the repository):
+# ADE-sized 683 x 512 JPEGs of 150-class blocky label maps
+SEG = dict(config="upernet_convnext_tiny_512_160k", num_classes=150, iters=20, eval_interval=10,
+           n_train=48, n_val=8, n_ms=1, size=(683, 512), timed_steps=5)
+# UPerNet's ConvNeXt-T at crop 512, batch 16: (rows, C) of the stage
+# LayerNorms and (B, H, W, C) of the stage depthwise convs
+SEG_LN_SHAPES = [(262144, 96), (65536, 192), (16384, 384), (4096, 768)]
+SEG_DW_SHAPES = [(16, 128, 128, 96), (16, 64, 64, 192), (16, 32, 32, 384), (16, 16, 16, 768)]
+
+
+def write_seg_folder(root: str, rng, num_classes: int, n_train: int, n_val: int,
+                     size=(683, 512)) -> str:
+    """A seeded folder in the mmseg ADE layout (images/{training,validation}
+    JPEGs, annotations/ PNG masks): each label map a nearest-seed partition
+    of 24 seeds on an 8x coarser grid, enlarged by repetition, each seed a
+    class of `num_classes`, a 255 border; each image a colour a class plus
+    noise."""
+    from PIL import Image
+
+    W, H = size
+    palette = rng.integers(0, 256, (num_classes, 3))
+    yy, xx = np.mgrid[0:H:8, 0:W:8]
+    for split, n in (("training", n_train), ("validation", n_val)):
+        os.makedirs(os.path.join(root, "images", split), exist_ok=True)
+        os.makedirs(os.path.join(root, "annotations", split), exist_ok=True)
+        for i in range(n):
+            seeds = rng.integers(0, (H, W), (24, 2))
+            cls = rng.integers(0, num_classes, 24)
+            d = (yy[..., None] - seeds[:, 0]) ** 2 + (xx[..., None] - seeds[:, 1]) ** 2
+            coarse = cls[d.argmin(-1)].astype(np.uint8)
+            mask = np.repeat(np.repeat(coarse, 8, 0), 8, 1)[:H, :W]
+            img = np.clip(palette[mask] + rng.normal(0, 20, (H, W, 3)), 0, 255).astype(np.uint8)
+            mask[:4] = 255
+            Image.fromarray(img).save(os.path.join(root, "images", split, f"s{i:03d}.jpg"),
+                                      quality=90)
+            Image.fromarray(mask).save(os.path.join(root, "annotations", split, f"s{i:03d}.png"))
+    return root
+
+
+def seg_phase(work: str, device: str, cfg: dict = SEG) -> dict:
+    """Phase 15 (module docstring): seg_train.main at the recipe's full width
+    for cfg["iters"] iterations (losses finite, whole eval every
+    eval_interval and at the end), its checkpoint reloaded exactly into a
+    fresh UPerNet and in the JAX layout; slide and ms eval of the trained
+    model (ms on cfg["n_ms"] images); ms an eager iteration, its peak memory
+    and a trace; and one step's LayerNorms and depthwise convs (the
+    backbone's) replayed through K3, K4 and K5, with those kernels timed at
+    the four stage shapes beside F.layer_norm and cuDNN."""
+    import torch
+
+    from imageclassification_tpu_torch import seg_train
+    from imageclassification_tpu_torch.checkpoint.io import load_checkpoint, load_params_with_pruning
+    from imageclassification_tpu_torch.checkpoint.to_jax import carry_for
+    from imageclassification_tpu_torch.downstream import seg_engine
+    from imageclassification_tpu_torch.downstream.seg_data import scan_pairs
+    from imageclassification_tpu_torch.downstream.upernet import build_upernet
+    from imageclassification_tpu_torch.models.layers import clear_batch_stats
+
+    out = {"seconds": {}}
+    t0 = time.perf_counter()
+    data = write_seg_folder(os.path.join(work, "seg_data"), np.random.default_rng(15),
+                            cfg["num_classes"], cfg["n_train"], cfg["n_val"], cfg["size"])
+    out["seconds"]["data"] = time.perf_counter() - t0
+    out_dir = os.path.join(work, "train_seg", "output")
+    # the recipe's crop and batch unless cfg cuts them (a CPU rehearsal)
+    sizes = [f for key, flag in (("crop", "--crop_size"), ("batch", "--batch_size"))
+             if key in cfg for f in (flag, str(cfg[key]))]
+    args = seg_train.get_args_parser().parse_args([
+        "--data_path", data, "--config", cfg["config"], "--num_classes", str(cfg["num_classes"]),
+        "--total_iters", str(cfg["iters"]), "--eval_interval", str(cfg["eval_interval"]),
+        "--save_ckpt_interval", str(cfg["eval_interval"]), "--log_interval", "5",
+        "--output_dir", out_dir, "--device", device, *sizes])
+    seen, losses = {}, []
+    build = seg_train.build_seg_train_step
+
+    def recording(model, *a, **kw):
+        step = build(model, *a, **kw)
+        seen["model"], seen["step"] = model, step
+
+        def recorded(state, x, y, g):
+            loss = step(state, x, y, g)
+            seen["state"] = state
+            losses.append(loss)
+            return loss
+
+        return recorded
+
+    t0 = time.perf_counter()
+    with mock.patch.object(seg_train, "build_seg_train_step", recording):
+        row = seg_train.main(args)
+    out["seconds"]["seg_train"] = time.perf_counter() - t0
+    out["losses"] = [float(x) for x in losses]
+    if len(losses) != cfg["iters"] or not all(math.isfinite(x) for x in out["losses"]):
+        raise AssertionError(f"seg_train losses {out['losses']}")
+    model, state = seen["model"], seen["state"]
+    crop = args.crop_size or 512
+    batch = args.batch_size or 16
+    out.update(miou_whole=row["miou"], aacc_whole=row["aacc"], crop=crop, batch=batch,
+               params=sum(p.numel() for p in model.parameters()),
+               checkpoints=sorted(os.listdir(out_dir)))
+
+    # the checkpoint: the JAX layout by the carry, reloaded exactly
+    ck = load_checkpoint(os.path.join(out_dir, f"checkpoint-iter{cfg['iters']}.pth"))
+    fresh, _ = build_upernet(cfg["config"], cfg["num_classes"], half_precision=True)
+    fresh = fresh.to(device)
+    carry = carry_for(fresh)
+    want = {k: v.shape for k, v in carry.to_jax(dict(fresh.named_parameters())).items()}
+    if {k: np.shape(v) for k, v in ck["model"].items()} != want or ck["step"] != cfg["iters"]:
+        raise AssertionError("the segmentation checkpoint is not in the JAX layout")
+    skipped = (load_params_with_pruning(fresh, ck["model"], verbose=False)
+               + load_params_with_pruning(fresh, ck["batch_stats"], verbose=False))
+    diff = max((fresh.state_dict()[k] - v).abs().max().item()
+               for k, v in model.state_dict().items())
+    if skipped or diff != 0.0:
+        raise AssertionError(f"the checkpoint reloads with {skipped} keys skipped, max|d| {diff}")
+    out["reload_max_abs"] = diff
+    del fresh
+
+    # slide and ms eval of the trained model
+    sc = seg_train.SEGMENTATION_CONFIGS[cfg["config"]]
+    stride = max(1, round(sc.eval_stride * crop / sc.crop_size))
+    out["stride"] = stride
+    val_pairs = scan_pairs(data, "validation")
+    for mode, pairs in (("slide", val_pairs), ("ms", val_pairs[:cfg["n_ms"]])):
+        t0 = time.perf_counter()
+        miou, _, acc = seg_train.evaluate_slide(model, pairs, crop, stride, cfg["num_classes"],
+                                                torch.device(device), ms=mode == "ms")
+        out["seconds"][f"eval_{mode}"] = time.perf_counter() - t0
+        out[f"miou_{mode}"], out[f"aacc_{mode}"] = miou, acc
+    out["n_ms"] = len(val_pairs[:cfg["n_ms"]])
+
+    # one fixed batch: the eager step timed, its peak memory, a trace
+    from imageclassification_tpu_torch.downstream.seg_data import train_batches
+
+    _, xs, ys = next(train_batches(scan_pairs(data, "training"), crop, batch, 1, seed=1))
+    x, y = torch.from_numpy(xs).to(device), torch.from_numpy(ys).to(device)
+    g = seg_train.step_generator(1, 0, torch.device(device))
+
+    def one_step():
+        return seen["step"](state, x, y, g)
+
+    if device == "cuda":
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out["ms_step"] = time_ms(one_step, iters=cfg["timed_steps"], reps=2)
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out["trace"] = trace(one_step, steps=3)
+        out["seconds"]["step_timing"] = time.perf_counter() - t0
+
+    # one step's backbone LayerNorms and depthwise convs through K3-K5
+    t0 = time.perf_counter()
+    records, undo = _capture_convnext_ops(model.backbone)
+    model.train()
+    try:
+        main, aux = model(seg_engine._normalize(x), g)
+        loss = seg_engine.seg_loss(main, aux, y)
+        params = list(model.parameters())
+        grads = torch.autograd.grad(loss, params)
+    finally:
+        undo()
+        clear_batch_stats(model)
+    grad_of = dict(zip(params, grads))
+    del main, aux, loss, grads
+    _reset_op_launches()
+    with torch.no_grad():
+        errs, nearest = _replay(records, grad_of)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    out["replay"] = {"launches": _op_launch_counts(), "errs": errs, "nearest": nearest,
+                     "n_ln": len(records["ln"]),
+                     "n_dw": len(records["dw"]),
+                     "ln_shapes": sorted({(r["x"].numel() // r["x"].shape[-1], r["x"].shape[-1])
+                                          for r in records["ln"]}),
+                     "dw_shapes": sorted({tuple(r["x"].shape) for r in records["dw"]})}
+    del records, grad_of
+    out["seconds"]["replay"] = time.perf_counter() - t0
+    if device == "cuda":
+        t0 = time.perf_counter()
+        out["ln_rows"] = [check_layernorm(r, c, device) for r, c in SEG_LN_SHAPES]
+        out["dw_rows"] = [check_dwconv(sh, device) for sh in SEG_DW_SHAPES]
+        out["seconds"]["kernel_checks"] = time.perf_counter() - t0
+    return out
+
+
+def seg_phases(keep: str) -> dict:
+    """Phase 15 in a child process of this script (`--segmentation`), with a
+    fresh profiler as phases 10-14; returns its summary through a file."""
+    out = os.path.join(keep, "phase15.json")
+    sys.stdout.flush()
+    rc = subprocess.run([sys.executable, os.path.abspath(__file__), "--segmentation", keep, out],
+                        timeout=600).returncode
+    if rc != 0:
+        raise AssertionError(f"phase 15 (a child process) exited with {rc}")
+    with open(out) as f:
+        return json.load(f)
+
+
+def seg_main(keep: str, out: str) -> int:
+    """The child of `seg_phases`: phase 15 on the card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        res = seg_phase(work, "cuda")
+    res["seconds"]["phase"] = time.perf_counter() - t0
+    log_seg(res)
+    res.pop("trace", None)
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def log_seg(res: dict) -> None:
+    cfg = SEG
+    log(f"segmentation (15): seg_train.main --config {cfg['config']} at full width (ConvNeXt-T, "
+        f"channels 512, {res['params']} parameters), crop {res['crop']}, batch {res['batch']}, "
+        f"{cfg['num_classes']} classes, {cfg['iters']} iterations (eval every "
+        f"{cfg['eval_interval']}), on {cfg['n_train']} + {cfg['n_val']} seeded {cfg['size'][0]} x "
+        f"{cfg['size'][1]} JPEGs; losses {', '.join(f'{x:.4f}' for x in res['losses'])}; "
+        f"{res['seconds']['seg_train']:.1f} s for seg_train.main (data, evals and checkpoints "
+        f"included); checkpoints {res['checkpoints']}, checkpoint-iter{cfg['iters']}.pth in the "
+        f"JAX layout, reloaded exactly (max|d| {res['reload_max_abs']})")
+    log(f"segmentation (15) mIoU / aAcc: whole {res['miou_whole']:.4f} / {res['aacc_whole']:.4f}, "
+        f"slide {res['miou_slide']:.4f} / {res['aacc_slide']:.4f} "
+        f"({res['seconds']['eval_slide']:.1f} s, {cfg['n_val']} images), ms (6 scales x flip) "
+        f"{res['miou_ms']:.4f} / {res['aacc_ms']:.4f} ({res['seconds']['eval_ms']:.1f} s, "
+        f"{res['n_ms']} images)")
+    if "ms_step" in res:
+        log(f"segmentation (15) eager train iteration, batch {res['batch']} x {res['crop']}^2 bf16: "
+            f"{res['ms_step']:.3f} ms/iter (CUDA events, one fixed batch), "
+            f"{res['batch'] / (res['ms_step'] / 1e3):.1f} img/s, peak "
+            f"{res['peak_gib']:.2f} GiB (max_memory_allocated)")
+        log_trace("UPerNet ConvNeXt-T 512^2 batch 16 eager train iteration", res["trace"], "iter")
+    rp = res["replay"]
+    log(f"replay of one UPerNet train iteration's backbone (15): {rp['n_ln']} LayerNorms (rows x "
+        f"C {rp['ln_shapes']}) and {rp['n_dw']} depthwise convs ({rp['dw_shapes']}) through the "
+        f"kernels, launches {rp['launches']}; " + replay_note(rp["nearest"]))
+    log(f"phase 15 wall seconds: {res['seconds']}")
+
+
 def main() -> int:
     import torch
 
@@ -3738,7 +4201,7 @@ def main() -> int:
     from imageclassification_tpu_torch.ops import flash_attention as fa
     from imageclassification_tpu_torch.ops import layernorm as ln
 
-    sources = (fa.KERNEL, fa.KERNEL_BWD, ln.KERNEL, dw.KERNEL, k2.KERNEL)
+    sources = (fa.KERNEL, fa.KERNEL_BWD, fa.KERNEL_F32, ln.KERNEL, dw.KERNEL, k2.KERNEL)
     # 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -3771,17 +4234,25 @@ def main() -> int:
            "JPEGs decode through it, every other file through PIL" if built else
            f"did not build ({native_decode.build_error()}); every file decodes through PIL"))
 
+    stamp('3a/3b bf16')
     # 3a. the forward kernel against its plain version
     rows = [check_attention(s, "cuda") for s in ATTN_SHAPES]
     main_row = rows[ATTN_SHAPES.index(MAIN_SHAPE)]
     # 3b. the backward kernels (and the forward's lse) against theirs
     bwd_rows = [check_backward(s, "cuda") for s in ATTN_SHAPES]
     bwd_main = bwd_rows[ATTN_SHAPES.index(MAIN_SHAPE)]
+    stamp('3a/3b fp32')
+    # 3a, 3b in fp32: the fp32 kernels (C1) against the fp32 plain version
+    # (TF32 off) and fp32 SDPA, at the same shapes
+    rows32 = [check_attention(s, "cuda", "fp32") for s in ATTN_SHAPES]
+    bwd32 = [check_backward(s, "cuda", "fp32") for s in ATTN_SHAPES]
+    main32, bwd32_main = (r[ATTN_SHAPES.index(MAIN_SHAPE)] for r in (rows32, bwd32))
     # 3a, 3b at the shape of phase 8, before the training phases, after
     # which a trace can come back without a kernel (`late_phases`)
     ft_shape = (FINETUNE["batch"], (FINETUNE["img"] // VIT_B16["patch"]) ** 2 + 1,
                 VIT_B16["heads"], VIT_B16["dim"] // VIT_B16["heads"])
     ft_fwd, ft_bwd = check_attention(ft_shape, "cuda"), check_backward(ft_shape, "cuda")
+    stamp('3c-3e')
     # 3c. the LayerNorm kernels against theirs (and one input with constant rows)
     ln_rows = [check_layernorm(r, c, "cuda") for r, c in LN_SHAPES]
     check_layernorm(4096, 96, "cuda", constant=True, timed=False)
@@ -3791,6 +4262,7 @@ def main() -> int:
     # 3e. the fused 1x1 conv + BN statistics kernel against its plain version
     k2_rows = [check_conv1x1(s, "cuda") for s in K2_SHAPES]
 
+    stamp('phase 4')
     # 4. the serving path
     with tempfile.TemporaryDirectory() as work:
         res = run_main_path(work, "cuda", VIT_B16, img=224, num_classes=5,
@@ -3820,6 +4292,7 @@ def main() -> int:
     log(f"flash_attention_fwd device time from the trace: {fa_ms / fa_n:.4f} ms per launch "
         f"at {MAIN_SHAPE}, bound/kernel {main_row['bound_ms'] / (fa_ms / fa_n):.3f}")
 
+    stamp('phase 5')
     # 5. the training path; its checkpoint and folder are linked into `keep`
     # for phase 12
     cfg = TRAIN
@@ -3844,6 +4317,7 @@ def main() -> int:
             f"(the eager steps, the captures and the evals' first batches) {run['totals']}; "
             f"{run['checkpoint'].split('/')[-1]} in the JAX layout, reloaded by "
             f"val.initialize_model to the run's exact weights")
+        stamp('phase 5b')
         # 5b. steady state, traces and gradient agreement on the trained weights
         chk = train_step_checks(run, VIT_B16, "cuda")
         for name in ("flash", "plain"):
@@ -3852,9 +4326,10 @@ def main() -> int:
         log("flash backward in the captured ViT-B/16 train step (trace): " + ", ".join(
             f"{kernel} {sum(ms for k, (ms, _) in step_kernels.items() if kernel in k):.4f} ms in "
             f"{sum(n for k, (_, n) in step_kernels.items() if kernel in k):.1f} launches a step"
-            for kernel in BWD_KERNELS))
+            for kernel in (k1_kernels("bf16")[p] for p in ("dq", "dkv"))))
         totals, per_replay = run["totals"], run["per_replay"][0]
         del run, chk
+        stamp('phase 5c')
         # 5c. captured steps against eager steps at full width, and a
         # non-finite step inside the replays
         eq = captured_vs_eager(VIT_B16, cfg["img"], cfg["batch"], cfg["num_classes"])
@@ -3865,6 +4340,36 @@ def main() -> int:
             f"captured {eq['losses'][2]}; a non-finite step in the replays (head bias inf): "
             f"skipped {eq['skipped']}, state unchanged bitwise; the next step applies")
 
+        stamp('phase 5d')
+        # 5d. the fp32 path of --flash_attn: train.main with --half_precision
+        # false (1 epoch of 10 steps), its checkpoint served, an fp32 batch
+        f32 = fp32_path(os.path.join(work, "vit_fp32"), "cuda", VIT_B16, cfg, images)
+        losses = [r["loss"] for r in f32["records"]]
+        log(f"fp32 training path (5d): {f32['steps']} steps of ViT-B/16 --flash_attn "
+            f"--half_precision false 224x224 batch {cfg['batch']}, captured, {f32['wall_s']:.1f} "
+            f"s for train.main; losses {', '.join(f'{x:.4f}' for x in losses)}; fp32 kernel "
+            f"launches counted by the wrappers over the run {f32['totals']}, none of the bf16 "
+            f"ones; per replayed step (trace, in device order, every K1 kernel the fp32 one) "
+            f"{[dict(c) for c in f32['per_replay']]}")
+        log_step_timing("ViT-B/16 224x224 fp32 (--half_precision false), flash attention",
+                        cfg["batch"], f32["timing"])
+        log(f"fp32-trained checkpoint served by val_precision (bf16 compute, as the JAX val.py): "
+            f"top-1 {f32['val_top1']:.3f}, bf16 launches {f32['val_launches']}; an fp32 served "
+            f"batch of {cfg['batch']} (val.initialize_model(half_precision=False), captured "
+            f"predict): fp32 launches at its first call {f32['serve_launches']}, per replayed "
+            f"batch (trace) {dict(f32['serve_per_replay'][0])}, {f32['serve_ms']:.3f} ms/batch; "
+            f"probabilities max|d| against the fp32 plain attention path "
+            f"{f32['probs_flash_vs_plain']:.3e} (tol {FP32_PROBS_ATOL})")
+        log_trace(f"ViT-B/16 batch {cfg['batch']} fp32 forward, flash captured", f32["serve_trace"],
+                  "batch")
+        f32_totals, f32_replay = f32["totals"], f32["per_replay"][0]
+        f32_serve = {"launches": f32["serve_launches"]["fwd"],
+                     "launches_per_replay": f32["serve_per_replay"][0]["fwd"],
+                     "ms_per_batch": f32["serve_ms"]}
+        f32_step_ms = {k: f32["timing"][k][0] for k in ("captured", "eager")}
+        del f32
+
+        stamp('phase 6')
         # 6. the ConvNeXt-T training path on the same folder
         cnx = run_convnext_training(os.path.join(work, "convnext"), "cuda", CONVNEXT_T,
                                     cfg["img"], cfg["num_classes"], cfg["per_class"],
@@ -3889,10 +4394,7 @@ def main() -> int:
             raise AssertionError(f"replay launches {replay['launches']}, expected {want}")
         log(f"replay of one ConvNeXt-T train step: {replay['n_ln']} LayerNorms (rows x C "
             f"{replay['ln_shapes']}) and {replay['n_dw']} depthwise convs ({replay['dw_shapes']}) "
-            f"through the kernels, launches {replay['launches']}; largest max|d| "
-            + ", ".join(f"{k} {e:.3e}" for k, e in replay["errs"].items())
-            + f" (tolerances: vs model 2^-6 of max|ref|, dgamma/dbeta {MODEL_SUM_RTOL}; vs plain "
-            f"2^-7, dgamma/dbeta {SUM_RTOL})")
+            f"through the kernels, launches {replay['launches']}; " + replay_note(replay["nearest"]))
         dw_gap = launch_gap(dw_rows, replay["dw_counts"], lambda r: tuple(r["shape"]),
                             lambda r: sum(r["device_ms"][k] - r["bound"][k][0]
                                           for k in ("fwd", "dx")))
@@ -3900,6 +4402,7 @@ def main() -> int:
             f"(forward + dx) {dw_gap[0]:.4f} ms over {dw_gap[1]} convs on the shapes of 3d "
             f"({dw_gap[2]} on others, left out)")
 
+        stamp('phase 7')
         # 7. the ResNet-50 training path on the same folder
         rn = run_resnet_training(os.path.join(work, "resnet"), "cuda", RESNET50, cfg["img"],
                                  cfg["num_classes"], cfg["per_class"], cfg["batch"],
@@ -3933,6 +4436,7 @@ def main() -> int:
             f"{k2_gap[0]:.4f} ms over {k2_gap[1]} launches on the shapes of 3e ({k2_gap[2]} on "
             f"others, left out)")
 
+        stamp('phase 7c')
         # 7c. the port bench at batch 128 (its captured step), and the times and
         # traces of its captured and eager steps
         from imageclassification_tpu_torch import bench
@@ -3944,11 +4448,13 @@ def main() -> int:
                         time_captured_and_eager(state, step.step, data))
         del step, state, data
 
+        stamp('phase 8')
         # 8. fine-tuning ViT-B/16 --flash_attn at 384x384 from a 224x224
         # state_dict, on the same folder; the launches counted from 0 over
         # its run
+        # 1 epoch of 10 steps (cut from 2 for the command's time)
         ft = run_finetune(os.path.join(work, "finetune"), "cuda", VIT_B16, FINETUNE,
-                          cfg["num_classes"], cfg["per_class"], cfg["epochs"], images=images)
+                          cfg["num_classes"], cfg["per_class"], 1, images=images)
         ft_b, ft_img = FINETUNE["batch"], FINETUNE["img"]
         losses = [r["loss"] for r in ft["records"]]
         log(f"fine-tuning path: {FINETUNE['name']} state_dict (1000 classes, {FINETUNE['src_img']}"
@@ -3956,7 +4462,7 @@ def main() -> int:
             f"--flash_attn, batch {ft_b}: the load printed {ft['resized']!r} and skipped "
             f"{ft['skipped']}; every other parameter equals the file's; pos_embed max|d| vs a "
             f"plain fp32 antialiased bicubic resample {ft['pos_err']:.3e} (tol {POS_EMBED_ATOL}); "
-            f"{len(losses)} steps ({cfg['epochs']} epochs x {ft['steps_per_epoch']}), "
+            f"{len(losses)} steps (1 epoch x {ft['steps_per_epoch']}), "
             f"{ft['wall_s']:.1f} s for train.main; losses {', '.join(f'{x:.4f}' for x in losses)}")
         log(f"fine-tuning path launches per step of the run's captured step at N = "
             f"{(ft_img // 16) ** 2 + 1} (trace, in device order): "
@@ -3980,14 +4486,16 @@ def main() -> int:
         ft_serve_replay = ft["serve_per_replay"][0]
         del ft
 
+        stamp('phase 9')
         # 9. the CLI's default model: train.main with no --model
+        # 1 epoch of 10 steps (cut from 2 for the command's time)
         dm = run_default_model_training(os.path.join(work, "default"), "cuda", cfg["img"],
                                         cfg["num_classes"], cfg["per_class"], cfg["batch"],
-                                        cfg["epochs"], images=images)
+                                        1, images=images)
         losses = [r["loss"] for r in dm["records"]]
         log(f"default-model path: train.main with no --model ({dm['args'].model}, drop_rate "
             f"{dm['args'].drop_path} from --drop_path) {cfg['img']}x{cfg['img']} batch "
-            f"{cfg['batch']}, {len(losses)} steps ({cfg['epochs']} epochs x "
+            f"{cfg['batch']}, {len(losses)} steps (1 epoch x "
             f"{dm['steps_per_epoch']}), captured, {dm['wall_s']:.1f} s for train.main; losses "
             f"{', '.join(f'{x:.4f}' for x in losses)}; no kernel launched (the model runs "
             f"F.conv2d, its BatchNorm and plain attention, as the JAX model runs lax.conv, "
@@ -3998,29 +4506,39 @@ def main() -> int:
                         cfg["batch"], step_timing(dm, "cuda"))
         del dm
 
+    stamp('phases 10-11')
     # 10. fine-tuning ViT-B/16 --flash_attn at 1024x1024 from a 224x224
     # state_dict with --layer_decay 0.65 and --remat, fed 1280 x 960 JPEGs,
     # the launches counted from 0 over its run; 11. the feed: BatchLoader's
     # img/s over JPEGs, native and PIL, and train.main's epochs split into
     # steps, loader waits, eval and checkpoint writes
-    hr = late_phases(cfg["num_classes"], cfg["epochs"])
+    # (1 epoch of 10 steps at 1024x1024, cut from 2 for the command's time)
+    hr = late_phases(cfg["num_classes"], 1)
 
+    stamp('phase 12')
     # 12. the training recipes: 12a the DeiT-style recipe (--aa RandAugment,
     # distillation from phase 5's checkpoint), 12b each policy alone, 12c
     # --prune_mask; the launches counted from 0 over each run
     recipes = recipe_phases(keep.name)
 
+    stamp('phase 13')
     # 13. the rest of the registry and of the optimizer table: 13a nvnovograd
     # and adafactor on ViT-B/16 --flash_attn, 13b adahessian on ConvNeXt-T,
     # 13c Swin-T, MobileNetV3-Large, EfficientNet-B0, DenseNet-121; the
     # launches counted from 0 over each run
     registry = registry_phases(keep.name)
 
+    stamp('phase 14')
     # 14. int8 serving, the checkpoint tools and visualization on ViT-B/16
     # --flash_attn and ConvNeXt-T; the launches counted from 0 over each path
     lifecycle = lifecycle_phases(keep.name)
+    stamp('phase 15')
+    # 15. UPerNet segmentation at full width in one process (seg_train),
+    # whole / slide / ms eval, K3-K5 at its backbone's shapes
+    seg = seg_phases(keep.name)
     keep.cleanup()
 
+    stamp('the kernels line')
     # results
     replaces_bwd = ("jax/experimental/pallas/ops/tpu/flash_attention.py:{} (the backward of "
                     "imageclassification_tpu/models/vit.py:25)")
@@ -4157,6 +4675,34 @@ def main() -> int:
     # the flash kernels on phase 14's paths: int8 serving (the wrappers over
     # val.py, the eager first batch and its capture; a replayed batch from a
     # trace), Grad-CAM of one batch, and one call of each reloaded program
+    # the fp32 kernels (C1): 3a/3b at the main shape, launches over phase
+    # 5d's run and per replayed step, the fp32 served batch
+    replaces = {"fwd": "jax/experimental/pallas/ops/tpu/flash_attention.py:758 (imageclassification_"
+                       "tpu/models/vit.py:25 in an fp32 model)",
+                "dkv": replaces_bwd.format(1121) + " in an fp32 model",
+                "dq": replaces_bwd.format(1456) + " in an fp32 model"}
+    for part, total, errs in (("fwd", "fwd", None), ("dkv", "bwd_dkv", ("dk", "dv")),
+                              ("dq", "bwd_dq", ("dq",))):
+        row = main32 if part == "fwd" else bwd32_main
+        entry = {"name": K1_PARTS[part] + k1_dtype("fp32")[1], "route": "cuda",
+                 "source": f"imageclassification_tpu_torch/csrc/{fa.KERNEL_F32}.cu",
+                 "replaces": replaces[part], "launches": f32_totals[total],
+                 "launches_per_replay": f32_replay[part], "plain_ms": row["plain_ms"],
+                 "library_ms": row["library_ms"], "library_device_ms": row["library_device_ms"],
+                 "step_ms_fp32": f32_step_ms,
+                 "shapes": {str(tuple(r["shape"])): {k: r[k] for k in ("ms", "device_ms",
+                                                                   "plain_ms", "library_ms")}
+                            for r in (rows32 if part == "fwd" else bwd32)}}
+        if part == "fwd":
+            entry.update(max_abs_err=row["max_abs_err"], ms=row["ms"], bound_ms=row["bound_ms"],
+                         bound_by=row["bound_by"], device_ms=row["device_ms"],
+                         launches_lse=f32_totals["fwd_lse"], served_fp32=f32_serve)
+        else:
+            entry.update(max_abs_err=max(row["errs"][e][0] for e in errs),
+                         ms=row[f"ms_{part}"], bound_ms=row["bounds"][part][0],
+                         bound_by=row["bounds"][part][1], device_ms=row[f"device_ms_{part}"])
+        kernels.append(entry)
+    f32_entries = {k["name"]: k for k in kernels[-3:]}
     cam = lifecycle["gradcam"][VIT_B16["name"]]["launches"]
     kernels[0]["int8_serving"] = {
         "path": "int8 ViT-B/16 served by val.py (chip_smoke.py phase 14a)",
@@ -4165,9 +4711,36 @@ def main() -> int:
     kernels[0]["export"] = {
         "path": "the reloaded torch.export program of ViT-B/16 (chip_smoke.py phase 14b)",
         "launches": lifecycle["export"]["bf16"]["launches"]["fwd"]}
-    for entry, total in zip(kernels[:3], ("fwd", "bwd_dkv", "bwd_dq")):
-        entry["gradcam"] = {"path": "Grad-CAM of ViT-B/16, one batch (chip_smoke.py phase 14c)",
-                            "launches": cam[total]}
+    for part, total in (("fwd", "fwd"), ("dkv", "bwd_dkv"), ("dq", "bwd_dq")):
+        f32_entries[K1_PARTS[part] + k1_dtype("fp32")[1]]["gradcam"] = {
+            "path": "Grad-CAM of ViT-B/16 in fp32, one batch (chip_smoke.py phase 14c)",
+            "launches": cam[total]}
+    # K3-K5 on the segmentation path (phase 15): launches in the replay of
+    # one UPerNet iteration's backbone, and the kernels at its stage-0 shape
+    seg_ln0, seg_dw0 = seg["ln_rows"][0], seg["dw_rows"][0]
+    for k in kernels:
+        if k["name"].startswith("layer_norm_"):
+            part = k["name"].split("_")[-1]
+            k["upernet"] = {"path": "replay of one UPerNet ConvNeXt-T 512^2 batch-16 iteration "
+                                    "(chip_smoke.py phase 15)",
+                            "launches": seg["replay"]["launches"][f"ln_{part}"],
+                            "shape": seg_ln0["shape"], "ms": seg_ln0[f"ms_{part}"],
+                            "device_ms": seg_ln0[f"device_ms_{part}"],
+                            "library_ms": seg_ln0[f"library_ms_{part}"],
+                            "bound_ms": seg_ln0[f"bound_{part}"][0]}
+        elif k["name"].startswith("dwconv7x7_"):
+            part = "fwd" if k["name"].endswith("fwd") else "dw"
+            k["upernet"] = {"path": "replay of one UPerNet ConvNeXt-T 512^2 batch-16 iteration "
+                                    "(chip_smoke.py phase 15)",
+                            "launches": (seg["replay"]["launches"]["dw_fwd"]
+                                         + seg["replay"]["launches"]["dw_dx"] if part == "fwd"
+                                         else seg["replay"]["launches"]["dw_dw"]),
+                            "shape": seg_dw0["shape"], "ms": seg_dw0["ms"][part],
+                            "device_ms": seg_dw0["device_ms"][part],
+                            "library_ms": seg_dw0["library_ms"][part],
+                            "bound_ms": seg_dw0["bound"][part][0]}
+    if any(k.get("upernet", {"launches": 1})["launches"] <= 0 for k in kernels):
+        raise AssertionError("a K3-K5 kernel was not launched in the UPerNet replay")
     for k in kernels:
         for path in ("int8_serving", "export", "gradcam"):
             if path in k and k[path]["launches"] <= 0:
@@ -4182,8 +4755,11 @@ def main() -> int:
             raise AssertionError(f"{k['name']} was not launched on the fine-tuning path")
         if "at_4097" in k and k["at_4097"]["launches"] <= 0:
             raise AssertionError(f"{k['name']} was not launched on the high-resolution path")
+    seg_summary = {k: seg[k] for k in ("losses", "miou_whole", "miou_slide", "miou_ms",
+                                       "aacc_whole", "ms_step", "peak_gib", "seconds")}
+    seg_summary["replay_nearest"] = seg["replay"]["nearest"]
     log(json.dumps({"kernels": kernels, "recipes": recipes, "registry": registry,
-                    "lifecycle": lifecycle}))
+                    "lifecycle": lifecycle, "segmentation": seg_summary}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
@@ -4235,4 +4811,6 @@ if __name__ == "__main__":
         sys.exit(registry_main(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--lifecycle"]:
         sys.exit(lifecycle_main(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--segmentation"]:
+        sys.exit(seg_main(sys.argv[2], sys.argv[3]))
     sys.exit(main())

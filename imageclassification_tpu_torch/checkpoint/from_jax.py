@@ -70,6 +70,20 @@ Swin (`SWIN_MODULES`; the inverse of `torch_convert.convert_swin`):
     merge{s}/{norm,reduction}/*                         layers.{s}.downsample.{norm,reduction}.*
     norm/*, head/*, norm{i}/* (features_only)           norm.*, head.*, norm{i}.*
 
+UPerNet (`upernet_modules`) and the FPN neck (`FPN_MODULES`) of downstream/:
+the backbone's table under backbone/ and backbone., and the heads' modules
+by their JAX names, each ConvModule's conv (a kernel without bias) and bn
+(scale, bias and the batch statistics mean, var):
+
+    JAX flat key                                        port state_dict key
+    backbone/<ConvNeXt or Swin key>                     backbone.<its port key>
+    decode_head/{lateral,fpn}{i}/{conv,bn}/*            decode_head.{lateral,fpn}{i}.{conv,bn}.*
+    decode_head/ppm/{pool{i},bottleneck}/{conv,bn}/*    decode_head.ppm.{pool{i},bottleneck}.*
+    decode_head/fuse/{conv,bn}/*                        decode_head.fuse.{conv,bn}.*
+    {decode,auxiliary}_head/conv_seg/{kernel,bias}      {decode,auxiliary}_head.conv_seg.*
+    auxiliary_head/conv0/{conv,bn}/*                    auxiliary_head.conv0.{conv,bn}.*
+    lateral{i}/*, fpn{i}/* (FPN)                        lateral{i}.*, fpn{i}.*
+
 MobileNetV3, EfficientNet and DenseNet (`mobilenetv3_modules`,
 `efficientnet_modules`, `densenet_modules`; the inverses of
 `convert_mobilenetv3`, `convert_efficientnet` and `convert_densenet`, their
@@ -436,6 +450,35 @@ def densenet_modules(block_config):
             _conv_bn(modules, f"transition{i}_conv", f"transition{i}_norm",
                      f"features.transition{i + 1}.conv", f"features.transition{i + 1}.norm")
     return modules
+
+
+def _conv_module(jax_name: str, port_name: str):
+    """The rows of one UPerNet ConvModule (conv without bias, BatchNorm)."""
+    return [(f"{jax_name}/conv", f"{port_name}.conv", _CONV_KERNEL),
+            (f"{jax_name}/bn", f"{port_name}.bn", _BN)]
+
+
+# UPerNet's heads (downstream/upernet.py): the JAX names, "." for "/"
+UPERNET_HEAD_MODULES = [
+    *_conv_module("decode_head/lateral{n}", "decode_head.lateral{n}"),
+    *_conv_module("decode_head/ppm/pool{n}", "decode_head.ppm.pool{n}"),
+    *_conv_module("decode_head/ppm/bottleneck", "decode_head.ppm.bottleneck"),
+    *_conv_module("decode_head/fpn{n}", "decode_head.fpn{n}"),
+    *_conv_module("decode_head/fuse", "decode_head.fuse"),
+    ("decode_head/conv_seg", "decode_head.conv_seg", _CONV),
+    *_conv_module("auxiliary_head/conv0", "auxiliary_head.conv0"),
+    ("auxiliary_head/conv_seg", "auxiliary_head.conv_seg", _CONV),
+]
+# the detection neck (downstream/fpn.py): convs with bias
+FPN_MODULES = [("lateral{n}", "lateral{n}", _CONV), ("fpn{n}", "fpn{n}", _CONV)]
+
+
+def upernet_modules(backbone_modules):
+    """The module table of a UPerNet whose backbone has the table
+    `backbone_modules` (ConvNeXt's or Swin's): the backbone's rows under
+    backbone/ (JAX) and backbone. (port), then the heads'."""
+    return [(f"backbone/{j}", f"backbone.{p}", leaves) for j, p, leaves in backbone_modules] + \
+        UPERNET_HEAD_MODULES
 
 
 def vit_state_dict_from_jax(flat: Dict[str, np.ndarray], num_heads: int) -> Dict[str, torch.Tensor]:

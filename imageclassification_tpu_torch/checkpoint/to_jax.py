@@ -48,6 +48,8 @@ from typing import Callable, Dict, List, NamedTuple
 import numpy as np
 import torch
 
+from ..downstream.fpn import FPN
+from ..downstream.upernet import UPerNet
 from ..models.convnext import ConvNeXt
 from ..models.densenet import DenseNet
 from ..models.efficientnet import EfficientNet
@@ -57,10 +59,11 @@ from ..models.resnet import ResNet
 from ..models.swin import SwinTransformer
 from ..models.vit import ViT
 from ..optim.factory import COUPLED_WD, MOMENTS, JaxLeaf, Optimizer
-from .from_jax import (CONVNEXT_MODULES, SWIN_MODULES, convnext_state_dict_with_sources,
-                       densenet_modules, efficientnet_modules, efficientvit_modules,
-                       match_module, mobilenetv3_modules, resnet_modules, split_modules,
-                       state_dict_with_sources, vit_state_dict_with_sources)
+from .from_jax import (CONVNEXT_MODULES, FPN_MODULES, SWIN_MODULES,
+                       convnext_state_dict_with_sources, densenet_modules, efficientnet_modules,
+                       efficientvit_modules, match_module, mobilenetv3_modules, resnet_modules,
+                       split_modules, state_dict_with_sources, upernet_modules,
+                       vit_state_dict_with_sources)
 
 _ATTN = "MultiHeadDotProductAttention_0"
 
@@ -169,12 +172,18 @@ def _table(model: torch.nn.Module):
         return efficientnet_modules(*zip(*model.stage_layout))
     if isinstance(model, DenseNet):
         return densenet_modules(model.block_config)
+    if isinstance(model, UPerNet):
+        backbone = _table(model.backbone)
+        return None if backbone is None else upernet_modules(backbone)
+    if isinstance(model, FPN):
+        return FPN_MODULES
     return None
 
 
 def carry_for(model: torch.nn.Module) -> Carry:
-    """The weight carry of `model`'s family (every family of the registry);
-    TypeError for a module that is none of them."""
+    """The weight carry of `model`'s family (every family of the registry,
+    and UPerNet and FPN of downstream/); TypeError for a module that is none
+    of them."""
     if isinstance(model, ViT):
         return Carry(functools.partial(vit_state_dict_with_sources, num_heads=model.num_heads),
                      functools.partial(vit_flat_from_state_dict, num_heads=model.num_heads))

@@ -1,5 +1,5 @@
 """Flash attention: hand-written Hopper kernels (forward, and the backward as a
-dQ kernel and a dK/dV kernel) and their plain versions.
+dQ kernel and a dK/dV kernel), in bf16 and in fp32, and their plain versions.
 
 Replaces `imageclassification_tpu/models/vit.py:25` `flash_attention_fn`,
 which runs the Pallas TPU kernel `jax.experimental.pallas.ops.tpu.flash_attention`
@@ -10,8 +10,21 @@ the token axis to a multiple of 128 and masks the padded keys by segment ids;
 that padding is a TPU tiling detail, so here nothing is padded and the
 kernels mask the ragged tail themselves.
 
-What bounds them on an H100 and what the designs do about it: see the headers
-of `csrc/flash_attention_fwd.cu` and `csrc/flash_attention_bwd.cu`. In short:
+The JAX function hands the Pallas kernel the model's own dtype: bf16 under
+`--half_precision true`, fp32 under `--half_precision false`. So there are
+two sets of kernels, chosen by the inputs' dtype in `_launch`, `_launch_dq`
+and `_launch_dkv` (and so in `_FlashAttention` and the two operators): the
+bf16 ones (`csrc/flash_attention_fwd.cu`, `csrc/flash_attention_bwd.cu`)
+and the fp32 ones (`csrc/flash_attention_f32.cu`: every product and sum an
+fp32 FFMA on the CUDA cores, no TF32 and no bf16 anywhere, one CTA a
+(batch, head, 64-row block), the other axis's tiles streamed through shared
+memory). Both take the same arguments (`_Launch`) and write the same
+outputs (o, lse, di, dq, dk, dv) in their inputs' dtype, lse and di fp32.
+
+What bounds the bf16 kernels on an H100 and what their designs do about it:
+see the headers of `csrc/flash_attention_fwd.cu` and
+`csrc/flash_attention_bwd.cu` (and of `csrc/flash_attention_f32.cu` for the
+fp32 ones). In short:
 memory-bound at ViT's N = 197, compute-bound from a few hundred tokens up;
 the N x N products kept in registers, all products on tensor cores (bf16,
 fp32 accumulation). The forward: persistent CTAs walking over (batch, head,
@@ -53,7 +66,10 @@ from . import _build
 
 KERNEL = "flash_attention_fwd"
 KERNEL_BWD = "flash_attention_bwd"
+KERNEL_F32 = "flash_attention_f32"
 HEAD_DIM = 64
+# the kernels' dtypes, and the suffix of each one's launch counts
+_COUNT_SUFFIX = {torch.bfloat16: "", torch.float32: "_f32"}
 
 
 def _heads_first(*ts):
@@ -102,11 +118,14 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do):
 def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """Raise on what the kernels do not take: NotImplementedError for the
     dtypes and head sizes not ported yet, ValueError for a layout the kernels
-    cannot read. Returns the layout of the forward's tensor maps
-    (`tensor_map_layout`), which the backward's tensor maps take too."""
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
+    cannot read. q, k and v are all bf16 (the bf16 kernels) or all fp32 (the
+    fp32 kernels). Returns the layout of the bf16 kernels' tensor maps
+    (`tensor_map_layout`); the fp32 kernels read the same byte strides with
+    16-byte loads."""
+    if not (q.dtype == k.dtype == v.dtype and q.dtype in _COUNT_SUFFIX):
         raise NotImplementedError(
-            f"flash-attention kernel takes bfloat16 only, got {q.dtype}/{k.dtype}/{v.dtype}"
+            f"flash-attention kernels take bfloat16 or float32 q, k, v of one dtype, got "
+            f"{q.dtype}/{k.dtype}/{v.dtype}"
         )
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(
@@ -165,38 +184,51 @@ def _launch_args(B: int, N: int, H: int, D: int, device: int, qkv_strides: tuple
 
 
 @functools.cache
-def _kernels():
-    """(forward, dQ, dK/dV) C entry points, their argument types set."""
-    fwd_lib, bwd_lib = _build.load(KERNEL), _build.load(KERNEL_BWD)
-    for lib, name in ((fwd_lib, KERNEL), (bwd_lib, KERNEL_BWD)):
+def _kernels(dtype: torch.dtype = torch.bfloat16):
+    """(forward, dQ, dK/dV) C entry points of the kernels for `dtype` (bf16
+    or fp32), their argument types set."""
+    if dtype == torch.float32:
+        fwd_lib = bwd_lib = _build.load(KERNEL_F32)
+        libs, tag = ((fwd_lib, KERNEL_F32),), "f32"
+    else:
+        fwd_lib, bwd_lib = _build.load(KERNEL), _build.load(KERNEL_BWD)
+        libs, tag = ((fwd_lib, KERNEL), (bwd_lib, KERNEL_BWD)), "bf16"
+    for lib, name in libs:
         size = getattr(lib, f"{name}_launch_bytes")
         size.restype = ctypes.c_size_t
         if size() != ctypes.sizeof(_Launch):
             raise RuntimeError(f"ops/flash_attention.py `_Launch` does not match "
                                f"csrc/flash_attention_common.cuh `FlashLaunch` ({name})")
     p, launch = ctypes.c_void_p, ctypes.POINTER(_Launch)
-    fwd = fwd_lib.flash_attention_fwd_bf16
-    dq, dkv = bwd_lib.flash_attention_bwd_dq_bf16, bwd_lib.flash_attention_bwd_dkv_bf16
+    fwd = getattr(fwd_lib, f"flash_attention_fwd_{tag}")
+    dq = getattr(bwd_lib, f"flash_attention_bwd_dq_{tag}")
+    dkv = getattr(bwd_lib, f"flash_attention_bwd_dkv_{tag}")
     fwd.argtypes = [p] * 5 + [launch, p]
     dq.argtypes = dkv.argtypes = [p] * 8 + [launch, p]
     fwd.restype = dq.restype = dkv.restype = ctypes.c_int
     return fwd, dq, dkv
 
 
+def _count(name: str, dtype: torch.dtype) -> None:
+    """One more launch of the `dtype` kernel counted as `name`."""
+    key = name + _COUNT_SUFFIX[dtype]
+    setattr(flash_attention, key, getattr(flash_attention, key) + 1)
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool = False):
-    """Forward kernel: (out, lse), lse None unless `with_lse`."""
+    """Forward kernel of q's dtype: (out, lse), lse None unless `with_lse`."""
     _, strides = check_kernel_inputs(q, k, v)  # k and v share q's strides
     B, N, H, D = q.shape
     out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device) if with_lse else None
-    err = _kernels()[0](
+    err = _kernels(q.dtype)[0](
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if with_lse else None,
         _launch_args(B, N, H, D, q.get_device(), strides), _build.stream(q))
-    _build.raise_on(err, KERNEL)
-    flash_attention.launches += 1
+    _build.raise_on(err, KERNEL + _COUNT_SUFFIX[q.dtype])
+    _count("launches", q.dtype)
     if with_lse:
-        flash_attention.launches_lse += 1
+        _count("launches_lse", q.dtype)
     return out, lse
 
 
@@ -241,12 +273,12 @@ def _launch_dq(q, k, v, o, do, lse, strides):
     B, N, H, D = q.shape
     dq = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
     di = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
-    err = _kernels()[1](
+    err = _kernels(q.dtype)[1](
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
         _launch_args(B, N, H, D, q.get_device(), *strides), _build.stream(q))
-    _build.raise_on(err, "flash_attention_bwd_dq")
-    flash_attention.launches_dq += 1
+    _build.raise_on(err, "flash_attention_bwd_dq" + _COUNT_SUFFIX[q.dtype])
+    _count("launches_dq", q.dtype)
     return dq, di
 
 
@@ -256,18 +288,18 @@ def _launch_dkv(q, k, v, do, lse, di, strides):
     B, N, H, D = q.shape
     dk = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    err = _kernels()[2](
+    err = _kernels(q.dtype)[2](
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         _launch_args(B, N, H, D, q.get_device(), *strides), _build.stream(q))
-    _build.raise_on(err, "flash_attention_bwd_dkv")
-    flash_attention.launches_dkv += 1
+    _build.raise_on(err, "flash_attention_bwd_dkv" + _COUNT_SUFFIX[q.dtype])
+    _count("launches_dkv", q.dtype)
     return dk, dv
 
 
 def flash_attention_bwd(q, k, v, o, lse, do):
-    """(dq, dk, dv) through the two backward kernels, dQ first (it writes
-    di for dK/dV); CUDA tensors only."""
+    """(dq, dk, dv) through the two backward kernels of q's dtype, dQ first
+    (it writes di for dK/dV); CUDA tensors only."""
     do, strides = _bwd_inputs(q, k, v, o, lse, do)
     dq, di = _launch_dq(q, k, v, o, do, lse, strides)
     dk, dv = _launch_dkv(q, k, v, do, lse, di, strides)
@@ -354,12 +386,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     """softmax(q k^T * D^-0.5) v over [B, N, H, D] tensors, differentiable.
 
     CPU tensors take `flash_attention_ref`; CUDA tensors launch the kernels
-    (bf16, D = 64), through the operators `_fwd_op` and `_bwd_op` where
-    torch traces or a dispatch mode watches; only a call that needs a
-    gradient builds an autograd node.
+    of their dtype (bf16 or fp32, D = 64), through the operators `_fwd_op`
+    and `_bwd_op` where torch traces or a dispatch mode watches; only a call
+    that needs a gradient builds an autograd node.
     Counts, as plain integers on this function: `launches` (forward kernel),
     `launches_lse` (of those, the ones that wrote lse for a backward),
-    `launches_dkv` and `launches_dq` (one each per backward)."""
+    `launches_dkv` and `launches_dq` (one each per backward) of the bf16
+    kernels, and the same names with `_f32` of the fp32 kernels."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v)
     if q.device.type != "cuda":
@@ -369,12 +402,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     return _fwd(q, k, v, False)[0]
 
 
+LAUNCH_COUNTS = tuple(f"launches{part}{suffix}" for suffix in _COUNT_SUFFIX.values()
+                      for part in ("", "_lse", "_dkv", "_dq"))
+
+
 def reset_launches() -> None:
     """Set every launch count of `flash_attention` to 0."""
-    flash_attention.launches = 0
-    flash_attention.launches_lse = 0
-    flash_attention.launches_dkv = 0
-    flash_attention.launches_dq = 0
+    for name in LAUNCH_COUNTS:
+        setattr(flash_attention, name, 0)
 
 
 reset_launches()

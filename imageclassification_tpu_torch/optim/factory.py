@@ -178,12 +178,15 @@ class Optimizer:
     the updates applied), `lr` and `weight_decay` (fp32), and with
     Lookahead `slow` (the slow weights) and `lookahead_count`. `name` is the
     routed base name; `groups` lists the parameters of each layer scale in
-    `scales`, lowest first."""
+    `scales`, lowest first. adamw takes a `decay_mask` (one bool a
+    parameter; optax `add_decayed_weights(mask=)`): the parameters where it
+    is False are not decayed, and each scale then has a group of each."""
 
     def __init__(self, name: str, params: Sequence[torch.nn.Parameter], lr: float,
                  weight_decay: float, eps: float = 1e-8, betas=(0.9, 0.999),
                  clip_grad: Optional[float] = None, layer_scales: Optional[Sequence[float]] = None,
-                 leaves: Optional[Sequence[Leaves]] = None, lookahead: bool = False):
+                 leaves: Optional[Sequence[Leaves]] = None, lookahead: bool = False,
+                 decay_mask: Optional[Sequence[bool]] = None):
         self.name = name
         self.params: List[torch.nn.Parameter] = list(params)
         self.clip_grad = clip_grad
@@ -214,13 +217,22 @@ class Optimizer:
         scales = [1.0] * len(self.params) if layer_scales is None else list(layer_scales)
         if len(scales) != len(self.params):
             raise ValueError(f"{len(scales)} layer scales for {len(self.params)} parameters")
-        order = sorted(set(scales))
-        self.groups = [[i for i, s in enumerate(scales) if s == v] for v in order]
-        self.scales = torch.tensor(order, dtype=torch.float32, device=device)
-        self.scale_bounds = (order[0], order[-1])
-        # lr * s and 1 - lr * s * wd of each group, derived in set_hyperparams
+        masked = [True] * len(self.params) if decay_mask is None else [bool(m) for m in decay_mask]
+        if len(masked) != len(self.params):
+            raise ValueError(f"{len(masked)} decay mask entries for {len(self.params)} parameters")
+        if decay_mask is not None and name != "adamw":
+            raise ValueError(f"a weight decay mask is taken by adamw only, not {name}")
+        # a group for each (scale, decayed) pair; without a mask, one a scale
+        order = sorted(set(zip(scales, masked)))
+        self.groups = [[i for i, key in enumerate(zip(scales, masked)) if key == v] for v in order]
+        self.scales = torch.tensor([s for s, _ in order], dtype=torch.float32, device=device)
+        self.decayed = torch.tensor([float(m) for _, m in order], dtype=torch.float32,
+                                    device=device)
+        self.scale_bounds = (order[0][0], order[-1][0])
+        # lr * s and 1 - lr * s * wd (1 where the mask says no decay) of each
+        # group, derived in set_hyperparams
         self.group_lr = self.scales * self.lr
-        self.group_decay = 1.0 - self.group_lr * self.weight_decay
+        self.group_decay = 1.0 - self.group_lr * self.weight_decay * self.decayed
         self.lookahead = lookahead
         if lookahead:
             self.slow = [p.detach().clone() for p in self.params]
@@ -244,7 +256,7 @@ class Optimizer:
             else:
                 dst.fill_(float(v))
         torch.mul(self.scales, self.lr, out=self.group_lr)
-        self.group_decay.copy_(1.0 - self.group_lr * self.weight_decay)
+        self.group_decay.copy_(1.0 - self.group_lr * self.weight_decay * self.decayed)
 
     def leaf_state(self, k: str, i: int, j: int) -> torch.Tensor:
         """Parameter i's JAX tensor j's state `k` (a view in its JAX shape)."""

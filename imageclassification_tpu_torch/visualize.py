@@ -28,9 +28,8 @@ those too.
 
 Checkpoints load through `val.initialize_model` in fp32, as in the JAX CLI
 (Grad-CAM and features dequantized). On the card a checkpoint trained with
---flash_attn computes in bf16, because the flash-attention kernel takes bf16
-only; its Grad-CAM then launches the kernel's forward in every block and
-its backward in the last.
+--flash_attn runs the fp32 flash-attention kernels: its Grad-CAM launches
+the forward in every block and the backward (dQ, dK/dV) in the last.
 """
 
 from __future__ import annotations
@@ -238,27 +237,14 @@ def _list_images(img_path):
                   if f.lower().endswith(IMG_EXTENSIONS))
 
 
-def _half_precision(a) -> bool:
-    """bf16 compute for a --flash_attn checkpoint on the card (module
-    docstring), fp32 otherwise, as the JAX CLI."""
-    from .checkpoint.io import load_checkpoint
-
-    spec = load_checkpoint(a.model_weight_path, dequantize=False)["model_spec"]
-    half = a.device == "cuda" and bool(spec.get("kwargs", {}).get("flash_attn"))
-    if half:
-        print("--flash_attn checkpoint on the card: bf16 compute (the flash-attention "
-              "kernel takes bf16 only)")
-    return half
-
-
 def _load(a, dequantize: bool):
     """The checkpoint's model through `val.initialize_model`, its
     parameters frozen (Grad-CAM differentiates the probe alone)."""
     from .val import initialize_model
 
     model, num_classes = initialize_model(a.model_weight_path, a.model_ema,
-                                          half_precision=_half_precision(a),
-                                          dequantize=dequantize, device=a.device)
+                                          half_precision=False, dequantize=dequantize,
+                                          device=a.device)
     return model.requires_grad_(False), num_classes
 
 

@@ -49,7 +49,7 @@ def jax_flash_attention(monkeypatch):
 
 @pytest.fixture
 def launches(monkeypatch):
-    for name in ("launches", "launches_lse", "launches_dkv", "launches_dq"):
+    for name in fa.LAUNCH_COUNTS:
         monkeypatch.setattr(fa.flash_attention, name, 0)
 
 
@@ -65,7 +65,7 @@ def _qkv(shape, seed, dtype=np.float32):
     return [rng.standard_normal(shape).astype(dtype) for _ in range(3)]
 
 
-@pytest.mark.parametrize("n", [5, 128, 197])
+@pytest.mark.parametrize("n", [5, 65, 128, 197])
 def test_ref_matches_jax_flash_kernel(jax_flash_attention, n):
     # fp32 on both sides. The JAX kernel pads N to a multiple of 128 and masks
     # the padded keys by segment id; the plain version pads nothing. Same
@@ -101,7 +101,7 @@ def test_cpu_wrapper_reads_strided_qkv_views():
 @pytest.mark.parametrize(
     "dtype,shape,err",
     [
-        (torch.float32, (2, 9, 3, 64), NotImplementedError),   # dtype gap
+        (torch.float32, (2, 9, 3, 64), None),                  # the fp32 kernels
         (torch.float16, (2, 9, 3, 64), NotImplementedError),   # dtype gap
         (torch.bfloat16, (2, 9, 3, 32), NotImplementedError),  # head_dim gap
         (torch.bfloat16, (2, 9, 3, 64), None),
@@ -175,7 +175,7 @@ def jax_flash_grads():
     return get
 
 
-@pytest.mark.parametrize("n", [5, 128, 197])
+@pytest.mark.parametrize("n", [5, 65, 128, 197])
 @pytest.mark.parametrize("impl", ["bwd_ref", "autograd"])
 def test_backward_matches_jax_flash_kernels(jax_flash_grads, impl, n):
     # fp32 on both sides: the JAX gradients come from the Pallas dK/dV and dQ
@@ -275,8 +275,13 @@ def test_backward_input_checks():
         fa._bwd_inputs(q, k, v, q, lse[:, :, :-1], do)
     with pytest.raises(ValueError, match="do"):
         fa._bwd_inputs(q, k, v, q, lse, do[:, :-1])
-    with pytest.raises(NotImplementedError):
+    # fp32 q, k, v take the fp32 kernels, whose o and dO are fp32 too; a
+    # dtype the kernels do not take at all raises NotImplementedError
+    with pytest.raises(ValueError, match="dtype"):
         fa._bwd_inputs(q.float(), k.float(), v.float(), q, lse, do)
+    fa._bwd_inputs(q.float(), k.float(), v.float(), q.float(), lse, do.float())
+    with pytest.raises(NotImplementedError):
+        fa._bwd_inputs(q.half(), k.half(), v.half(), q.half(), lse, do.half())
 
 
 def test_launch_structure_has_the_c_structs_fields_in_order():
@@ -463,3 +468,174 @@ def test_backward_is_bitwise_repeatable_on_card(cuda_device, n):
     torch.cuda.synchronize()
     for name, a, b in zip(("dq", "dk", "dv"), first, second):
         assert torch.equal(a, b), name
+
+
+def test_launch_counts_of_both_dtypes_reset_to_zero():
+    # one count a kernel and dtype: the bf16 kernels' names, and the same
+    # with _f32 for the fp32 kernels (csrc/flash_attention_f32.cu)
+    assert set(fa.LAUNCH_COUNTS) == {
+        f"launches{part}{suffix}" for part in ("", "_lse", "_dkv", "_dq")
+        for suffix in ("", "_f32")}
+    fa.flash_attention.launches_f32 = 3
+    fa.reset_launches()
+    assert all(getattr(fa.flash_attention, n) == 0 for n in fa.LAUNCH_COUNTS)
+
+
+def test_f32_launch_structure_matches_the_fp32_sources_entry_points():
+    # the fp32 library takes the same FlashLaunch as the bf16 ones and has
+    # the three entry points the wrapper binds, with the bf16 ones' arguments
+    src = (Path(fa.__file__).parent.parent / "csrc" / "flash_attention_f32.cu").read_text()
+    assert '#include "flash_attention_common.cuh"' in src
+    for name, n_ptr in (("flash_attention_fwd_f32", 5), ("flash_attention_bwd_dq_f32", 8),
+                        ("flash_attention_bwd_dkv_f32", 8)):
+        sig = re.search(rf'extern "C" int {name}\((.*?)\)', src, re.S).group(1)
+        args = [a.strip() for a in sig.split(",")]
+        assert len(args) == n_ptr + 2 and args[-2].startswith("const FlashLaunch*")
+        assert args[-1] == "void* stream"
+    assert "flash_attention_f32_launch_bytes" in src
+    # no tensor-core or bf16 arithmetic in the fp32 kernels
+    code = re.sub(r"//.*", "", src)
+    for banned in ("wgmma", "mma.sync", "bf16", "__nv_bfloat16", "tf32", "half"):
+        assert banned not in code, banned
+
+
+# fp32 kernels against the fp32 plain version on the card, with TF32 off
+# for the plain version's matmuls: at most 2^-14 of max|ref| for the output
+# and 2^-12 for each gradient (TF32's unit roundoff 2^-11 cannot meet them)
+F32_RTOL, F32_BWD_RTOL = 2.0 ** -14, 2.0 ** -12
+
+
+@pytest.fixture
+def fp32_reference(cuda_device):
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assert torch.get_float32_matmul_precision() == "highest"
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _card_qkv32(n, device, seed, heads=12, batch=2):
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((batch, n, 3, heads, 64)).astype(np.float32)
+    return torch.from_numpy(a).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_lse", [False, True])
+@pytest.mark.parametrize("n", [1, 5, 63, 64, 65, 129, 197, 577, 1025])
+def test_f32_forward_matches_plain_version_on_card(cuda_device, fp32_reference, launches, n,
+                                                    with_lse):
+    # q, k, v strided out of one fused fp32 tensor, every ragged tail against
+    # the 64-row tiles; lse against logsumexp of the fp32 scores (1e-5: both
+    # fp32, only the order of the sums differs)
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    q, k, v = _card_qkv32(n, cuda_device, seed=31 * n).unbind(2)
+    out, lse = fa._launch(q, k, v, with_lse=with_lse)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches_f32, fa.flash_attention.launches_lse_f32,
+            fa.flash_attention.launches) == (1, int(with_lse), 0)
+    ref = fa.flash_attention_ref(q, k, v)
+    assert out.dtype == torch.float32 and out.is_contiguous() and out.shape == q.shape
+    err = (out - ref).abs().max().item()
+    assert err <= F32_RTOL * ref.abs().max().item(), f"max|d| {err}"
+    if with_lse:
+        torch.testing.assert_close(lse, fa.flash_attention_lse_ref(q, k), atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", BWD_CARD_N)
+def test_f32_backward_kernels_match_plain_version_on_card(cuda_device, fp32_reference, launches,
+                                                          n):
+    # autograd through the fused fp32 view: one launch of each fp32 kernel
+    # and none of the bf16 ones; each gradient within 2^-12 of its max|ref|
+    # (+1e-6 for dq at N = 1, which vanishes)
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    qkv = _card_qkv32(n, cuda_device, seed=37 * n).requires_grad_()
+    q, k, v = qkv.unbind(2)
+    g = _card_qkv32(n, cuda_device, seed=41 * n)[:, :, 0]
+    fa.flash_attention(q, k, v).backward(g)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches_f32, fa.flash_attention.launches_lse_f32,
+            fa.flash_attention.launches_dq_f32, fa.flash_attention.launches_dkv_f32) == (1, 1, 1, 1)
+    assert (fa.flash_attention.launches, fa.flash_attention.launches_dq) == (0, 0)
+    qd, kd, vd = (t.detach() for t in (q, k, v))
+    want = fa.flash_attention_bwd_ref(qd, kd, vd, fa.flash_attention_ref(qd, kd, vd),
+                                      fa.flash_attention_lse_ref(qd, kd), g)
+    for name, got, w in zip("qkv", qkv.grad.unbind(2), want):
+        err = (got - w).abs().max().item()
+        assert err <= F32_BWD_RTOL * w.abs().max().item() + 1e-6, f"d{name}: max|d| {err}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5, 197, 1025])
+def test_f32_dq_kernel_writes_di_on_card(cuda_device, launches, n):
+    q, k, v = _card_qkv32(n, cuda_device, seed=43 * n).unbind(2)
+    do = _card_qkv32(n, cuda_device, seed=47 * n)[:, :, 1]
+    o, lse = fa._launch(q, k, v, with_lse=True)
+    do, strides = fa._bwd_inputs(q, k, v, o, lse, do)
+    dq, di = fa._launch_dq(q, k, v, o, do, lse, strides)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches_dq_f32 == 1 and fa.flash_attention.launches_dkv_f32 == 0
+    want = fa.flash_attention_di_ref(o, do)
+    torch.testing.assert_close(di, want, atol=1e-5 * want.abs().max().item(), rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [197, 1025])
+def test_f32_kernels_are_bitwise_repeatable_on_card(cuda_device, n):
+    # no atomics: every output element is summed by one thread in a fixed order
+    q, k, v = _card_qkv32(n, cuda_device, seed=53 * n).unbind(2)
+    do = _card_qkv32(n, cuda_device, seed=59 * n)[:, :, 2]
+    runs = []
+    for _ in range(2):
+        o, lse = fa._launch(q, k, v, with_lse=True)
+        runs.append((o, lse, *fa.flash_attention_bwd(q, k, v, o, lse, do)))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_f32_kernels_launch_once_each_under_a_cuda_graph(cuda_device, launches):
+    # captured forward + backward: one launch of each fp32 kernel at capture,
+    # replays that reproduce the eager results bitwise
+    qkv = _card_qkv32(197, cuda_device, seed=61).requires_grad_()
+    g = _card_qkv32(197, cuda_device, seed=67)[:, :, 0]
+
+    def step():
+        qkv.grad = None
+        fa.flash_attention(*qkv.unbind(2)).backward(g)
+        return qkv.grad
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        eager = step().clone()  # warm-up on a side stream, as engine/compiled.py does
+    torch.cuda.current_stream().wait_stream(stream)
+    fa.reset_launches()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = step()
+    assert (fa.flash_attention.launches_f32, fa.flash_attention.launches_dq_f32,
+            fa.flash_attention.launches_dkv_f32) == (1, 1, 1)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+    assert fa.flash_attention.launches_f32 == 1  # a replay runs no Python
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_operators_fake_versions_keep_the_dtype(dtype):
+    # torch.export traces the operators with fake tensors: the fake forward
+    # and backward give outputs of the inputs' dtype (lse fp32), so an
+    # exported fp32 model records the fp32 kernels' operators as a bf16 one
+    # records the bf16 ones; nothing launches
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        q = torch.empty((2, 9, 3, 64), dtype=dtype)
+        out, lse = fa._fwd_op(q, q, q, True)
+        grads = fa._bwd_op(q, q, q, out, lse, out)
+    assert out.dtype == dtype and out.shape == q.shape
+    assert lse.dtype == torch.float32 and lse.shape == (2, 3, 9)
+    assert all(g.dtype == dtype and g.shape == q.shape for g in grads)

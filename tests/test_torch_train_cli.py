@@ -622,8 +622,7 @@ def test_device_ms_survives_dropped_launches(monkeypatch):
     traces = iter([{"conv1x1_bn_kernel<true, true>": (0.5, 1.0)},  # no sum_partials
                    kept, kept, kept])
     monkeypatch.setattr(chip_smoke, "trace", lambda fn, steps=10: (0.0, 0.0, next(traces)))
-    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, iters, reps=5: 1.0)
-    monkeypatch.setattr(chip_smoke, "host_ms", lambda fn: 0.01)
+    _host_and_events(monkeypatch, 0.01, 1.0)
     got = chip_smoke._device_ms(None, {"conv1x1_bn_kernel": 1, "sum_partials": 2})
     assert got == pytest.approx(0.3 / 0.5 * 1 + 0.04 / 2.0 * 2, rel=1e-12)
     monkeypatch.setattr(chip_smoke, "trace", lambda fn, steps=10: (0.0, 0.0, {"other": (1.0, 1.0)}))
@@ -636,8 +635,7 @@ def test_device_ms_counts_whole_launches_and_retraces_a_misreading(monkeypatch):
     # the kernel's time at its mean per event: whole launches count both; a
     # reading of a device-bound call below half its CUDA events ms is traced
     # again, and raises when it stays there (as 0.1106 against 0.249 ms did)
-    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, iters, reps=5: 0.249)
-    monkeypatch.setattr(chip_smoke, "host_ms", lambda fn: 0.03)
+    _host_and_events(monkeypatch, 0.03, 0.249)
     split = {"flash_attention_fwd_kernel": (0.2352, 2.0)}
     monkeypatch.setattr(chip_smoke, "trace", lambda fn, steps=10: (0.0, 0.0, split))
     assert chip_smoke._device_ms(None, {"flash_attention_fwd_kernel": 1}) == \
@@ -653,29 +651,32 @@ def test_device_ms_counts_whole_launches_and_retraces_a_misreading(monkeypatch):
         chip_smoke._device_ms(None, {"flash_attention_fwd_kernel": 1})
     # the same reading of a host-bound call (host ms above half its events
     # ms) stands: its device is idle between launches
-    monkeypatch.setattr(chip_smoke, "host_ms", lambda fn: 0.2)
+    _host_and_events(monkeypatch, 0.2, 0.249)
     assert chip_smoke._device_ms(None, {"flash_attention_fwd_kernel": 1}) == \
         pytest.approx(0.1106, rel=1e-12)
     # inside a step, the other kernels count toward the check
     step = {"flash_attention_fwd_kernel": (24 * 0.242, 24.0), "gemm": (90.0, 200.0)}
-    monkeypatch.setattr(chip_smoke, "host_ms", lambda fn: 0.5)
+    _host_and_events(monkeypatch, 0.5, 96.9)
     monkeypatch.setattr(chip_smoke, "trace", lambda fn, steps=10: (0.0, 0.0, step))
     assert chip_smoke._device_ms(None, {"flash_attention_fwd": 24}, events_ms=96.9) == \
         pytest.approx(24 * 0.242, rel=1e-12)
 
 
+def _host_and_events(monkeypatch, host, events):
+    # the call's host ms and CUDA events ms, read on the same calls
+    monkeypatch.setattr(chip_smoke, "host_and_events_ms",
+                        lambda fn, calls=20, reps=3: (host, events))
+
+
 def _host_bound(monkeypatch):
-    # the call's CUDA events ms and host ms: host-bound, so no reading is held
-    # to its events ms
-    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, iters, reps=5: 1.0)
-    monkeypatch.setattr(chip_smoke, "host_ms", lambda fn: 0.9)
+    # host-bound, so no reading is held to its events ms
+    _host_and_events(monkeypatch, 0.9, 1.0)
 
 
 def test_library_device_ms_retraces_and_refuses_a_misreading(monkeypatch):
     # a device-bound library call read below half its CUDA events ms is
     # traced again, and raises when it stays there; a host-bound one stands
-    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, iters, reps=5: 0.7055)
-    monkeypatch.setattr(chip_smoke, "host_ms", lambda fn: 0.05)
+    _host_and_events(monkeypatch, 0.05, 0.7055)
     low, right = {"fmha_bwd": (0.30, 1.0)}, {"fmha_bwd": (0.65, 1.0)}
     traces = iter([low] * 3 + [right] * 3)
     monkeypatch.setattr(chip_smoke, "trace", lambda fn: (0.0, 0.0, next(traces)))
@@ -685,14 +686,14 @@ def test_library_device_ms_retraces_and_refuses_a_misreading(monkeypatch):
         chip_smoke._library_device_ms(None)
     # the events ms of the call may be given (timed once by the caller)
     assert chip_smoke._library_device_ms(None, events_ms=0.5) == pytest.approx(0.30, rel=1e-12)
-    monkeypatch.setattr(chip_smoke, "host_ms", lambda fn: 0.6)
+    _host_and_events(monkeypatch, 0.6, 0.7055)
     assert chip_smoke._library_device_ms(None) == pytest.approx(0.30, rel=1e-12)
 
 
 def test_device_ms_floors_a_kernel_inside_a_step(monkeypatch):
     # inside a 332 ms step the other kernels alone pass the whole-call check;
     # the kernel's own reading is held to half its CUDA events alone
-    monkeypatch.setattr(chip_smoke, "host_ms", lambda fn: 5.0)
+    _host_and_events(monkeypatch, 5.0, 332.0)
     low = {"flash_attention_fwd_kernel": (36 * 1.0, 36.0), "gemm": (240.0, 400.0)}
     right = {"flash_attention_fwd_kernel": (36 * 2.3, 36.0), "gemm": (240.0, 400.0)}
     traces = iter([low] * 3 + [right] * 3)
@@ -710,6 +711,32 @@ def test_device_ms_floors_a_kernel_inside_a_step(monkeypatch):
                               floor_ms=floor)
     # a kernel alone that is host-bound gives no floor
     assert chip_smoke.alone_floor(0.02, 0.03) == 0.0
+
+
+def test_device_ms_readers_judge_a_call_on_the_same_calls(monkeypatch):
+    # a host-bound call whose events the caller read at a slow moment of the
+    # host (0.3926 ms, about twice their usual) is judged on host and events
+    # ms of the same calls: host-bound, so its reading stands
+    monkeypatch.setattr(chip_smoke, "trace", lambda fn: (0.0, 0.0, {"ln_bwd": (0.078, 1.0)}))
+    _host_and_events(monkeypatch, 0.17, 0.18)
+    assert chip_smoke._library_device_ms(None, events_ms=0.3926) == \
+        pytest.approx(0.078, rel=1e-12)
+    # a device-bound call is held to the lesser of the two events readings,
+    # neither of which can be shorter than its device time
+    _host_and_events(monkeypatch, 0.02, 0.14)
+    assert chip_smoke._library_device_ms(None, events_ms=0.3926) == \
+        pytest.approx(0.078, rel=1e-12)
+    # and a reading far below its events is still refused
+    monkeypatch.setattr(chip_smoke, "trace", lambda fn: (0.0, 0.0, {"ln_bwd": (0.01, 1.0)}))
+    with pytest.raises(AssertionError, match="misreading"):
+        chip_smoke._library_device_ms(None, events_ms=0.3926)
+    # the caller's events ms sizes the run: at least 2 calls, at most 20
+    sizes = []
+    monkeypatch.setattr(chip_smoke, "host_and_events_ms",
+                        lambda fn, calls=20, reps=3: sizes.append(calls) or (0.9, 1.0))
+    for events_ms in (None, 0.01, 1.0, 332.0):
+        chip_smoke._library_device_ms(None, events_ms=events_ms)
+    assert sizes == [20, 20, 10, 2]
 
 
 def test_library_device_ms_survives_dropped_launches(monkeypatch):

@@ -6,6 +6,7 @@ Both sides compute in fp32 on the CPU."""
 
 import os
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -162,3 +163,26 @@ def test_gradcam_and_summary_cli(tmp_path, capsys):
                    "--device", "cpu"])
     printed = capsys.readouterr().out
     assert "number of params:" in printed and "GFLOPs" in printed
+
+
+def test_flash_checkpoint_loads_in_fp32_on_the_card(tmp_path, monkeypatch, capsys):
+    # as the JAX CLI (half_precision=False for every model): a --flash_attn
+    # checkpoint asked for on the card is built in fp32, whose attention
+    # runs the fp32 flash-attention kernels there; initialize_model is
+    # stubbed here (no card), so what _load asks of it is what is checked
+    ck = seeded_checkpoint(tmp_path / "vit.pth", "vit_tiny_patch16", 32, NUM_CLASSES,
+                           flash_attn=True)
+    seen, initialize = {}, port_val.initialize_model
+
+    def fake_initialize(path, model_ema, half_precision=True, dequantize=False, device="cuda"):
+        seen.update(path=path, half_precision=half_precision, device=device)
+        return initialize(path, model_ema, half_precision=half_precision,
+                          dequantize=dequantize, device="cpu")
+
+    monkeypatch.setattr(port_val, "initialize_model", fake_initialize)
+    args = SimpleNamespace(model_weight_path=ck, model_ema=False, device="cuda")
+    model, num_classes = port_viz._load(args, dequantize=True)
+    assert seen == {"path": ck, "half_precision": False, "device": "cuda"}
+    assert num_classes == NUM_CLASSES and model.flash_attn
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert model.dtype == torch.float32 and "bf16" not in capsys.readouterr().out
