@@ -20,7 +20,10 @@ exit before the last line:
    forward, 3b the backward (the dQ kernel, which also writes di, then the
    dK/dV kernel; and the forward's lse): one launch of each and no other
    kernel in its trace, two runs bitwise equal, its device time against
-   SDPA's backward (forward + backward less forward) and the factor;
+   SDPA's backward (forward + backward less forward) and the factor; the
+   fp32 rows' bounds at three TF32 passes on the tensor cores, the FFMA
+   bound beside them, and SDPA's fp32 backward kernels and its error against
+   the same plain reference logged (not held);
    each kernel's device time from a trace;
    3c the LayerNorm kernels (forward, backward) at ConvNeXt-T's four stage
    shapes, the head's and a ragged ViT row count, and on constant rows, the
@@ -68,8 +71,10 @@ exit before the last line:
    5d. the fp32 path of --flash_attn: `train.main` with --half_precision
    false on the same folder (1 epoch of 10 steps), captured; a trace of its
    step must show 12 + 12 forwards, 12 dQ and 12 dK/dV, every one the fp32
-   kernel (csrc/flash_attention_f32.cu), and the bf16 kernels' counts stay
-   0; its step timed captured and eager; the checkpoint served by
+   kernel (the forward of csrc/flash_attention_f32.cu, dQ and dK/dV of
+   csrc/flash_attention_f32_bwd.cu), and the bf16 kernels' counts stay 0;
+   its step timed captured and eager, with fp32 K1's device ms a step from
+   the trace; the checkpoint served by
    val_precision (bf16 compute, as the JAX val.py), and an fp32 served
    batch (`val.initialize_model(half_precision=False)`, captured): 12 fp32
    forwards a replay, probabilities against the fp32 plain attention path;
@@ -186,9 +191,9 @@ exit before the last line:
    (12 with lse), 12 dQ and 12 dK/dV each, read from traces; the
    checkpoint's optimizer state in the optax layout (nvnovograd's nu a
    scalar a JAX tensor, adafactor's factored v_row / v_col); with each,
-   6 captured steps held against 6 eager ones with a non-finite step inside
-   the replays, as 5c (for the command's time, the steps are no longer
-   timed here);
+   4 captured steps (cut from 6 for the command's time) held against 4
+   eager ones with a non-finite step inside the replays, as 5c (for the
+   command's time, the steps are no longer timed here);
    13b. ConvNeXt-T with --opt adahessian (the Hutchinson diagonal from a
    second backward at every step): the same checks but the launches (no
    kernel), with 3 captured steps against 3 eager ones; ViT-B/16
@@ -221,9 +226,10 @@ exit before the last line:
 15. UPerNet segmentation in one process, in a child process
    (`--segmentation <dir> <out.json>`, the way to run it alone): the port's
    `seg_train.main` on the tiny ADE20K recipe at full width (ConvNeXt-T,
-   channels 512, crop 512, batch 16, 150 classes), 20 iterations with whole
-   eval every 10, on a seeded synthetic folder in the mmseg layout; losses
-   finite, checkpoint-iter20.pth in the JAX layout and reloaded exactly;
+   channels 512, crop 512, batch 16, 150 classes), 10 iterations with whole
+   eval every 5 (cut from 20 and 10 for the command's time), on a seeded
+   synthetic folder in the mmseg layout; losses finite, checkpoint-iter10.pth
+   in the JAX layout and reloaded exactly;
    slide eval and ms eval (6 scales x flip, on 1 image) of the trained
    model with their mIoU; ms an eager iteration, peak memory and a trace;
    one iteration's backbone LayerNorms and depthwise convs replayed through
@@ -240,7 +246,9 @@ exit before the last line:
    under "lifecycle", the flash kernels' launches on phase 14's paths under
    "int8_serving", "gradcam" (on the fp32 kernels' entries) and "export";
    the fp32 kernels' entries (3a, 3b at 64 x 197; their launches over phase
-   5d's run; their other shapes under "shapes"); K3-K5 on phase 15's replay
+   5d's run; their other shapes under "shapes"; "bound_ffma_ms" beside
+   "bound_ms"; dQ and dK/dV marked "redesigned" with their "design", and
+   SDPA's error as "library_max_abs_err"); K3-K5 on phase 15's replay
    under "upernet"; phase 15's summary under "segmentation"), then the
    result line {"ok": true, "device": {...}}.
 
@@ -279,6 +287,11 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
 FP32_FLOPS_PER_S = 66.9e12
+# fp32-grade products on the tensor cores: each as three TF32 products (the
+# operands' tf32 heads and tails, hi*hi + hi*lo + lo*hi, as
+# csrc/flash_attention_f32_bwd.cu runs them) at the published 495 TFLOP/s of
+# TF32: the least time the card could take for fp32 K1's products
+TF32_3PASS_FLOPS_PER_S = 495e12 / 3
 
 ATTN_SHAPES = [(64, 197, 12, 64), (16, 577, 12, 64), (2, 4097, 12, 64)]
 MAIN_SHAPE = ATTN_SHAPES[0]  # ViT-B/16 at 224x224, batch 64
@@ -294,11 +307,12 @@ ATTN_RTOL = 2.0 ** -7
 # each carry the inputs' rounding; 2^-6 covers those, and each check proves
 # the tolerance lies below what dropping the last key changes.
 ATTN_BWD_RTOL = 2.0 ** -6
-# fp32 kernels (csrc/flash_attention_f32.cu) against the fp32 plain version
-# with TF32 off: every product and sum in fp32 on both sides, only the order
-# of the sums differs; 2^-14 of max|reference| for the output and 2^-12 for
-# each gradient, 128x and 64x below the bf16 tolerances (TF32's unit
-# roundoff 2^-11 cannot meet them)
+# fp32 kernels (csrc/flash_attention_f32.cu, csrc/flash_attention_f32_bwd.cu)
+# against the fp32 plain version with TF32 off: 2^-14 of max|reference| for
+# the output and 2^-12 for each gradient, 128x and 64x below the bf16
+# tolerances. The forward sums fp32 FFMAs, the backward's products are three
+# TF32 passes each (~21 bits); one TF32 pass (unit roundoff 2^-11) cannot
+# meet them
 ATTN_F32_RTOL = 2.0 ** -14
 ATTN_F32_BWD_RTOL = 2.0 ** -12
 # the K1 kernels by part; a dtype's kernels and launch counts carry the
@@ -498,16 +512,20 @@ def time_ms(fn, iters: int, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def _rate(dtype: str) -> tuple:
-    """(bytes an element, flop/s) of K1 in `dtype`: bf16 on the tensor cores,
-    fp32 on the CUDA cores (the fp32 kernels use no tensor core)."""
-    return (2, BF16_FLOPS_PER_S) if dtype == "bf16" else (4, FP32_FLOPS_PER_S)
+def _rate(dtype: str, ffma: bool = False) -> tuple:
+    """(bytes an element, flop/s) of K1 in `dtype`: bf16 on the tensor cores;
+    fp32 as three TF32 passes on the tensor cores, or with `ffma` on the CUDA
+    cores (fp32 K1's yardstick until its backward ran on the tensor cores,
+    kept beside the other)."""
+    if dtype == "bf16":
+        return 2, BF16_FLOPS_PER_S
+    return 4, FP32_FLOPS_PER_S if ffma else TF32_3PASS_FLOPS_PER_S
 
 
-def attention_bound(B, N, H, D, dtype: str = "bf16"):
+def attention_bound(B, N, H, D, dtype: str = "bf16", ffma: bool = False):
     """(bound_ms, bound_by): q, k, v read once and o written once in `dtype`,
     against 4*B*H*N^2*D flops (two products) at `dtype`'s rate (`_rate`)."""
-    itemsize, rate = _rate(dtype)
+    itemsize, rate = _rate(dtype, ffma)
     t_bytes = 4 * B * N * H * D * itemsize / HBM_BYTES_PER_S
     t_flops = 4 * B * H * N * N * D / rate
     return max(t_bytes, t_flops) * 1e3, ("bytes" if t_bytes >= t_flops else "operations")
@@ -601,17 +619,21 @@ def check_attention(shape, device, dtype: str = "bf16"):
                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                device_ms=device_ms, library_device_ms=library_device_ms,
                host_ms=host_ms(lambda: fa.flash_attention(q, k, v)))
+    ffma = ""
+    if dtype == "fp32":
+        row["bound_ffma_ms"] = attention_bound(B, N, H, D, dtype, ffma=True)[0]
+        ffma = f" (three TF32 passes; at the FFMA rate {row['bound_ffma_ms']:.4f} ms)"
     log(f"{K1_PARTS['fwd']}{k1_dtype(dtype)[1]} {dtype} B,N,H,D={shape} "
         f"(strided qkv): max|d| vs fp32 plain {err:.3e} (tol {tol:.3e} = "
         f"2^{round(math.log2(rtol))} of max|ref|; dropping the last key moves "
         f"the reference by {tail:.3e}), kernel {ms:.4f} ms (device {device_ms:.4f}), plain "
         f"{plain_ms:.4f} ms, sdpa {dtype} {library_ms:.4f} ms (device {library_device_ms:.4f}), "
         f"kernel/sdpa {ms / library_ms:.3f} (device {device_ms / library_device_ms:.3f}), "
-        f"bound {bound_ms:.4f} ms ({bound_by}), bound/device {bound_ms / device_ms:.3f}")
+        f"bound {bound_ms:.4f} ms ({bound_by}){ffma}, bound/device {bound_ms / device_ms:.3f}")
     return row
 
 
-def backward_bound(B, N, H, D, part="all", dtype: str = "bf16"):
+def backward_bound(B, N, H, D, part="all", dtype: str = "bf16", ffma: bool = False):
     """(bound_ms, bound_by) of the attention backward. 'all': the function,
     q, k, v, o, dO and lse read and dq, dk, dv written (bf16; lse fp32), and
     its five products S, dP, dV, dK, dQ (10*B*H*N^2*D flops); 'two_kernel':
@@ -621,13 +643,13 @@ def backward_bound(B, N, H, D, part="all", dtype: str = "bf16"):
     products S, dP, dV, dK. The tensors in `dtype` at its rate (`_rate`)."""
     tensors, stats, products = {"all": (8, 1, 5), "two_kernel": (8, 1, 7), "dq": (6, 2, 3),
                                 "dkv": (6, 2, 4)}[part]
-    itemsize, rate = _rate(dtype)
+    itemsize, rate = _rate(dtype, ffma)
     t_bytes = (tensors * B * N * H * D * itemsize + stats * B * H * N * 4) / HBM_BYTES_PER_S
     t_flops = products * 2 * B * H * N * N * D / rate
     return max(t_bytes, t_flops) * 1e3, ("bytes" if t_bytes >= t_flops else "operations")
 
 
-def compare_backward(grads, q, k, v, do, rtol: float = ATTN_BWD_RTOL):
+def compare_backward(grads, q, k, v, do, rtol: float = ATTN_BWD_RTOL, others=None):
     """Hold the kernels' (dq, dk, dv) against the fp32 plain backward on the
     same inputs, each with a tolerance of rtol * max|reference| (ATTN_BWD_RTOL
     for bf16), and
@@ -636,7 +658,9 @@ def compare_backward(grads, q, k, v, do, rtol: float = ATTN_BWD_RTOL):
     softmax, and dk and dv lose the last key's row (counted as zeros, as a
     kernel that drops the key leaves it; their other rows barely move at
     large N). Returns {name: (max_abs_err, tol, tail_change)}; raises when a
-    check fails."""
+    check fails. With `others` ({label: (dq, dk, dv)}), returns also
+    {label: {name: max_abs_err}} against the same reference, held to
+    nothing."""
     import torch
 
     from imageclassification_tpu_torch.ops import flash_attention as fa
@@ -665,7 +689,11 @@ def compare_backward(grads, q, k, v, do, rtol: float = ATTN_BWD_RTOL):
             raise AssertionError(f"attention backward {tuple(q.shape)} {name}: "
                                  f"max|d|={err} > {tol}")
         out[name] = (err, tol, tail_change)
-    return out
+    if others is None:
+        return out
+    return out, {label: {name: (g.float() - r).abs().max().item()
+                         for name, g, r in zip(("dq", "dk", "dv"), grads_other, ref)}
+                 for label, grads_other in others.items()}
 
 
 def k1_dtype(dtype: str) -> tuple:
@@ -724,7 +752,26 @@ def check_backward(shape, device, dtype: str = "bf16"):
         if not torch.equal(a, b):
             raise AssertionError(f"attention backward {shape}: {name} differs between two runs")
     rtol = ATTN_BWD_RTOL if dtype == "bf16" else ATTN_F32_BWD_RTOL
-    errs = compare_backward(grads, q, k, v, do, rtol)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(F.scaled_dot_product_attention(qt, kt, vt), (qt, kt, vt), dot)
+
+    sdpa = {}
+    if dtype == "fp32":
+        # SDPA's own fp32 backward against the same plain reference, and the
+        # kernels it runs, logged beside the kernels (SDPA is held to nothing)
+        sdpa_grads = tuple(t.transpose(1, 2) for t in sdpa_fwd_bwd())
+        errs, other_errs = compare_backward(grads, q, k, v, do, rtol, {"sdpa": sdpa_grads})
+        sdpa = {"errs": other_errs["sdpa"],
+                "kernels": sorted(trace(sdpa_fwd_bwd, steps=3)[2])}
+        del sdpa_grads
+    else:
+        errs = compare_backward(grads, q, k, v, do, rtol)
     bwd_kernels = (names["dq"], names["dkv"])
 
     def bwd():
@@ -752,15 +799,6 @@ def check_backward(shape, device, dtype: str = "bf16"):
     device_each = {part: _device_ms(bwd, {names[part]: 1}, floor_ms=alone_floor(
                        min(events, pairs[part][1]), host_each[part]))
                    for part, events in (("dq", ms_dq), ("dkv", ms_dkv))}
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-    dot = do.transpose(1, 2)
-
-    def sdpa_fwd():
-        return F.scaled_dot_product_attention(qt, kt, vt)
-
-    def sdpa_fwd_bwd():
-        return torch.autograd.grad(F.scaled_dot_product_attention(qt, kt, vt), (qt, kt, vt), dot)
-
     sdpa_ms = time_ms(sdpa_fwd, iters)
     sdpa_fwd_bwd_ms = time_ms(sdpa_fwd_bwd, iters)
     sdpa_device = _library_device_ms(sdpa_fwd, events_ms=sdpa_ms)
@@ -773,6 +811,17 @@ def check_backward(shape, device, dtype: str = "bf16"):
                library_device_ms=sdpa_fwd_bwd_device - sdpa_device,
                bounds={part: backward_bound(B, N, H, D, part, dtype)
                        for part in ("all", "two_kernel", "dq", "dkv")})
+    ffma = ""
+    if dtype == "fp32":
+        row["bounds_ffma"] = {part: backward_bound(B, N, H, D, part, dtype, ffma=True)
+                              for part in ("all", "two_kernel", "dq", "dkv")}
+        row["library_errs"] = sdpa["errs"]
+        ffma = (" (three TF32 passes; at the FFMA rate " + ", ".join(
+            f"{p} {b:.4f} ms" for p, (b, _) in row["bounds_ffma"].items()) + ")")
+        log(f"sdpa fp32 backward B,N,H,D={shape}: kernels {sdpa['kernels']}; max|d| vs the "
+            f"same fp32 plain reference " + ", ".join(
+                f"{n} {e:.3e} (the kernels' tol {errs[n][1]:.3e})"
+                for n, e in sdpa["errs"].items()) + " (logged, not held)")
     log(f"flash_attention_bwd{suffix} {dtype} B,N,H,D={shape} (strided qkv): forward lse "
         f"max|d| {lse_err:.3e} (tol {LSE_ATOL}); " + "; ".join(
             f"{n} max|d| {e:.3e} (tol {t:.3e} = 2^{round(math.log2(rtol))} of max|ref|; "
@@ -788,7 +837,7 @@ def check_backward(shape, device, dtype: str = "bf16"):
         f"{sdpa_fwd_bwd_device:.4f} - fwd {sdpa_device:.4f}); kernels/sdpa "
         f"{ms / row['library_ms']:.3f}, device {device_ms / row['library_device_ms']:.3f}; "
         "bound " + ", ".join(f"{p} {b:.4f} ms ({by})" for p, (b, by) in row["bounds"].items())
-        + f"; bound/device {row['bounds']['all'][0] / device_ms:.3f} (five products), "
+        + ffma + f"; bound/device {row['bounds']['all'][0] / device_ms:.3f} (five products), "
         f"{row['bounds']['two_kernel'][0] / device_ms:.3f} (seven)")
     return row
 
@@ -3355,8 +3404,10 @@ def optimizer_rest_runs(work: str, device: str, model: dict, cfg: dict, images: 
         if device == "cuda":
             row["per_replay"] = dict(run["per_replay"][0])
             del run
+            # 4 steps (cut from 6 for the command's time)
             row["captured_vs_eager"] = captured_vs_eager(model, cfg["img"], cfg["batch"],
-                                                         cfg["num_classes"], flags=("--opt", opt))
+                                                         cfg["num_classes"], steps=4,
+                                                         flags=("--opt", opt))
         out[opt] = row
     return out
 
@@ -3943,8 +3994,10 @@ def lifecycle_main(keep: str, out: str) -> int:
 # classes), cut in iterations only (20, eval every 10), on a seeded
 # synthetic folder in the mmseg layout (ADE20K is not in the repository):
 # ADE-sized 683 x 512 JPEGs of 150-class blocky label maps
-SEG = dict(config="upernet_convnext_tiny_512_160k", num_classes=150, iters=20, eval_interval=10,
-           n_train=48, n_val=8, n_ms=1, size=(683, 512), timed_steps=5)
+# 10 iterations with whole eval every 5 and 3 timed steps (cut from 20, 10
+# and 5 for the command's time)
+SEG = dict(config="upernet_convnext_tiny_512_160k", num_classes=150, iters=10, eval_interval=5,
+           n_train=48, n_val=8, n_ms=1, size=(683, 512), timed_steps=3)
 # UPerNet's ConvNeXt-T at crop 512, batch 16: (rows, C) of the stage
 # LayerNorms and (B, H, W, C) of the stage depthwise convs
 SEG_LN_SHAPES = [(262144, 96), (65536, 192), (16384, 384), (4096, 768)]
@@ -4201,7 +4254,8 @@ def main() -> int:
     from imageclassification_tpu_torch.ops import flash_attention as fa
     from imageclassification_tpu_torch.ops import layernorm as ln
 
-    sources = (fa.KERNEL, fa.KERNEL_BWD, fa.KERNEL_F32, ln.KERNEL, dw.KERNEL, k2.KERNEL)
+    sources = (fa.KERNEL, fa.KERNEL_BWD, fa.KERNEL_F32, fa.KERNEL_F32_BWD, ln.KERNEL, dw.KERNEL,
+               k2.KERNEL)
     # 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -4353,6 +4407,17 @@ def main() -> int:
             f"{[dict(c) for c in f32['per_replay']]}")
         log_step_timing("ViT-B/16 224x224 fp32 (--half_precision false), flash attention",
                         cfg["batch"], f32["timing"])
+        # fp32 K1's share of the captured step: the forward
+        # (csrc/flash_attention_f32.cu), dQ and dK/dV (csrc/flash_attention_f32_bwd.cu)
+        step32 = f32["timing"]["captured"][1][2]
+        f32_step_k1 = {part: [sum(x[i] for k, x in step32.items() if kernel in k) for i in (0, 1)]
+                       for part, kernel in k1_kernels("fp32").items()}
+        log("fp32 K1 in the captured fp32 ViT-B/16 train step (trace): " + ", ".join(
+            f"{k1_kernels('fp32')[part]} {ms:.4f} ms in {n:.1f} launches a step"
+            for part, (ms, n) in f32_step_k1.items())
+            + f"; the backward (dQ + dK/dV, csrc/{fa.KERNEL_F32_BWD}.cu) "
+              f"{f32_step_k1['dq'][0] + f32_step_k1['dkv'][0]:.4f} ms of the step's "
+              f"{f32['timing']['captured'][0]:.3f} ms")
         log(f"fp32-trained checkpoint served by val_precision (bf16 compute, as the JAX val.py): "
             f"top-1 {f32['val_top1']:.3f}, bf16 launches {f32['val_launches']}; an fp32 served "
             f"batch of {cfg['batch']} (val.initialize_model(half_precision=False), captured "
@@ -4367,6 +4432,7 @@ def main() -> int:
                      "launches_per_replay": f32["serve_per_replay"][0]["fwd"],
                      "ms_per_batch": f32["serve_ms"]}
         f32_step_ms = {k: f32["timing"][k][0] for k in ("captured", "eager")}
+        f32_step_ms["k1_ms_a_step"] = {part: ms for part, (ms, _) in f32_step_k1.items()}
         del f32
 
         stamp('phase 6')
@@ -4681,26 +4747,44 @@ def main() -> int:
                        "tpu/models/vit.py:25 in an fp32 model)",
                 "dkv": replaces_bwd.format(1121) + " in an fp32 model",
                 "dq": replaces_bwd.format(1456) + " in an fp32 model"}
+    # (the backward's two kernels redesigned: three TF32 passes on wgmma fed
+    # by TMA, csrc/flash_attention_f32_bwd.cu); bounds at the three-pass TF32
+    # rate, the FFMA rate's beside them
     for part, total, errs in (("fwd", "fwd", None), ("dkv", "bwd_dkv", ("dk", "dv")),
                               ("dq", "bwd_dq", ("dq",))):
         row = main32 if part == "fwd" else bwd32_main
         entry = {"name": K1_PARTS[part] + k1_dtype("fp32")[1], "route": "cuda",
-                 "source": f"imageclassification_tpu_torch/csrc/{fa.KERNEL_F32}.cu",
+                 "source": "imageclassification_tpu_torch/csrc/"
+                           f"{fa.KERNEL_F32 if part == 'fwd' else fa.KERNEL_F32_BWD}.cu",
                  "replaces": replaces[part], "launches": f32_totals[total],
                  "launches_per_replay": f32_replay[part], "plain_ms": row["plain_ms"],
                  "library_ms": row["library_ms"], "library_device_ms": row["library_device_ms"],
-                 "step_ms_fp32": f32_step_ms,
-                 "shapes": {str(tuple(r["shape"])): {k: r[k] for k in ("ms", "device_ms",
-                                                                   "plain_ms", "library_ms")}
-                            for r in (rows32 if part == "fwd" else bwd32)}}
+                 "step_ms_fp32": f32_step_ms}
         if part == "fwd":
             entry.update(max_abs_err=row["max_abs_err"], ms=row["ms"], bound_ms=row["bound_ms"],
-                         bound_by=row["bound_by"], device_ms=row["device_ms"],
-                         launches_lse=f32_totals["fwd_lse"], served_fp32=f32_serve)
+                         bound_by=row["bound_by"], bound_ffma_ms=row["bound_ffma_ms"],
+                         device_ms=row["device_ms"], launches_lse=f32_totals["fwd_lse"],
+                         served_fp32=f32_serve)
         else:
-            entry.update(max_abs_err=max(row["errs"][e][0] for e in errs),
+            entry.update(redesigned=True,
+                         design="three TF32 passes on wgmma, fed by TMA (a redesign of the FFMA "
+                                "kernels)",
+                         max_abs_err=max(row["errs"][e][0] for e in errs),
                          ms=row[f"ms_{part}"], bound_ms=row["bounds"][part][0],
-                         bound_by=row["bounds"][part][1], device_ms=row[f"device_ms_{part}"])
+                         bound_by=row["bounds"][part][1],
+                         bound_ffma_ms=row["bounds_ffma"][part][0],
+                         device_ms=row[f"device_ms_{part}"],
+                         library_max_abs_err=max(row["library_errs"][e] for e in errs))
+        entry["shapes"] = {
+            str(tuple(r["shape"])): {
+                k: r[k] for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                                  "library_device_ms")}
+            | ({"bound_ms": r["bound_ms"], "bound_ffma_ms": r["bound_ffma_ms"]}
+               if part == "fwd" else
+               {"ms": r[f"ms_{part}"], "device_ms": r[f"device_ms_{part}"],
+                "bound_ms": r["bounds"][part][0], "bound_ffma_ms": r["bounds_ffma"][part][0],
+                "whole_ms": r["ms"], "whole_device_ms": r["device_ms"]})
+            for r in (rows32 if part == "fwd" else bwd32)}
         kernels.append(entry)
     f32_entries = {k["name"]: k for k in kernels[-3:]}
     cam = lifecycle["gradcam"][VIT_B16["name"]]["launches"]

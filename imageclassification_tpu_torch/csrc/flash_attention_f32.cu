@@ -1,13 +1,12 @@
-// Flash attention in fp32 for Hopper (sm_90a): the forward, the dQ kernel and
-// the dK/dV kernel, fp32 in and out, head_dim 64.
+// Flash attention's forward in fp32 for Hopper (sm_90a), fp32 in and out,
+// head_dim 64.
 //
 // Replaces: imageclassification_tpu/models/vit.py:25 `flash_attention_fn` in a
 // model whose dtype is fp32 (`--half_precision false`), where the JAX package
 // hands the Pallas TPU kernel (jax.experimental.pallas.ops.tpu.flash_attention)
-// fp32 q, k and v: the forward (`_flash_attention_impl`, flash_attention.py:758),
-// the dK/dV backward (`_flash_attention_bwd_dkv`, :1121) and the dQ backward
-// (`_flash_attention_bwd_dq`, :1456, with di = rowsum(dO * O), :273-275). The
-// bf16 kernels are flash_attention_fwd.cu and flash_attention_bwd.cu.
+// fp32 q, k and v: the forward (`_flash_attention_impl`, flash_attention.py:758).
+// Its backward in fp32 is flash_attention_f32_bwd.cu; the bf16 kernels are
+// flash_attention_fwd.cu and flash_attention_bwd.cu.
 //
 // Arithmetic: what the JAX kernel computes in fp32. Every product and every
 // sum is an fp32 FFMA or FADD on the CUDA cores: no tensor core (no TF32, no
@@ -15,15 +14,12 @@
 // into log2(e) and exp2f; the forward writes the natural-log row
 // log-sum-exp lse = m + log(l) as fp32 [B, H, N] when autograd will run the
 // backward, which recomputes P = exp(S * scale - lse) from it. The ragged
-// tail is masked in the kernels: key columns >= N get P = 0, query rows >= N
-// load as zeros, get P = 0 in the backward (their lse reads as +inf) and are
-// never stored. Nothing is padded in memory. Every sum runs in one fixed
-// order (no atomics), so two runs are bitwise equal.
+// tail is masked in the kernel: key columns >= N get P = 0, query rows >= N
+// load as zeros and are never stored. Nothing is padded in memory. Every sum
+// runs in one fixed order (no atomics), so two runs are bitwise equal.
 //
-// What bounds them on an H100: 4*B*H*N^2*64 flops for the forward (S and
-// P V), 8*B*H*N^2*64 for each backward kernel (dQ recomputes S and dP; dK/dV
-// recomputes S and dP and forms dK and dV), against 66.9 TFLOP/s of fp32 on
-// the CUDA cores; the bytes (each of q, k, v, o, do read once, each output
+// What bounds it on an H100: 4*B*H*N^2*64 flops (S and P V) against 66.9
+// TFLOP/s of fp32 on the CUDA cores; the bytes (each of q, k, v read once, o
 // written once, 4 bytes an element) bound it only at small N. So the
 // products bound it, and the design keeps the FFMA pipes fed from shared
 // memory: each thread owns a 4 x 8 block of a 64 x 64 product and reads its
@@ -31,24 +27,18 @@
 // padded row pitch keeps a warp's loads free of bank conflicts.
 //
 // Design (simple; one CTA of 128 threads for each (batch, head, 64-row
-// block), the other axis's 64-row tiles streamed through shared memory):
+// block), the 64-row K/V tiles streamed through shared memory):
 //   * thread t owns rows r + 16 i (r = t / 8, i = 0..3) and columns c + 8 j
 //     (c = t % 8, j = 0..7) of each 64 x 64 score tile, and the same rows
-//     and head dims 4c..4c+3, 32+4c..32+4c+3 of each 64 x 64 accumulator;
+//     and head dims 4c..4c+3, 32+4c..32+4c+3 of the 64 x 64 accumulator;
 //     the 8 threads of a row group are lanes of one warp, so row maxima and
 //     sums are three shuffles, and a warp reads back only the rows of the P
-//     (or dS) tile that it wrote (a __syncwarp between);
-//   * forward: Q tile once, then K/V tiles; S = Q K^T, online softmax, P
-//     through shared memory, O += P V; O / l at the end;
-//   * dQ: Q and dO tiles once, di = rowsum(dO * O) (written for the dK/dV
-//     kernel), then K/V tiles; S and dP = dO V^T in one pass over the head
-//     dims, dS = P (dP - di), dQ += dS K; dQ * scale at the end;
-//   * dK/dV: K and V tiles once, then Q/dO tiles with their lse and di;
-//     S^T and dP^T, P^T and dS^T through shared memory, dV += P^T dO and
-//     dK += dS^T Q; dK * scale at the end.
+//     tile that it wrote (a __syncwarp between);
+//   * Q tile once, then K/V tiles; S = Q K^T, online softmax, P through
+//     shared memory, O += P V; O / l at the end.
 // Tiles are loaded with 16-byte loads from the strided [B, N, H, 64] views
 // (the q, k, v views of the fused qkv projection as they lie) and stored to
-// shared memory with a pitch of 68 floats (72 for the P and dS tiles).
+// shared memory with a pitch of 68 floats (72 for the P tile).
 
 #include "flash_attention_common.cuh"
 
@@ -57,16 +47,14 @@ namespace {
 constexpr int kD = 64;         // head dim
 constexpr int kRows = 64;      // rows of a tile (queries or keys)
 constexpr int kThreads = 128;  // 16 row groups x 8 column groups
-constexpr int kLd = 68;        // pitch of the Q, K, V, dO tiles (floats)
-constexpr int kLdP = 72;       // pitch of the P and dS tiles (floats)
+constexpr int kLd = 68;        // pitch of the Q, K, V tiles (floats)
+constexpr int kLdP = 72;       // pitch of the P tile (floats)
 constexpr int kTile = kRows * kLd;
 constexpr int kTileP = kRows * kLdP;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 constexpr int kFwdSmem = (3 * kTile + kTileP) * 4;
-constexpr int kDqSmem = (4 * kTile + kTileP) * 4;
-constexpr int kDkvSmem = (4 * kTile + 2 * kTileP + 2 * kRows) * 4;
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   acc = fmaf(a.x, b.x, acc);
@@ -143,36 +131,6 @@ __device__ __forceinline__ void scores(float (&s)[4][8], const float* x, const f
       const float4 y4 = ld4(y + (c + 8 * j) * kLd + d);
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[i][j] = dot4(x4[i], y4, s[i][j]);
-    }
-  }
-}
-
-// two score blocks in one pass over the head dims: s from (x1, y1) and dp
-// from (x2, y2)
-__device__ __forceinline__ void scores2(float (&s)[4][8], float (&dp)[4][8], const float* x1,
-                                        const float* y1, const float* x2, const float* y2, int r,
-                                        int c) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 1
-  for (int d = 0; d < kD; d += 4) {
-    float4 a4[4], b4[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a4[i] = ld4(x1 + (r + 16 * i) * kLd + d);
-      b4[i] = ld4(x2 + (r + 16 * i) * kLd + d);
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float4 y4 = ld4(y1 + (c + 8 * j) * kLd + d);
-      const float4 z4 = ld4(y2 + (c + 8 * j) * kLd + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[i][j] = dot4(a4[i], y4, s[i][j]);
-        dp[i][j] = dot4(b4[i], z4, dp[i][j]);
-      }
     }
   }
 }
@@ -293,136 +251,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    flash_attention_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                                      const float* __restrict__ v, const float* __restrict__ o,
-                                      const float* __restrict__ dout,
-                                      const float* __restrict__ lse, float* __restrict__ di_out,
-                                      float* __restrict__ dq, FlashLaunch l, int num_blocks,
-                                      float scale_log2) {
-  extern __shared__ float4 smem4[];
-  float* sq = reinterpret_cast<float*>(smem4);
-  float* sdo = sq + kTile;
-  float* sk = sdo + kTile;
-  float* sv = sk + kTile;
-  float* sds = sv + kTile;
-  const int N = l.N, H = l.H;
-  const int t = threadIdx.x, r = t >> 3, c = t & 7;
-  const int m0 = (blockIdx.x % num_blocks) * kRows;
-  const int bh = blockIdx.x / num_blocks, b = bh / H, h = bh % H;
-  const Strides s = floats(l.qkv_stride), so = floats(l.o_stride), sd = floats(l.do_stride);
-  const long long head = b * s.b + h * s.h;
-
-  load_tile(sq, q + head, s.n, m0, N, t);
-  load_tile(sdo, dout + b * sd.b + h * sd.h, sd.n, m0, N, t);
-  __syncthreads();
-  // di = rowsum(dO * O) and lse (in log2 units) of this thread's rows
-  float di[4], lse2[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = r + 16 * i, n = m0 + row;
-    float part = 0.f;
-    if (n < N) {
-      const float* orow = o + b * so.b + h * so.h + (long long)n * so.n;
-      part = dot4(ld4(orow + 4 * c), ld4(sdo + row * kLd + 4 * c), part);
-      part = dot4(ld4(orow + 32 + 4 * c), ld4(sdo + row * kLd + 32 + 4 * c), part);
-    }
-    di[i] = group_sum(part);
-    lse2[i] = n < N ? lse[(long long)bh * N + n] * kLog2e : INFINITY;
-    if (n < N && c == 0) di_out[(long long)bh * N + n] = di[i];
-  }
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  for (int key0 = 0; key0 < N; key0 += kRows) {
-    __syncthreads();
-    load_tile(sk, k + head, s.n, key0, N, t);
-    load_tile(sv, v + head, s.n, key0, N, t);
-    __syncthreads();
-    float p[4][8], dp[4][8];
-    scores2(p, dp, sq, sk, sdo, sv, r, c);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float pij = key0 + c + 8 * j < N ? exp2f(p[i][j] * scale_log2 - lse2[i]) : 0.f;
-        sds[(r + 16 * i) * kLdP + c + 8 * j] = pij * (dp[i][j] - di[i]);
-      }
-    __syncwarp();
-    accumulate_pv(acc, sds, sk, r, c);
-  }
-  const float sm_scale = l.sm_scale;
-  const float sc[4] = {sm_scale, sm_scale, sm_scale, sm_scale};
-  store_rows(dq, acc, sc, b, h, m0, N, H, r, c);
-}
-
-__global__ void __launch_bounds__(kThreads)
-    flash_attention_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                                       const float* __restrict__ v,
-                                       const float* __restrict__ dout,
-                                       const float* __restrict__ lse,
-                                       const float* __restrict__ di, float* __restrict__ dk,
-                                       float* __restrict__ dv, FlashLaunch l, int num_blocks,
-                                       float scale_log2) {
-  extern __shared__ float4 smem4[];
-  float* sk = reinterpret_cast<float*>(smem4);
-  float* sv = sk + kTile;
-  float* sq = sv + kTile;
-  float* sdo = sq + kTile;
-  float* sp = sdo + kTile;
-  float* sds = sp + kTileP;
-  float* slse = sds + kTileP;
-  float* sdi = slse + kRows;
-  const int N = l.N, H = l.H;
-  const int t = threadIdx.x, r = t >> 3, c = t & 7;
-  const int n0 = (blockIdx.x % num_blocks) * kRows;
-  const int bh = blockIdx.x / num_blocks, b = bh / H, h = bh % H;
-  const Strides s = floats(l.qkv_stride), sd = floats(l.do_stride);
-  const long long head = b * s.b + h * s.h;
-
-  load_tile(sk, k + head, s.n, n0, N, t);
-  load_tile(sv, v + head, s.n, n0, N, t);
-  float acc_k[4][8], acc_v[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
-  for (int q0 = 0; q0 < N; q0 += kRows) {
-    __syncthreads();
-    load_tile(sq, q + head, s.n, q0, N, t);
-    load_tile(sdo, dout + b * sd.b + h * sd.h, sd.n, q0, N, t);
-    if (t < kRows) {
-      const int n = q0 + t;
-      slse[t] = n < N ? lse[(long long)bh * N + n] * kLog2e : INFINITY;
-      sdi[t] = n < N ? di[(long long)bh * N + n] : 0.f;
-    }
-    __syncthreads();
-    // S^T and dP^T: rows are this block's keys, columns the tile's queries
-    float p[4][8], dp[4][8];
-    scores2(p, dp, sk, sq, sv, sdo, r, c);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float l2 = slse[c + 8 * j], dij = sdi[c + 8 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float pij = exp2f(p[i][j] * scale_log2 - l2);
-        sp[(r + 16 * i) * kLdP + c + 8 * j] = pij;
-        sds[(r + 16 * i) * kLdP + c + 8 * j] = pij * (dp[i][j] - dij);
-      }
-    }
-    __syncwarp();
-    accumulate_pv(acc_v, sp, sdo, r, c);
-    accumulate_pv(acc_k, sds, sq, r, c);
-  }
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  const float sm_scale = l.sm_scale;
-  const float sc[4] = {sm_scale, sm_scale, sm_scale, sm_scale};
-  store_rows(dv, acc_v, one, b, h, n0, N, H, r, c);
-  store_rows(dk, acc_k, sc, b, h, n0, N, H, r, c);
-}
-
 // set a kernel's dynamic shared memory limit once per device
 inline int allow_smem(const void* kernel, int bytes, bool (&done)[64]) {
   int dev = 0;
@@ -446,17 +274,15 @@ inline int grid_of(const FlashLaunch* l, int* num_blocks, int* blocks) {
 
 }  // namespace
 
-// The tensors as for the bf16 entry points (flash_attention_fwd.cu,
-// flash_attention_bwd.cu), fp32: q, k, v [B, N, H, 64] with unit stride on
-// the last axis and the byte strides l->qkv_stride on H, N and B (each a
-// multiple of 16, each base pointer 16-byte aligned); o and dout with their
-// own byte strides (l->o_stride, l->do_stride); outputs contiguous
-// [B, N, H, 64] fp32, lse and di contiguous fp32 [B, H, N]. Each entry point
-// makes l->device current, launches on `stream`, allocates nothing, and
-// returns cudaGetLastError() after the launch.
+// The tensors as for the bf16 entry point (flash_attention_fwd.cu), fp32:
+// q, k, v [B, N, H, 64] with unit stride on the last axis and the byte
+// strides l->qkv_stride on H, N and B (each a multiple of 16, each base
+// pointer 16-byte aligned); o contiguous [B, N, H, 64] fp32, lse contiguous
+// fp32 [B, H, N] or null to skip it. Makes l->device current, launches on
+// `stream`, allocates nothing, and returns cudaGetLastError() after the
+// launch.
 extern "C" size_t flash_attention_f32_launch_bytes() { return sizeof(FlashLaunch); }
 
-// lse may be null to skip it
 extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o,
                                        void* lse, const FlashLaunch* l, void* stream) {
   if (l->B == 0 || l->N == 0 || l->H == 0) return 0;
@@ -470,47 +296,5 @@ extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void*
   flash_attention_fwd_f32_kernel<<<blocks, kThreads, kFwdSmem, (cudaStream_t)stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), static_cast<float*>(lse), *l, num_blocks, l->sm_scale * kLog2e);
-  return (int)cudaGetLastError();
-}
-
-// writes dq and di = rowsum(dout * o), which flash_attention_bwd_dkv_f32 reads
-extern "C" int flash_attention_bwd_dq_f32(const void* q, const void* k, const void* v,
-                                          const void* o, const void* dout, const void* lse,
-                                          void* di, void* dq, const FlashLaunch* l,
-                                          void* stream) {
-  if (l->B == 0 || l->N == 0 || l->H == 0) return 0;
-  const hopper::DeviceGuard guard(l->device);
-  if (guard.err != 0) return guard.err;
-  static bool done[64] = {false};
-  int err = allow_smem((const void*)flash_attention_bwd_dq_f32_kernel, kDqSmem, done);
-  int num_blocks = 0, blocks = 0;
-  if (err == 0) err = grid_of(l, &num_blocks, &blocks);
-  if (err != 0) return err;
-  flash_attention_bwd_dq_f32_kernel<<<blocks, kThreads, kDqSmem, (cudaStream_t)stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(o), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<float*>(di), static_cast<float*>(dq), *l,
-      num_blocks, l->sm_scale * kLog2e);
-  return (int)cudaGetLastError();
-}
-
-// di: the fp32 [B, H, N] that flash_attention_bwd_dq_f32 wrote; writes dk, dv
-extern "C" int flash_attention_bwd_dkv_f32(const void* q, const void* k, const void* v,
-                                           const void* dout, const void* lse, const void* di,
-                                           void* dk, void* dv, const FlashLaunch* l,
-                                           void* stream) {
-  if (l->B == 0 || l->N == 0 || l->H == 0) return 0;
-  const hopper::DeviceGuard guard(l->device);
-  if (guard.err != 0) return guard.err;
-  static bool done[64] = {false};
-  int err = allow_smem((const void*)flash_attention_bwd_dkv_f32_kernel, kDkvSmem, done);
-  int num_blocks = 0, blocks = 0;
-  if (err == 0) err = grid_of(l, &num_blocks, &blocks);
-  if (err != 0) return err;
-  flash_attention_bwd_dkv_f32_kernel<<<blocks, kThreads, kDkvSmem, (cudaStream_t)stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(di), static_cast<float*>(dk), static_cast<float*>(dv), *l,
-      num_blocks, l->sm_scale * kLog2e);
   return (int)cudaGetLastError();
 }

@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks for kernels fed by the Tensor Memory
 // Accelerator (flash_attention_fwd.cu, flash_attention_bwd.cu, dwconv7x7.cu,
-// layernorm.cu, conv1x1_bn.cu) and multiplying on warpgroup tensor cores
-// (the flash-attention kernels, conv1x1_bn.cu): mbarriers, named barriers,
-// TMA tile loads and stores and 1-d bulk copies, wgmma descriptors and bf16
-// products (m64n128k16, m64n64k16 and m64n16k16 with A in shared memory or in
+// layernorm.cu, conv1x1_bn.cu, flash_attention_f32_bwd.cu) and multiplying on
+// warpgroup tensor cores (the flash-attention kernels, conv1x1_bn.cu):
+// mbarriers, named barriers, TMA tile loads and stores and 1-d bulk copies,
+// wgmma descriptors, bf16 products (m64n128k16, m64n64k16 and m64n16k16 with
+// A in shared memory or in registers) and tf32 products (m64n32k8 and
+// m64n8k8 with A in shared memory; m64n64k8, m64n32k8 and m64n8k8 with A in
 // registers), register reallocation between warpgroups, the host-side
 // encoding of a tensor map through the driver entry point (so nothing links
 // -lcuda), and the host side of a launch: the device made current for it,
@@ -80,6 +82,13 @@ __device__ __forceinline__ T* align_smem(unsigned char* raw) {
 // 0 is __syncthreads)
 __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// count this thread's warp at barrier `id` without waiting: the threads that
+// wait there (named_barrier_sync with the same total) see its earlier
+// shared-memory writes
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // ---- register reallocation -------------------------------------------------
@@ -328,6 +337,104 @@ __device__ __forceinline__ void wgmma_m64k16_rs(float (&d)[N / 2], const unsigne
           "+f"(d[7])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d),
           "n"(kTransB));
+  }
+}
+
+// ---- wgmma, tf32 -------------------------------------------------------------
+
+// An fp32 value rounded to the nearest tf32 (10 mantissa bits, the low 13 bits
+// of the word zero), as a tf32 operand of wgmma takes it.
+__device__ __forceinline__ float to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// d(64 x N, fp32) (+)= a(64 x 8, tf32) * b(8 x N, tf32). The tf32 forms take
+// both operands K-major only (no transpose): in shared memory as rows of K
+// contiguous values, here 128-byte swizzled rows of 32 floats (desc_b128; a
+// step of 8 along K is 32 bytes). The accumulator lies as the bf16 forms';
+// an A fragment in registers is the warp's m16k8 slice as mma.sync
+// m16n8k8.tf32 lays it out: a[0] at row lane / 4, column lane % 4, a[1] 8
+// rows below, a[2] 4 columns right, a[3] both. scale_d = 0 overwrites d.
+
+// N = 32 or 8, a in shared memory through its descriptor
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t desc_a,
+                                              uint64_t desc_b, int scale_d) {
+  static_assert(N == 32 || N == 8, "m64n32k8 and m64n8k8 only");
+  if constexpr (N == 32) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  } else {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3}, %4, %5, p, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
+}
+
+// N = 64, 32 or 8, a in registers (tf32 words); they must keep their values
+// until the product is waited for
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const unsigned (&a)[4],
+                                              uint64_t desc_b, int scale_d) {
+  static_assert(N == 64 || N == 32 || N == 8, "m64n64k8, m64n32k8 and m64n8k8 only");
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  } else {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
   }
 }
 

@@ -15,16 +15,18 @@ The JAX function hands the Pallas kernel the model's own dtype: bf16 under
 two sets of kernels, chosen by the inputs' dtype in `_launch`, `_launch_dq`
 and `_launch_dkv` (and so in `_FlashAttention` and the two operators): the
 bf16 ones (`csrc/flash_attention_fwd.cu`, `csrc/flash_attention_bwd.cu`)
-and the fp32 ones (`csrc/flash_attention_f32.cu`: every product and sum an
-fp32 FFMA on the CUDA cores, no TF32 and no bf16 anywhere, one CTA a
-(batch, head, 64-row block), the other axis's tiles streamed through shared
-memory). Both take the same arguments (`_Launch`) and write the same
-outputs (o, lse, di, dq, dk, dv) in their inputs' dtype, lse and di fp32.
+and the fp32 ones (`csrc/flash_attention_f32.cu`, the forward: every
+product and sum an fp32 FFMA on the CUDA cores, one CTA a (batch, head,
+64-row block); `csrc/flash_attention_f32_bwd.cu`, dQ and dK/dV: every
+product as three TF32 products on wgmma, hi*hi + hi*lo + lo*hi of each
+operand's tf32 head and tail, fed by TMA). Both take the same arguments
+(`_Launch`) and write the same outputs (o, lse, di, dq, dk, dv) in their
+inputs' dtype, lse and di fp32.
 
-What bounds the bf16 kernels on an H100 and what their designs do about it:
-see the headers of `csrc/flash_attention_fwd.cu` and
-`csrc/flash_attention_bwd.cu` (and of `csrc/flash_attention_f32.cu` for the
-fp32 ones). In short:
+What bounds the kernels on an H100 and what their designs do about it:
+see the headers of `csrc/flash_attention_fwd.cu`,
+`csrc/flash_attention_bwd.cu`, `csrc/flash_attention_f32.cu` and
+`csrc/flash_attention_f32_bwd.cu`. In short, for bf16:
 memory-bound at ViT's N = 197, compute-bound from a few hundred tokens up;
 the N x N products kept in registers, all products on tensor cores (bf16,
 fp32 accumulation). The forward: persistent CTAs walking over (batch, head,
@@ -33,9 +35,10 @@ tensor maps of the strided [B, N, H, 64] view (`tensor_map_layout`),
 products on the warpgroup tensor cores (wgmma). The backward is two
 launches and no torch work between them: the dQ kernel runs first and also
 computes di = rowsum(dO * O) from its tiles of O and dO, which it writes for
-the dK/dV kernel; each walks persistently over (batch, head, 128-row block)
+the dK/dV kernel; each walks persistently over (batch, head, row block)
 items, one CTA an SM, the other axis's tiles streamed through a TMA ring from
-tensor maps of q, k, v, o and dO as they lie, products on wgmma. The
+tensor maps of q, k, v, o and dO as they lie, products on wgmma (the fp32
+backward the same, in 64-row items and 32-row ring tiles). The
 forward writes the row log-sum-exp (fp32 [B, H, N]) only when autograd will
 run the backward, which recomputes P from it.
 
@@ -67,6 +70,7 @@ from . import _build
 KERNEL = "flash_attention_fwd"
 KERNEL_BWD = "flash_attention_bwd"
 KERNEL_F32 = "flash_attention_f32"
+KERNEL_F32_BWD = "flash_attention_f32_bwd"
 HEAD_DIM = 64
 # the kernels' dtypes, and the suffix of each one's launch counts
 _COUNT_SUFFIX = {torch.bfloat16: "", torch.float32: "_f32"}
@@ -120,8 +124,8 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     dtypes and head sizes not ported yet, ValueError for a layout the kernels
     cannot read. q, k and v are all bf16 (the bf16 kernels) or all fp32 (the
     fp32 kernels). Returns the layout of the bf16 kernels' tensor maps
-    (`tensor_map_layout`); the fp32 kernels read the same byte strides with
-    16-byte loads."""
+    (`tensor_map_layout`); the fp32 forward reads the same byte strides with
+    16-byte loads, the fp32 backward through tensor maps of them."""
     if not (q.dtype == k.dtype == v.dtype and q.dtype in _COUNT_SUFFIX):
         raise NotImplementedError(
             f"flash-attention kernels take bfloat16 or float32 q, k, v of one dtype, got "
@@ -148,7 +152,7 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 
 
 def tensor_map_layout(t: torch.Tensor):
-    """(dims, byte strides) of the forward kernel's TMA tensor map over a
+    """(dims, byte strides) of the kernels' TMA tensor maps over a
     [B, N, H, D] view: dims (D, H, N, B) innermost first, and the byte strides
     of H, N and B. TMA needs a unit stride on D and the other byte strides
     multiples of 16 below 2^40; raises ValueError for a view it cannot take."""
@@ -186,14 +190,12 @@ def _launch_args(B: int, N: int, H: int, D: int, device: int, qkv_strides: tuple
 @functools.cache
 def _kernels(dtype: torch.dtype = torch.bfloat16):
     """(forward, dQ, dK/dV) C entry points of the kernels for `dtype` (bf16
-    or fp32), their argument types set."""
-    if dtype == torch.float32:
-        fwd_lib = bwd_lib = _build.load(KERNEL_F32)
-        libs, tag = ((fwd_lib, KERNEL_F32),), "f32"
-    else:
-        fwd_lib, bwd_lib = _build.load(KERNEL), _build.load(KERNEL_BWD)
-        libs, tag = ((fwd_lib, KERNEL), (bwd_lib, KERNEL_BWD)), "bf16"
-    for lib, name in libs:
+    or fp32), their argument types set: the forward from one library, dQ and
+    dK/dV from another, each checked against `_Launch`."""
+    names, tag = ((KERNEL_F32, KERNEL_F32_BWD), "f32") if dtype == torch.float32 else \
+        ((KERNEL, KERNEL_BWD), "bf16")
+    fwd_lib, bwd_lib = libs = tuple(_build.load(name) for name in names)
+    for lib, name in zip(libs, names):
         size = getattr(lib, f"{name}_launch_bytes")
         size.restype = ctypes.c_size_t
         if size() != ctypes.sizeof(_Launch):

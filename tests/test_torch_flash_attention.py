@@ -208,27 +208,32 @@ def test_lse_ref_normalises_the_softmax():
 
 
 @pytest.mark.parametrize("make", [
-    lambda: torch.zeros((2, 9, 3, 68), dtype=torch.bfloat16)[..., :64],  # H stride 136 B
-    lambda: torch.zeros((2, 9, 64, 3), dtype=torch.bfloat16).transpose(2, 3),  # D strided
-    lambda: torch.zeros((1, 3, 64), dtype=torch.bfloat16).expand(2, 9, 3, 64),  # stride 0
-    lambda: torch.zeros(2 * 9 * 3 * 64 + 1, dtype=torch.bfloat16)[1:].view(2, 9, 3, 64),
+    # H stride 8 bytes past 64 elements: not a multiple of 16
+    lambda dt, es: torch.zeros((2, 9, 3, 64 + 8 // es), dtype=dt)[..., :64],
+    lambda dt, es: torch.zeros((2, 9, 64, 3), dtype=dt).transpose(2, 3),  # D strided
+    lambda dt, es: torch.zeros((1, 3, 64), dtype=dt).expand(2, 9, 3, 64),  # stride 0
+    lambda dt, es: torch.zeros(2 * 9 * 3 * 64 + 1, dtype=dt)[1:].view(2, 9, 3, 64),
 ])
-def test_backward_reads_o_and_do_through_tensor_maps(make):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_backward_reads_o_and_do_through_tensor_maps(make, dtype):
     # the dQ kernel reads O (for di) and dO through tensor maps of their own
-    # strides: an O that TMA cannot read raises (the forward kernel writes it
-    # contiguous), a dO that it cannot read is copied to one it can, and a
-    # readable dO is read in place
-    q, k, v = torch.zeros((2, 9, 3, 3, 64), dtype=torch.bfloat16).unbind(2)
+    # strides, in bf16 and in fp32: an O that TMA cannot read raises (the
+    # forward kernel writes it contiguous), a dO that it cannot read is copied
+    # to one it can, and a readable dO is read in place
+    es = torch.tensor([], dtype=dtype).element_size()
+    q, k, v = torch.zeros((2, 9, 3, 3, 64), dtype=dtype).unbind(2)
     lse = torch.zeros((2, 3, 9))
-    bad = make()
+    bad = make(dtype, es)
     with pytest.raises(ValueError, match="tensor map"):
         fa._bwd_inputs(q, k, v, bad, lse, q)
     got_do, (_, o_strides, do_strides) = fa._bwd_inputs(q, k, v, q, lse, bad)
     assert got_do.is_contiguous() and torch.equal(got_do, bad)
-    assert o_strides == (128, 3 * 3 * 128, 9 * 3 * 3 * 128) and do_strides == (128, 384, 3456)
-    strided_do = torch.zeros((2, 3, 9, 64), dtype=torch.bfloat16).transpose(1, 2)
+    row = 64 * es
+    assert o_strides == (row, 3 * 3 * row, 9 * 3 * 3 * row)
+    assert do_strides == (row, 3 * row, 9 * 3 * row)
+    strided_do = torch.zeros((2, 3, 9, 64), dtype=dtype).transpose(1, 2)
     got_do, (_, _, do_strides) = fa._bwd_inputs(q, k, v, q, lse, strided_do)
-    assert got_do is strided_do and do_strides == (9 * 128, 128, 3 * 9 * 128)
+    assert got_do is strided_do and do_strides == (9 * row, row, 3 * 9 * row)
 
 
 @pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
@@ -482,26 +487,110 @@ def test_launch_counts_of_both_dtypes_reset_to_zero():
 
 
 def test_f32_launch_structure_matches_the_fp32_sources_entry_points():
-    # the fp32 library takes the same FlashLaunch as the bf16 ones and has
-    # the three entry points the wrapper binds, with the bf16 ones' arguments
-    src = (Path(fa.__file__).parent.parent / "csrc" / "flash_attention_f32.cu").read_text()
-    assert '#include "flash_attention_common.cuh"' in src
-    for name, n_ptr in (("flash_attention_fwd_f32", 5), ("flash_attention_bwd_dq_f32", 8),
-                        ("flash_attention_bwd_dkv_f32", 8)):
-        sig = re.search(rf'extern "C" int {name}\((.*?)\)', src, re.S).group(1)
-        args = [a.strip() for a in sig.split(",")]
-        assert len(args) == n_ptr + 2 and args[-2].startswith("const FlashLaunch*")
-        assert args[-1] == "void* stream"
-    assert "flash_attention_f32_launch_bytes" in src
-    # no tensor-core or bf16 arithmetic in the fp32 kernels
-    code = re.sub(r"//.*", "", src)
+    # the fp32 libraries take the same FlashLaunch as the bf16 ones and have
+    # the entry points the wrapper binds, with the bf16 ones' arguments: the
+    # forward in csrc/flash_attention_f32.cu, dQ and dK/dV in
+    # csrc/flash_attention_f32_bwd.cu, each library with its size check
+    csrc = Path(fa.__file__).parent.parent / "csrc"
+    fwd, bwd = ((csrc / f"{name}.cu").read_text() for name in (fa.KERNEL_F32, fa.KERNEL_F32_BWD))
+    for src, entries in ((fwd, (("flash_attention_fwd_f32", 5),)),
+                         (bwd, (("flash_attention_bwd_dq_f32", 8),
+                                ("flash_attention_bwd_dkv_f32", 8)))):
+        assert '#include "flash_attention_common.cuh"' in src
+        for name, n_ptr in entries:
+            sig = re.search(rf'extern "C" int {name}\((.*?)\)', src, re.S).group(1)
+            args = [a.strip() for a in sig.split(",")]
+            assert len(args) == n_ptr + 2 and args[-2].startswith("const FlashLaunch*")
+            assert args[-1] == "void* stream"
+    assert "flash_attention_f32_launch_bytes" in fwd
+    assert "flash_attention_f32_bwd_launch_bytes" in bwd
+    assert "flash_attention_bwd_dq_f32" not in fwd and "flash_attention_fwd_f32" not in bwd
+    # no tensor-core or bf16 arithmetic in the fp32 forward
+    code = re.sub(r"//.*", "", fwd)
     for banned in ("wgmma", "mma.sync", "bf16", "__nv_bfloat16", "tf32", "half"):
         assert banned not in code, banned
+    # the fp32 backward: tf32 products on wgmma fed by TMA, no atomics, no bf16
+    code = re.sub(r"//.*", "", bwd)
+    for used in ("wgmma_tf32_ss", "wgmma_tf32_rs", "to_tf32", "tma_load_4d", "setmaxnreg"):
+        assert used in code, used
+    for banned in ("atomic", "bf16", "__nv_bfloat16", "mma.sync"):
+        assert banned not in code, banned
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 x rounded to tf32 as cvt.rna.tf32.f32 rounds it: to nearest,
+    ties away from zero, on the low 13 mantissa bits (which end zero)."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32(passes: int):
+    """a @ b of fp32 tensors as tf32 tensor-core products summed in fp32:
+    one pass hi(a) hi(b), or three, lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b)
+    with lo(x) = tf32(x - hi(x)), the tails before the heads as
+    csrc/flash_attention_f32_bwd.cu sums them. A product of two tf32 values
+    is exact in fp32."""
+    def mm(a, b):
+        a_hi, b_hi = _tf32(a), _tf32(b)
+        if passes == 1:
+            return a_hi @ b_hi
+        return (_tf32(a - a_hi) @ b_hi + a_hi @ _tf32(b - b_hi)) + a_hi @ b_hi
+    return mm
+
+
+def _bwd_with(mm, q, k, v, o, lse, do):
+    """flash_attention_bwd_ref with every product taken by mm: (dq, dk, dv)."""
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf, dof = (t.transpose(1, 2) for t in (q, k, v, do))
+    p = torch.exp(mm(qf, kf.transpose(-1, -2)) * scale - lse[..., None])
+    dv = mm(p.transpose(-1, -2), dof)
+    dp = mm(dof, vf.transpose(-1, -2))
+    ds = p * (dp - fa.flash_attention_di_ref(o, do)[..., None])
+    dq = mm(ds, kf) * scale
+    dk = mm(ds.transpose(-1, -2), qf) * scale
+    return tuple(t.transpose(1, 2) for t in (dq, dk, dv))
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits():
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -12, -1.0 - 2.0 ** -11,
+                      3.0 * 2.0 ** -11 + 1.0, 1e-30, 0.0])
+    got = _tf32(x)
+    want = torch.tensor([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10, 1.0, -1.0 - 2.0 ** -10,
+                         1.0 + 2.0 ** -9, _tf32(torch.tensor([1e-30])).item(), 0.0])
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert (got.view(torch.int32) & 0x1FFF).eq(0).all()
+    r = torch.from_numpy(np.random.default_rng(3).standard_normal(4096).astype(np.float32))
+    assert ((_tf32(r) - r).abs() <= 2.0 ** -11 * r.abs()).all()
+    lo = _tf32(r - _tf32(r))  # the tail: head + tail within 2^-22 of r
+    assert ((_tf32(r) + lo - r).abs() <= 2.0 ** -22 * r.abs()).all()
+
+
+@pytest.mark.parametrize("n", [65, 197])
+def test_three_pass_tf32_backward_meets_the_fp32_contract(n):
+    # the CPU witness of csrc/flash_attention_f32_bwd.cu's arithmetic: every
+    # product of flash_attention_bwd_ref as three TF32 passes, held to the fp32
+    # plain backward within F32_BWD_RTOL = 2^-12 of each gradient's max|ref|,
+    # the card tests' tolerance. One pass (tf32 heads only) is reported beside
+    # it: it misses the three passes' error by orders of magnitude
+    q, k, v = (torch.from_numpy(a) for a in _qkv((1, n, 2, 64), seed=70 + n))
+    do = torch.from_numpy(_qkv((1, n, 2, 64), seed=80 + n)[0])
+    o, lse = fa.flash_attention_ref(q, k, v), fa.flash_attention_lse_ref(q, k)
+    want = fa.flash_attention_bwd_ref(q, k, v, o, lse, do)
+    three = _bwd_with(_mm_tf32(3), q, k, v, o, lse, do)
+    one = _bwd_with(_mm_tf32(1), q, k, v, o, lse, do)
+    for name, w, g3, g1 in zip(("dq", "dk", "dv"), want, three, one):
+        ref = w.abs().max().item()
+        e3, e1 = ((g - w).abs().max().item() / ref for g in (g3, g1))
+        print(f"N={n} {name}: max|d| / max|ref| three passes {e3:.2e}, one pass {e1:.2e}, "
+              f"tolerance {F32_BWD_RTOL:.2e}")
+        assert e3 <= F32_BWD_RTOL, f"{name}: {e3}"
+        assert e1 > 16 * e3, f"{name}: one pass {e1} vs three {e3}"
 
 
 # fp32 kernels against the fp32 plain version on the card, with TF32 off
 # for the plain version's matmuls: at most 2^-14 of max|ref| for the output
-# and 2^-12 for each gradient (TF32's unit roundoff 2^-11 cannot meet them)
+# and 2^-12 for each gradient (one TF32 pass, unit roundoff 2^-11, cannot
+# meet them; the backward's three passes keep ~21 bits, see
+# test_three_pass_tf32_backward_meets_the_fp32_contract)
 F32_RTOL, F32_BWD_RTOL = 2.0 ** -14, 2.0 ** -12
 
 
@@ -564,6 +653,29 @@ def test_f32_backward_kernels_match_plain_version_on_card(cuda_device, fp32_refe
     for name, got, w in zip("qkv", qkv.grad.unbind(2), want):
         err = (got - w).abs().max().item()
         assert err <= F32_BWD_RTOL * w.abs().max().item() + 1e-6, f"d{name}: max|d| {err}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", BWD_CARD_N)
+def test_f32_backward_reads_a_do_strided_apart_on_card(cuda_device, fp32_reference, launches, n):
+    # the fp32 backward kernels read q, k, v strided out of one fused tensor
+    # and dO, a heads-first [B, H, N, D] tensor seen as [B, N, H, D], through
+    # tensor maps of their own strides, in place; each gradient within 2^-12
+    # of its max|ref| (+1e-6 for dq at N = 1, which vanishes)
+    q, k, v = _card_qkv32(n, cuda_device, seed=71 * n).unbind(2)
+    do = _card_qkv32(n, cuda_device, seed=73 * n)[:, :, 1].permute(0, 2, 1, 3).contiguous()
+    do = do.transpose(1, 2)
+    assert do.stride() != q.stride()
+    o, lse = fa._launch(q, k, v, with_lse=True)
+    assert fa._bwd_inputs(q, k, v, o, lse, do)[0] is do  # read in place
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches_dq_f32, fa.flash_attention.launches_dkv_f32) == (1, 1)
+    want = fa.flash_attention_bwd_ref(q, k, v, fa.flash_attention_ref(q, k, v),
+                                      fa.flash_attention_lse_ref(q, k), do)
+    for name, got, w in zip(("dq", "dk", "dv"), grads, want):
+        err = (got - w).abs().max().item()
+        assert err <= F32_BWD_RTOL * w.abs().max().item() + 1e-6, f"{name}: max|d| {err}"
 
 
 @pytest.mark.cuda
