@@ -247,10 +247,15 @@ exit before the last line:
    "int8_serving", "gradcam" (on the fp32 kernels' entries) and "export";
    the fp32 kernels' entries (3a, 3b at 64 x 197; their launches over phase
    5d's run; their other shapes under "shapes"; "bound_ffma_ms" beside
-   "bound_ms"; dQ and dK/dV marked "redesigned" with their "design", and
-   SDPA's error as "library_max_abs_err"); K3-K5 on phase 15's replay
-   under "upernet"; phase 15's summary under "segmentation"), then the
-   result line {"ok": true, "device": {...}}.
+   "bound_ms"; the forward, dQ and dK/dV marked "redesigned" with their
+   "design", and the backward's SDPA error as "library_max_abs_err"); K3-K5
+   on phase 15's replay under "upernet"; phase 15's summary under
+   "segmentation"), then the result line {"ok": true, "device": {...}}.
+
+`python3 chip_smoke.py --compare-f32-forward <checkout>` runs nothing of the
+above: it holds the fp32 forward kernel of another checkout (built from its
+csrc/) and this checkout's against the plain version at phase 3a's shapes
+and times them in one process, in turns (`compare_f32_forward`).
 
 Phase 2 also builds the port's native JPEG decoder and says whether it
 built; the training phases say which decoder fed them. A device ms read
@@ -310,9 +315,8 @@ ATTN_BWD_RTOL = 2.0 ** -6
 # fp32 kernels (csrc/flash_attention_f32.cu, csrc/flash_attention_f32_bwd.cu)
 # against the fp32 plain version with TF32 off: 2^-14 of max|reference| for
 # the output and 2^-12 for each gradient, 128x and 64x below the bf16
-# tolerances. The forward sums fp32 FFMAs, the backward's products are three
-# TF32 passes each (~21 bits); one TF32 pass (unit roundoff 2^-11) cannot
-# meet them
+# tolerances. Every product of both is three TF32 passes (~21 bits); one
+# TF32 pass (unit roundoff 2^-11) cannot meet them
 ATTN_F32_RTOL = 2.0 ** -14
 ATTN_F32_BWD_RTOL = 2.0 ** -12
 # the K1 kernels by part; a dtype's kernels and launch counts carry the
@@ -515,7 +519,7 @@ def time_ms(fn, iters: int, reps: int = 5) -> float:
 def _rate(dtype: str, ffma: bool = False) -> tuple:
     """(bytes an element, flop/s) of K1 in `dtype`: bf16 on the tensor cores;
     fp32 as three TF32 passes on the tensor cores, or with `ffma` on the CUDA
-    cores (fp32 K1's yardstick until its backward ran on the tensor cores,
+    cores (fp32 K1's yardstick until its kernels ran on the tensor cores,
     kept beside the other)."""
     if dtype == "bf16":
         return 2, BF16_FLOPS_PER_S
@@ -4276,7 +4280,8 @@ def main() -> int:
         f"({' '.join(_build.NVCC_FLAGS[:2])}) in {time.perf_counter() - t0:.1f} s")
     for name, nvcc_log in nvcc_logs.items():
         for line in nvcc_log.splitlines():
-            if "registers" in line or "spill" in line or "Function properties" in line:
+            if any(w in line for w in ("registers", "spill", "Function properties", "wgmma",
+                                       "warning")):
                 log(f"ptxas {name}: {line.strip()[:160]}")
     from imageclassification_tpu_torch.data import native_decode
 
@@ -4747,9 +4752,8 @@ def main() -> int:
                        "tpu/models/vit.py:25 in an fp32 model)",
                 "dkv": replaces_bwd.format(1121) + " in an fp32 model",
                 "dq": replaces_bwd.format(1456) + " in an fp32 model"}
-    # (the backward's two kernels redesigned: three TF32 passes on wgmma fed
-    # by TMA, csrc/flash_attention_f32_bwd.cu); bounds at the three-pass TF32
-    # rate, the FFMA rate's beside them
+    # (all three redesigned: three TF32 passes on wgmma fed by TMA); bounds at
+    # the three-pass TF32 rate, the FFMA rate's beside them
     for part, total, errs in (("fwd", "fwd", None), ("dkv", "bwd_dkv", ("dk", "dv")),
                               ("dq", "bwd_dq", ("dq",))):
         row = main32 if part == "fwd" else bwd32_main
@@ -4759,15 +4763,17 @@ def main() -> int:
                  "replaces": replaces[part], "launches": f32_totals[total],
                  "launches_per_replay": f32_replay[part], "plain_ms": row["plain_ms"],
                  "library_ms": row["library_ms"], "library_device_ms": row["library_device_ms"],
-                 "step_ms_fp32": f32_step_ms}
+                 "step_ms_fp32": f32_step_ms, "redesigned": True}
         if part == "fwd":
-            entry.update(max_abs_err=row["max_abs_err"], ms=row["ms"], bound_ms=row["bound_ms"],
+            entry.update(design="three TF32 passes on wgmma, fed by TMA; Vᵀ written by the "
+                                "converters, its keys permuted so that P is the A operand "
+                                "in registers (a redesign of the FFMA kernel)",
+                         max_abs_err=row["max_abs_err"], ms=row["ms"], bound_ms=row["bound_ms"],
                          bound_by=row["bound_by"], bound_ffma_ms=row["bound_ffma_ms"],
                          device_ms=row["device_ms"], launches_lse=f32_totals["fwd_lse"],
                          served_fp32=f32_serve)
         else:
-            entry.update(redesigned=True,
-                         design="three TF32 passes on wgmma, fed by TMA (a redesign of the FFMA "
+            entry.update(design="three TF32 passes on wgmma, fed by TMA (a redesign of the FFMA "
                                 "kernels)",
                          max_abs_err=max(row["errs"][e][0] for e in errs),
                          ms=row[f"ms_{part}"], bound_ms=row["bounds"][part][0],
@@ -4850,6 +4856,62 @@ def main() -> int:
     return 0
 
 
+def compare_f32_forward(other: str) -> int:
+    """The fp32 forward kernel of another checkout `other` (its
+    csrc/flash_attention_f32.cu, built with this checkout's nvcc flags into
+    its own build/kernels/ and bound through ctypes) against this checkout's,
+    in this one process on one card: at each of ATTN_SHAPES both are held to
+    the fp32 plain version (ATTN_F32_RTOL) on q, k, v strided out of one fused
+    tensor, then timed in turns (other, this, this, other), CUDA events ms
+    and device ms from traces each."""
+    import ctypes
+
+    import torch
+
+    from imageclassification_tpu_torch.ops import _build
+    from imageclassification_tpu_torch.ops import flash_attention as fa
+
+    if not torch.cuda.is_available():
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                       capture_output=True, text=True, check=True, timeout=60).stdout.strip())
+    src = os.path.join(other, "imageclassification_tpu_torch", "csrc", f"{fa.KERNEL_F32}.cu")
+    lib_path = os.path.join(other, "build", "kernels", f"lib{fa.KERNEL_F32}-other.so")
+    os.makedirs(os.path.dirname(lib_path), exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib_path, src], check=True,
+                   capture_output=True, timeout=600)
+    other_fwd = ctypes.CDLL(lib_path).flash_attention_fwd_f32
+    this_fwd = fa._kernels(torch.float32)[0]
+    other_fwd.argtypes, other_fwd.restype = this_fwd.argtypes, this_fwd.restype
+    kernels = {"other": other_fwd, "this": this_fwd}
+    for shape in ATTN_SHAPES:
+        B, N, H, D = shape
+        g = torch.Generator(device="cuda").manual_seed(N)
+        q, k, v = torch.randn((B, N, 3, H, D), generator=g, device="cuda").unbind(2)
+        args = fa._launch_args(B, N, H, D, q.get_device(), fa.check_kernel_inputs(q, k, v)[1])
+
+        def call(fn):
+            out = torch.empty((B, N, H, D), device="cuda")
+            _build.raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
+                               args, _build.stream(q)), fa.KERNEL_F32)
+            return out
+
+        errs = {name: compare_attention(call(fn), q, k, v, ATTN_F32_RTOL)[0]
+                for name, fn in kernels.items()}
+        iters = max(5, min(200, int(2e9 // (B * H * N * N * D))))
+        turns = []
+        for name in ("other", "this", "this", "other"):
+            ms = time_ms(lambda: call(kernels[name]), iters)
+            dev = _device_ms(lambda: call(kernels[name]), {K1_PARTS["fwd"] + "_f32": 1},
+                             events_ms=ms)
+            turns.append((name, ms, dev))
+        log(f"fp32 forward B,N,H,D={shape}, other checkout vs this one, in turns: " + ", ".join(
+            f"{name} {ms:.4f} ms (device {dev:.4f})" for name, ms, dev in turns)
+            + f"; max|d| vs fp32 plain other {errs['other']:.3e}, this {errs['this']:.3e}")
+    return 0
+
+
 def late_phases(num_classes: int, epochs: int) -> dict:
     """Phases 10 and 11 in a child process of this script (`--late-phases`),
     which starts with a fresh profiler: in a process that has run the
@@ -4895,6 +4957,8 @@ if __name__ == "__main__":
         sys.exit(registry_main(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--lifecycle"]:
         sys.exit(lifecycle_main(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--compare-f32-forward"]:
+        sys.exit(compare_f32_forward(sys.argv[2]))
     if sys.argv[1:2] == ["--segmentation"]:
         sys.exit(seg_main(sys.argv[2], sys.argv[3]))
     sys.exit(main())

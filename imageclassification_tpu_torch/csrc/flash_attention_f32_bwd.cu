@@ -104,16 +104,15 @@ namespace {
 
 using flash::kHeadDim;  // 64
 using flash::kLog2e;
+using namespace flash::f32;  // the fp32 tiles' layout, split, fragments, tensor maps, grid
 
 constexpr int kItemRows = 64;  // rows of an item: one warpgroup's M
 constexpr int kTileRows = 32;  // rows of a ring tile (the looped axis)
-constexpr int kHalf = 32;      // floats of a 128-byte swizzled row
 constexpr int kItemElems = kItemRows * kHeadDim;
 constexpr int kTileElems = kTileRows * kHeadDim;
 constexpr int kGradElems = kItemRows * kTileRows;  // a gradient product's B
 constexpr uint32_t kItemBytes = kItemElems * 4;
 constexpr uint32_t kTileBytes = kTileElems * 4;
-constexpr int kSteps = kHeadDim / 8;  // 8-deep steps of a score product
 
 constexpr int kConsumers = 2;
 constexpr int kThreads = (kConsumers + 1) * 128;
@@ -131,20 +130,6 @@ constexpr int kMaxSmem = 232448;  // a CTA's limit on an H100
 // warpgroup 1 (dQ)
 constexpr int kBarBoth = 3;
 constexpr int kBarDi = 4;
-
-// A tile of R rows x 64 floats lies as two blocks of R rows x 32 floats
-// (head dims 0-31, then 32-63), each 1024-byte aligned and 128-byte swizzled
-// as TMA writes it: 16-byte chunk c of row r at chunk c ^ (r & 7). The float
-// offset of (row, col < 32) in one block:
-__device__ __forceinline__ int swz(int row, int col) {
-  return row * kHalf + (((col >> 2) ^ (row & 7)) << 2) + (col & 3);
-}
-
-// ... and of (row, head dim d) in a tile of R rows
-template <int R>
-__device__ __forceinline__ int tile_off(int row, int d) {
-  return (d >> 5) * (R * kHalf) + swz(row, d & 31);
-}
 
 struct alignas(1024) DqSmem {
   float q[kItemElems];  // the item's Q and dO, their tf32 heads once split
@@ -190,41 +175,6 @@ __device__ __forceinline__ T& aligned_smem(uint8_t* raw) {
   return *hopper::align_smem<T, 1024>(raw);
 }
 
-// TMA: rows row0 .. row0 + R - 1 of head h of batch b into a tile, as its two
-// blocks of 32 head dims
-template <int R>
-__device__ __forceinline__ void load_tile(float* tile, const CUtensorMap* map, uint64_t* bar,
-                                          int h, int row0, int b) {
-  hopper::tma_load_4d(tile, map, bar, 0, h, row0, b);
-  hopper::tma_load_4d(tile + R * kHalf, map, bar, kHalf, h, row0, b);
-}
-
-// Round `n` floats at `x` to their tf32 heads in place and write the tails
-// to `lo` (the same offsets), by kThreadsSplitting threads (this one the
-// t-th)
-template <int kThreadsSplitting>
-__device__ __forceinline__ void split(float* x, float* lo, int n, int t) {
-  float4* x4 = reinterpret_cast<float4*>(x);
-  float4* lo4 = reinterpret_cast<float4*>(lo);
-#pragma unroll 4
-  for (int i = t; i < n / 4; i += kThreadsSplitting) {
-    const float4 a = x4[i];
-    const float4 hi = make_float4(hopper::to_tf32(a.x), hopper::to_tf32(a.y),
-                                  hopper::to_tf32(a.z), hopper::to_tf32(a.w));
-    lo4[i] = make_float4(hopper::to_tf32(a.x - hi.x), hopper::to_tf32(a.y - hi.y),
-                         hopper::to_tf32(a.z - hi.z), hopper::to_tf32(a.w - hi.w));
-    x4[i] = hi;
-  }
-}
-
-// The descriptor offset (16-byte units) of 8-deep step ks of a K-major tile
-// of R rows x 64 head dims: 32 bytes a step inside a block of 32 head dims,
-// the second block R * 128 bytes on
-template <int R>
-__device__ __forceinline__ int step_off(int ks) {
-  return (ks >> 2) * (R * kHalf * 4 / 16) + (ks & 3) * 2;
-}
-
 // Issue (without committing) d = A B^T over the 64 head dims in three TF32
 // passes, tails before heads: A (64 item rows) and B (the first kCols rows
 // of a ring tile) K-major in shared memory, heads and tails. kBTailFirst:
@@ -252,43 +202,6 @@ __device__ __forceinline__ void product3(float (&d)[kCols / 2], const float* a, 
   }
 }
 
-// The same with A from registers (load_item_frags) and B of kBRows rows
-template <int kCols, int kBRows, bool kBTailFirst>
-__device__ __forceinline__ void product3_rs(float (&d)[kCols / 2], const unsigned (&a)[kSteps][4],
-                                            const unsigned (&a_lo)[kSteps][4], const float* b,
-                                            const float* b_lo) {
-  const uint64_t db = hopper::desc_b128(b, 16, 1024), db_lo = hopper::desc_b128(b_lo, 16, 1024);
-#pragma unroll
-  for (int ks = 0; ks < kSteps; ++ks) {
-    hopper::wgmma_tf32_rs<kCols>(d, kBTailFirst ? a[ks] : a_lo[ks],
-                                 (kBTailFirst ? db_lo : db) + step_off<kBRows>(ks), ks > 0);
-  }
-#pragma unroll
-  for (int ks = 0; ks < kSteps; ++ks) {
-    hopper::wgmma_tf32_rs<kCols>(d, kBTailFirst ? a_lo[ks] : a[ks],
-                                 (kBTailFirst ? db : db_lo) + step_off<kBRows>(ks), 1);
-  }
-#pragma unroll
-  for (int ks = 0; ks < kSteps; ++ks) {
-    hopper::wgmma_tf32_rs<kCols>(d, a[ks], db + step_off<kBRows>(ks), 1);
-  }
-}
-
-// The A fragments of an item tile t (64 rows x 64 head dims, a head or a
-// tail tile) as the A of a product over the head dims: A(row m, head dim k),
-// this warp's rows 16wl .. 16wl + 15, in the m16k8 layout
-__device__ __forceinline__ void load_item_frags(unsigned (&f)[kSteps][4], const float* t, int wl,
-                                                int lane) {
-#pragma unroll
-  for (int ks = 0; ks < kSteps; ++ks) {
-#pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      f[ks][v] = __float_as_uint(t[tile_off<kItemRows>(wl * 16 + (lane >> 2) + (v & 1) * 8,
-                                                       ks * 8 + (lane & 3) + (v >> 1) * 4)]);
-    }
-  }
-}
-
 // The A fragments (heads and tails) of acc += T^T B for a ring tile T (32
 // rows x 64 head dims, rows kGradSteps * 8 of it): A(head dim m, tile row k)
 // = T[k][m], this warp's head dims 16wl .. 16wl + 15, in the m16k8 layout
@@ -306,33 +219,6 @@ __device__ __forceinline__ void load_t_frags(unsigned (&f)[4][4], unsigned (&f_l
       f[ks][v] = __float_as_uint(t[off]);
       f_lo[ks][v] = __float_as_uint(t_lo[off]);
     }
-  }
-}
-
-// Issue (without committing) acc(64 x 64) += A B over kGradSteps 8-deep
-// steps in three TF32 passes, tails first: A from registers (load_t_frags),
-// B (64 item rows x the tile's rows, K-major) head and tail in shared memory
-template <int kGradSteps>
-__device__ __forceinline__ void issue_grad(float (&acc)[32], const unsigned (&a)[4][4],
-                                           const unsigned (&a_lo)[4][4], const float* b,
-                                           const float* b_lo) {
-  const uint64_t db = hopper::desc_b128(b, 16, 1024), db_lo = hopper::desc_b128(b_lo, 16, 1024);
-#pragma unroll
-  for (int ks = 0; ks < kGradSteps; ++ks) hopper::wgmma_tf32_rs<64>(acc, a_lo[ks], db + 2 * ks, 1);
-#pragma unroll
-  for (int ks = 0; ks < kGradSteps; ++ks) hopper::wgmma_tf32_rs<64>(acc, a[ks], db_lo + 2 * ks, 1);
-#pragma unroll
-  for (int ks = 0; ks < kGradSteps; ++ks) hopper::wgmma_tf32_rs<64>(acc, a[ks], db + 2 * ks, 1);
-}
-
-// A use of A fragments that a product issued earlier reads: keeps the
-// compiler from giving their registers to other values before the wait that
-// follows the product
-template <int kN>
-__device__ __forceinline__ void keep_frags(const unsigned (&f)[kN][4]) {
-#pragma unroll
-  for (int ks = 0; ks < kN; ++ks) {
-    asm volatile("" ::"r"(f[ks][0]), "r"(f[ks][1]), "r"(f[ks][2]), "r"(f[ks][3]));
   }
 }
 
@@ -561,7 +447,7 @@ __device__ __forceinline__ void dq_tile(DqSmem& s, int st, float (&acc)[32], uns
   hopper::named_barrier_sync(1 + wg, 128);
   hopper::mbar_arrive(&s.empty[st]);
   hopper::wgmma_fence();
-  issue_grad<kCols / 8>(acc, kf, kf_lo, ds, ds_lo);
+  product3_rs_block<kCols / 8>(acc, kf, kf_lo, ds, ds_lo);
   hopper::wgmma_commit();
 }
 
@@ -597,8 +483,8 @@ __device__ __forceinline__ void dkv_tile(DkvSmem& s, int st, float (&acc)[2][32]
   hopper::named_barrier_sync(1 + wg, 128);
   hopper::mbar_arrive(&s.empty[st]);
   hopper::wgmma_fence();
-  issue_grad<kCols / 8>(acc[0], of, of_lo, p, p_lo);
-  issue_grad<kCols / 8>(acc[1], qf, qf_lo, ds, ds_lo);
+  product3_rs_block<kCols / 8>(acc[0], of, of_lo, p, p_lo);
+  product3_rs_block<kCols / 8>(acc[1], qf, qf_lo, ds, ds_lo);
   hopper::wgmma_commit();
 }
 
@@ -864,36 +750,6 @@ flash_attention_bwd_dkv_f32_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// The tensor map of a [B, N, H, 64] fp32 view with unit stride on the last
-// axis and byte strides (H, N, B) `stride`, read in boxes of `rows` rows x 32
-// head dims of one (batch, head) with the 128-byte swizzle; rows >= N load
-// as zeros. Returns 0 or an error code.
-int encode_f32(CUtensorMap* map, const void* base, int B, int N, int H, const long long* stride,
-               int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)kHeadDim, (cuuint64_t)H, (cuuint64_t)N,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)stride[0], (cuuint64_t)stride[1],
-                                 (cuuint64_t)stride[2]};
-  const cuuint32_t box[4] = {(cuuint32_t)kHalf, 1, (cuuint32_t)rows, 1};
-  return hopper::encode<4>(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, dims, strides, box,
-                           CU_TENSOR_MAP_SWIZZLE_128B);
-}
-
-// The grid of a persistent launch over (batch, head, 64-row block) items:
-// one CTA an SM, at most one per item.
-int persistent_grid(const void* kernel, int smem_bytes, int (&cache)[64], const FlashLaunch* l,
-                    int* num_blocks, int* items, int* blocks) {
-  *num_blocks = (l->N + kItemRows - 1) / kItemRows;
-  const long long n = (long long)*num_blocks * l->B * l->H;
-  if (n > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  int n_sms = 0;
-  const int err = hopper::prepare_persistent(kernel, smem_bytes, cache, &n_sms);
-  if (err != 0) return err;
-  *items = (int)n;
-  *blocks = (int)(n < n_sms ? n : n_sms);
-  return 0;
-}
-
 }  // namespace
 
 extern "C" size_t flash_attention_f32_bwd_launch_bytes() { return sizeof(FlashLaunch); }
@@ -921,13 +777,13 @@ extern "C" int flash_attention_bwd_dq_f32(const void* q, const void* k, const vo
                                  l->do_stride};
   const int rows[5] = {kItemRows, kTileRows, kTileRows, kItemRows, kItemRows};
   for (int i = 0; i < 5; ++i) {
-    const int err = encode_f32(&maps[i], bases[i], B, N, H, strides[i], rows[i]);
+    const int err = encode_rows(&maps[i], bases[i], B, N, H, strides[i], rows[i]);
     if (err != 0) return err;
   }
   static int sms[64] = {0};
   int num_blocks = 0, items = 0, blocks = 0;
   const int err = persistent_grid((const void*)flash_attention_bwd_dq_f32_kernel, kDqSmemBytes,
-                                  sms, l, &num_blocks, &items, &blocks);
+                                  sms, l, kItemRows, &num_blocks, &items, &blocks);
   if (err != 0) return err;
   flash_attention_bwd_dq_f32_kernel<<<blocks, kThreads, kDqSmemBytes, (cudaStream_t)stream>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], static_cast<const float*>(lse),
@@ -954,13 +810,13 @@ extern "C" int flash_attention_bwd_dkv_f32(const void* q, const void* k, const v
   const long long* strides[4] = {l->qkv_stride, l->qkv_stride, l->qkv_stride, l->do_stride};
   const int rows[4] = {kTileRows, kItemRows, kItemRows, kTileRows};
   for (int i = 0; i < 4; ++i) {
-    const int err = encode_f32(&maps[i], bases[i], B, N, H, strides[i], rows[i]);
+    const int err = encode_rows(&maps[i], bases[i], B, N, H, strides[i], rows[i]);
     if (err != 0) return err;
   }
   static int sms[64] = {0};
   int num_blocks = 0, items = 0, blocks = 0;
   const int err = persistent_grid((const void*)flash_attention_bwd_dkv_f32_kernel, kDkvSmemBytes,
-                                  sms, l, &num_blocks, &items, &blocks);
+                                  sms, l, kItemRows, &num_blocks, &items, &blocks);
   if (err != 0) return err;
   flash_attention_bwd_dkv_f32_kernel<<<blocks, kThreads, kDkvSmemBytes, (cudaStream_t)stream>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),

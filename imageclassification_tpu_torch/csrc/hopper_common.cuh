@@ -350,6 +350,17 @@ __device__ __forceinline__ float to_tf32(float x) {
   return __uint_as_float(r);
 }
 
+// The same rounding in two integer operations, where cvt.rna's expansion
+// takes four (its NaN test and select): exact for finite x, but a non-finite
+// x may come out as anything, even zero (the GPU's NaN 0x7fffffff carries into
+// the sign bit). So it rounds only values whose non-finite case reaches the
+// result another way: a tail x - to_tf32(x) (where x is not finite, neither is
+// its head), and softmax probabilities whose row sum is taken from them
+// unrounded.
+__device__ __forceinline__ float to_tf32_finite(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
+}
+
 // d(64 x N, fp32) (+)= a(64 x 8, tf32) * b(8 x N, tf32). The tf32 forms take
 // both operands K-major only (no transpose): in shared memory as rows of K
 // contiguous values, here 128-byte swizzled rows of 32 floats (desc_b128; a

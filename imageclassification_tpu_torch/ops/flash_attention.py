@@ -15,13 +15,12 @@ The JAX function hands the Pallas kernel the model's own dtype: bf16 under
 two sets of kernels, chosen by the inputs' dtype in `_launch`, `_launch_dq`
 and `_launch_dkv` (and so in `_FlashAttention` and the two operators): the
 bf16 ones (`csrc/flash_attention_fwd.cu`, `csrc/flash_attention_bwd.cu`)
-and the fp32 ones (`csrc/flash_attention_f32.cu`, the forward: every
-product and sum an fp32 FFMA on the CUDA cores, one CTA a (batch, head,
-64-row block); `csrc/flash_attention_f32_bwd.cu`, dQ and dK/dV: every
-product as three TF32 products on wgmma, hi*hi + hi*lo + lo*hi of each
-operand's tf32 head and tail, fed by TMA). Both take the same arguments
-(`_Launch`) and write the same outputs (o, lse, di, dq, dk, dv) in their
-inputs' dtype, lse and di fp32.
+and the fp32 ones (`csrc/flash_attention_f32.cu`, the forward, and
+`csrc/flash_attention_f32_bwd.cu`, dQ and dK/dV: every product as three
+TF32 products on wgmma, hi*hi + hi*lo + lo*hi of each operand's tf32 head
+and tail, q, k, v, o and dO read through tensor maps). Both take the same
+arguments (`_Launch`) and write the same outputs (o, lse, di, dq, dk, dv) in
+their inputs' dtype, lse and di fp32.
 
 What bounds the kernels on an H100 and what their designs do about it:
 see the headers of `csrc/flash_attention_fwd.cu`,
@@ -123,9 +122,9 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """Raise on what the kernels do not take: NotImplementedError for the
     dtypes and head sizes not ported yet, ValueError for a layout the kernels
     cannot read. q, k and v are all bf16 (the bf16 kernels) or all fp32 (the
-    fp32 kernels). Returns the layout of the bf16 kernels' tensor maps
-    (`tensor_map_layout`); the fp32 forward reads the same byte strides with
-    16-byte loads, the fp32 backward through tensor maps of them."""
+    fp32 kernels). Returns the layout of the kernels' tensor maps
+    (`tensor_map_layout`), which both dtypes' kernels read q, k and v
+    through."""
     if not (q.dtype == k.dtype == v.dtype and q.dtype in _COUNT_SUFFIX):
         raise NotImplementedError(
             f"flash-attention kernels take bfloat16 or float32 q, k, v of one dtype, got "

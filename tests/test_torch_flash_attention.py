@@ -10,6 +10,7 @@ uses it, so the `cuda` tests of this file also run where JAX is absent:
     python -m pytest --noconftest tests/test_torch_flash_attention.py -m cuda
 """
 
+import math
 import re
 from pathlib import Path
 
@@ -505,16 +506,23 @@ def test_f32_launch_structure_matches_the_fp32_sources_entry_points():
     assert "flash_attention_f32_launch_bytes" in fwd
     assert "flash_attention_f32_bwd_launch_bytes" in bwd
     assert "flash_attention_bwd_dq_f32" not in fwd and "flash_attention_fwd_f32" not in bwd
-    # no tensor-core or bf16 arithmetic in the fp32 forward
-    code = re.sub(r"//.*", "", fwd)
-    for banned in ("wgmma", "mma.sync", "bf16", "__nv_bfloat16", "tf32", "half"):
-        assert banned not in code, banned
-    # the fp32 backward: tf32 products on wgmma fed by TMA, no atomics, no bf16
-    code = re.sub(r"//.*", "", bwd)
-    for used in ("wgmma_tf32_ss", "wgmma_tf32_rs", "to_tf32", "tma_load_4d", "setmaxnreg"):
-        assert used in code, used
-    for banned in ("atomic", "bf16", "__nv_bfloat16", "mma.sync"):
-        assert banned not in code, banned
+    # both fp32 kernels: tf32 products on wgmma fed by TMA, no atomics, no
+    # bf16. The fp32 helpers they share (flash_attention_common.cuh, namespace
+    # flash::f32) hold the TMA tile loads and the three-pass products with A
+    # from registers; each kernel calls them (the backward also has its
+    # products with A in shared memory)
+    common = (csrc / "flash_attention_common.cuh").read_text()
+    shared = re.sub(r"//.*", "", re.search(r"\nnamespace f32 \{\n(.*)\n\}  // namespace f32",
+                                           common, re.S).group(1))
+    for used in ("wgmma_tf32_rs", "to_tf32", "tma_load_4d"):
+        assert used in shared, used
+    calls = ("product3_rs<", "product3_rs_block<", "load_tile<", "to_tf32", "setmaxnreg")
+    for src, used_here in ((fwd, calls), (bwd, ("wgmma_tf32_ss", *calls))):
+        code = re.sub(r"//.*", "", src)
+        for used in used_here:
+            assert used in code, used
+        for banned in ("atomic", "bf16", "__nv_bfloat16", "mma.sync"):
+            assert banned not in code and banned not in shared, banned
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:
@@ -548,6 +556,29 @@ def _bwd_with(mm, q, k, v, o, lse, do):
     dq = mm(ds, kf) * scale
     dk = mm(ds.transpose(-1, -2), qf) * scale
     return tuple(t.transpose(1, 2) for t in (dq, dk, dv))
+
+
+def _fwd_with(mm, q, k, v, tile=32):
+    """The fp32 forward kernel's arithmetic with every product taken by mm:
+    over the kernel's key tiles of `tile` keys, S = Q K^T, the online softmax
+    in the log2 domain (running maxima m, sums l, the scale folded into
+    log2(e)), each tile's P V summed apart (pv) and taken into O at the next
+    tile, O = (O + pv) * alpha; (O + pv) / l at the end."""
+    scale_log2 = q.shape[-1] ** -0.5 * math.log2(math.e)
+    qf, kf, vf = (t.transpose(1, 2) for t in (q, k, v))
+    B, H, N, D = qf.shape
+    m = torch.full((B, H, N, 1), -math.inf)
+    l, o, pv = torch.zeros((B, H, N, 1)), torch.zeros((B, H, N, D)), torch.zeros((B, H, N, D))
+    for key0 in range(0, N, tile):
+        s = mm(qf, kf[:, :, key0:key0 + tile].transpose(-1, -2))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True) * scale_log2)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s * scale_log2 - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = (o + pv) * alpha
+        pv = mm(p, vf[:, :, key0:key0 + tile])
+        m = m_new
+    return ((o + pv) / l).transpose(1, 2)
 
 
 def test_tf32_rounding_keeps_ten_mantissa_bits():
@@ -584,6 +615,27 @@ def test_three_pass_tf32_backward_meets_the_fp32_contract(n):
               f"tolerance {F32_BWD_RTOL:.2e}")
         assert e3 <= F32_BWD_RTOL, f"{name}: {e3}"
         assert e1 > 16 * e3, f"{name}: one pass {e1} vs three {e3}"
+
+
+@pytest.mark.parametrize("n", [65, 197])
+def test_three_pass_tf32_forward_meets_the_fp32_contract(jax_flash_attention, n):
+    # the CPU witness of csrc/flash_attention_f32.cu's arithmetic: S = Q K^T and
+    # P V as three TF32 passes each, the online softmax over the kernel's
+    # 32-key tiles, held within F32_RTOL = 2^-14 of max|ref| of the plain
+    # version and of the JAX Pallas kernel (interpret mode), the card tests'
+    # tolerance. One pass (tf32 heads only) misses that tolerance
+    q, k, v = _qkv((1, n, 2, 64), seed=90 + n)
+    want = fa.flash_attention_ref(*map(torch.from_numpy, (q, k, v)))
+    jax_out = torch.from_numpy(np.array(jax_flash_attention(q, k, v)))
+    qt, kt, vt = map(torch.from_numpy, (q, k, v))
+    three, one = (_fwd_with(_mm_tf32(p), qt, kt, vt) for p in (3, 1))
+    tol = F32_RTOL * want.abs().max().item()
+    e3, e3_jax, e1 = ((a - b).abs().max().item()
+                      for a, b in ((three, want), (three, jax_out), (one, want)))
+    print(f"N={n}: max|d| three passes {e3:.2e} (vs JAX {e3_jax:.2e}), one pass {e1:.2e}, "
+          f"tolerance {tol:.2e}")
+    assert e3 <= tol and e3_jax <= tol, (e3, e3_jax)
+    assert e1 > tol, e1
 
 
 # fp32 kernels against the fp32 plain version on the card, with TF32 off
@@ -629,6 +681,34 @@ def test_f32_forward_matches_plain_version_on_card(cuda_device, fp32_reference, 
     assert err <= F32_RTOL * ref.abs().max().item(), f"max|d| {err}"
     if with_lse:
         torch.testing.assert_close(lse, fa.flash_attention_lse_ref(q, k), atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [0x7FFFFFFF, -1], ids=["nan", "negative_nan"])
+@pytest.mark.parametrize("which", [0, 1, 2], ids=["q", "k", "v"])
+def test_f32_kernels_carry_a_nan_input_on_card(cuda_device, fp32_reference, launches, which,
+                                               bits):
+    # the GPU's NaN (0x7fffffff) or its negation (0xffffffff) in one element
+    # of q, k or v: the forward is NaN exactly where the plain version is, and
+    # each gradient holds a NaN where the plain backward's does. The kernels
+    # round the tf32 tails and P by integer operations that can turn these
+    # NaNs into zeros; the heads (cvt.rna) and the softmax sums carry them
+    qkv = _card_qkv32(197, cuda_device, seed=79)
+    qkv.view(torch.int32)[1, 150, which, 3, 17] = bits
+    qkv.requires_grad_()
+    q, k, v = qkv.unbind(2)
+    g = _card_qkv32(197, cuda_device, seed=83)[:, :, 0]
+    out = fa.flash_attention(q, k, v)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches_f32 == 1 and fa.flash_attention.launches_dq_f32 == 1
+    qd, kd, vd = (t.detach() for t in (q, k, v))
+    want = fa.flash_attention_ref(qd, kd, vd)
+    assert torch.isnan(want).any()
+    assert torch.equal(torch.isnan(out.detach()), torch.isnan(want))
+    grads = fa.flash_attention_bwd_ref(qd, kd, vd, want, fa.flash_attention_lse_ref(qd, kd), g)
+    for name, got, w in zip("qkv", qkv.grad.unbind(2), grads):
+        assert bool(torch.isnan(got).any()) == bool(torch.isnan(w).any()), f"d{name}"
 
 
 @pytest.mark.cuda
