@@ -235,7 +235,26 @@ exit before the last line:
    one iteration's backbone LayerNorms and depthwise convs replayed through
    K3, K4 and K5 and held against the model's results, and those kernels
    timed at the backbone's four stage shapes beside F.layer_norm and cuDNN;
-16. one JSON line with every kernel's numbers (at ConvNeXt-T's stage-0
+16. data-parallel training (ROADMAP A9), in a child process
+   (`--distributed <dir> <out.json>`, the way to run it alone): 16a.
+   `train.main` on ViT-B/16 --flash_attn (1 epoch of 4 steps at batch 64)
+   under torchrun's environment for a world of one prints "Not using
+   distributed mode", runs captured and equals a plain launch bitwise
+   (every loss, every parameter); 16b. two processes share the card, each a
+   rank of a gloo group (NCCL refuses two ranks on one device; gloo reduces
+   CUDA tensors through the host; `--dp-worker`), and run the port's
+   data-parallel step on ViT-B/16 --flash_attn at full width, bf16, local
+   batch 32, mixup and cutmix on, drop path 0, --update_freq 2, SGD, 3
+   optimizer steps (cut from 4 for the command's time): the ranks bitwise equal, held against one process on
+   the global batch of 64 (losses 2^-7 relative, the updates 2^-5 in
+   relative L2 and of the largest update), the wrappers' K1 launches a step
+   on each rank (counted from 0 over the steps) and from a trace, each
+   rank's ms a step labelled as not a multi-GPU number; 16c. the same on
+   ResNet-50 at local batch 16, 2 steps, its BatchNorm statistics over the
+   global batch held too. One pair of ranks runs 16b then 16c; it starts and
+   joins its group while 16a runs, and steps after it. No multi-GPU or NCCL
+   number exists here;
+17. one JSON line with every kernel's numbers (at ConvNeXt-T's stage-0
    shape for the LayerNorm and depthwise-conv kernels and ResNet-50's
    stage-1 conv3 shape for the fused 1x1 conv; the other shapes are in the
    lines of phases 3c, 3d and 3e; the flash kernels' numbers on the
@@ -250,7 +269,9 @@ exit before the last line:
    "bound_ms"; the forward, dQ and dK/dV marked "redesigned" with their
    "design", and the backward's SDPA error as "library_max_abs_err"); K3-K5
    on phase 15's replay under "upernet"; phase 15's summary under
-   "segmentation"), then the result line {"ok": true, "device": {...}}.
+   "segmentation"; the bf16 K1 kernels' launches on phase 16b's ranks under
+   "data_parallel", phase 16's summary under "data_parallel"), then the
+   result line {"ok": true, "device": {...}}.
 
 `python3 chip_smoke.py --compare-f32-forward <checkout>` runs nothing of the
 above: it holds the fp32 forward kernel of another checkout (built from its
@@ -4243,6 +4264,404 @@ def log_seg(res: dict) -> None:
     log(f"phase 15 wall seconds: {res['seconds']}")
 
 
+# phase 16: data-parallel training (ROADMAP A9) on the one card. 16a: a world
+# of one process through the launcher's environment (torchrun's RANK=0
+# WORLD_SIZE=1) runs train.main as a plain launch does, captured, bitwise.
+# 16b: two processes share the card, each in a gloo group (NCCL refuses two
+# ranks on one device; gloo reduces CUDA tensors through the host), and run
+# the port's data-parallel step on ViT-B/16 --flash_attn at full width, bf16,
+# local batch 32, mixup and cutmix on, drop path 0, --update_freq 2, 3
+# optimizer steps (cut from 4 for the command's time); one process runs the
+# same step on the global batch of 64 after them. 16c: the same on ResNet-50
+# at local batch 16, 2 steps (its BatchNorm over the global batch). One pair
+# of rank processes runs 16b, then 16c; they start, reach the card and join
+# their group while 16a runs, and take their first step after it. No number
+# of this phase is a multi-GPU or NCCL figure: none exists.
+DP_LABEL = "2 processes sharing one H100, gloo through the host: not a multi-GPU number"
+DP_VIT = dict(model="vit_base_patch16", flash=True, local_batch=32, update_freq=2, opt_steps=3,
+              img=224, num_classes=5, lr=0.01, device="cuda")
+DP_RESNET = dict(model="resnet50", flash=False, local_batch=16, update_freq=1, opt_steps=2,
+                 img=224, num_classes=5, lr=0.01, device="cuda")
+# bf16 training, two ranks against one process on the global batch: each
+# rank rounds its half of a weight gradient to bf16 (the weights are cast to
+# bf16 at use, so their gradients are bf16) before the fp32 sum over the
+# ranks, where one process rounds the whole once: 2^-8 of each half an
+# element, which is more of the sum where the halves cancel. The updates
+# (SGD, linear in the gradients) are held to 2^-5 of them, in relative L2
+# (||d - d1|| / ||d1||) and elementwise (of the largest update): halves that
+# cancel to an eighth of their size; the losses, which see those updates'
+# differences only after the first, to 2^-7; the BatchNorm running
+# statistics (fp32 sums of bf16 activations) to 2^-7 of the largest
+DP_LOSS_RTOL = 2.0 ** -7
+DP_UPDATE_RTOL = 2.0 ** -5
+DP_STATS_RTOL = 2.0 ** -7
+# 16a: a world of one through the launcher, 1 epoch of 4 steps at batch 64
+DP_LAUNCH = dict(model="vit_base_patch16", img=224, batch=64, num_classes=5, per_class=60,
+                 device="cuda")
+
+
+def dp_config(cfg: dict):
+    """The train config of a phase-16 run: the default flags but SGD at
+    cfg's lr, mixup 0.8 and cutmix 1.0 (both on), drop path 0."""
+    from imageclassification_tpu_torch.config import TrainConfig
+
+    return TrainConfig(model=cfg["model"], flash_attn=cfg["flash"], input_size=cfg["img"],
+                       batch_size=cfg["local_batch"], update_freq=cfg["update_freq"], opt="sgd",
+                       lr=cfg["lr"], mixup=0.8, cutmix=1.0, drop_path=0.0, pretrained=False,
+                       device=cfg["device"])
+
+
+def dp_step_run(cfg: dict, world: int, rank: int, trace_steps: int = 0) -> dict:
+    """The port's train step (eager) on `rank`'s rows of seeded global
+    batches of 2 * local_batch (all of them at a world of one), cfg's
+    update_freq * opt_steps
+    micro-steps, in this process's group (a world of one without one).
+    Returns the losses, the parameters before and after (CPU fp32), the
+    BatchNorm statistics, the wrappers' K1 launch counts over the steps (set
+    to 0 just before them), ms a micro-step after the first window, and
+    with `trace_steps` the K1 kernels of that many more steps from a trace."""
+    import torch
+
+    from imageclassification_tpu_torch.data.mixup import build_mixup
+    from imageclassification_tpu_torch.engine.state import create_train_state
+    from imageclassification_tpu_torch.engine.step import build_train_step
+    from imageclassification_tpu_torch.models import create_model, model_kwargs_for
+    from imageclassification_tpu_torch.models.layers import batch_norm_stats
+    from imageclassification_tpu_torch.ops.flash_attention import reset_launches
+    from imageclassification_tpu_torch.optim.factory import create_optimizer
+    from imageclassification_tpu_torch.parallel.mesh import rows_of
+
+    args = dp_config(cfg)
+    nc, img, device = cfg["num_classes"], cfg["img"], torch.device(cfg["device"])
+    cuda = device.type == "cuda"
+    model = create_model(args.model, half_precision=True, generator=torch.Generator().manual_seed(0),
+                         **{"img_size": img, **model_kwargs_for(args, nc)}).to(device)
+    opt = create_optimizer("sgd", model.parameters(), lr=args.lr, weight_decay=args.weight_decay)
+    state = create_train_state(model, opt, update_freq=args.update_freq)
+    steps = cfg["update_freq"] * cfg["opt_steps"]
+    step = build_train_step(model, args, nc, build_mixup(args, nc), np.full(steps, args.lr),
+                            np.full(steps, args.weight_decay), seed=args.seed)
+    G = cfg["local_batch"] * 2
+    rng = np.random.default_rng(16)
+    images = rng.integers(0, 256, (steps, G, img, img, 3), dtype=np.uint8)
+    labels = rng.integers(0, nc, (steps, G))
+    mine = rows_of(G, rank, world)
+    batches = [{"image": torch.from_numpy(images[s, mine]).to(device),
+                "label": torch.from_numpy(labels[s, mine]).to(device)} for s in range(steps)]
+    before = {k: v.detach().float().cpu().clone() for k, v in model.named_parameters()}
+    reset_launches()
+    losses, t0 = [], None
+    for s, batch in enumerate(batches):
+        if s == cfg["update_freq"]:  # the first window done: time the rest
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(step(state, batch))
+    if cuda:
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (steps - cfg["update_freq"])
+    out = {"losses": [float(m["loss"]) for m in losses], "ms_per_step": ms,
+           "skipped": [float(m["skipped"]) for m in losses],
+           "launches": _launch_counts("bf16"), "before": before,
+           "after": {k: v.detach().float().cpu().clone() for k, v in model.named_parameters()},
+           "stats": {k: v.float().cpu().clone() for k, v in batch_norm_stats(model).items()}}
+    if trace_steps and cuda:
+        # the ranks trace in turn (one profiler on the card at a time), every
+        # rank making the same calls (each runs collectives): one untraced
+        # call, then `trace_steps` traced ones, or as many untraced
+        it = iter(batches * world * 2)
+
+        def call():
+            step(state, next(it))
+
+        for r in range(world):
+            if r == rank:
+                seq = flash_kernel_sequence(call, trace_steps)
+            else:
+                for _ in range(trace_steps + 1):
+                    call()
+        out["traced"] = {"calls": trace_steps, "kinds": dict(Counter(seq))}
+    return out
+
+
+def dp_worker(job: str, out: str) -> int:
+    """A rank of 16b and 16c (`--dp-worker <job.json> <out.pt>`): joins the
+    gloo group of RANK / WORLD_SIZE at MASTER_ADDR:MASTER_PORT on card 0,
+    adopts it through `parallel.init_distributed_mode` as train.main would,
+    waits for the job's go file, runs `dp_step_run` on each of the job's
+    configs in turn and writes their results, by name."""
+    import torch
+    import torch.distributed as dist
+
+    from imageclassification_tpu_torch.parallel import init_distributed_mode
+
+    with open(job) as f:
+        job = json.load(f)
+    cfgs = job["cfgs"]
+    cuda = any(cfg["device"] == "cuda" for cfg in cfgs.values())
+    if cuda:
+        if not torch.cuda.is_available():
+            return 1
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    dist.init_process_group("gloo", init_method=(f"tcp://{os.environ['MASTER_ADDR']}:"
+                                                 f"{os.environ['MASTER_PORT']}"),
+                            world_size=world, rank=rank)
+    try:
+        res = {}
+        for name, cfg in cfgs.items():
+            args = dp_config(cfg)
+            init_distributed_mode(args)
+            if not (args.distributed and (args.rank, args.world_size) == (rank, world)):
+                raise AssertionError(f"the group was not adopted: {args}")
+            deadline = time.monotonic() + 600
+            while not os.path.exists(job["go"]):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"no go file {job['go']} after 600 s")
+                time.sleep(0.2)
+            res[name] = dp_step_run(cfg, world, rank, trace_steps=cfg["update_freq"])
+            if cuda:
+                torch.cuda.empty_cache()
+        torch.save(res, out)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_spawn(work: str, cfgs: dict):
+    """Two `dp_worker` ranks on the card, for `cfgs` ({name: cfg}, run in
+    turn); they wait for the go file. Returns (the go file's path, the
+    processes, their output paths)."""
+    job, go = os.path.join(work, "dp_job.json"), os.path.join(work, "dp_go")
+    with open(job, "w") as f:
+        json.dump({"cfgs": cfgs, "go": go}, f)
+    port = str(_free_port())
+    procs, outs = [], []
+    for rank in range(2):
+        outs.append(os.path.join(work, f"dp_rank{rank}.pt"))
+        # the host's cores split between the ranks (threads that spin while
+        # the other rank holds the cores stall both at every collective)
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
+                   OMP_NUM_THREADS=os.environ.get("OMP_NUM_THREADS")
+                   or str(max(1, (os.cpu_count() or 2) // 2)))
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-worker",
+                                       job, outs[-1]], env=env))
+    return go, procs, outs
+
+
+def dp_collect(procs: list, outs: list) -> list:
+    """The ranks' results ({name: result} each) once both have exited."""
+    rcs = [p.wait(timeout=420) for p in procs]
+    if any(rcs):
+        raise AssertionError(f"phase 16: the ranks exited with {rcs}")
+    import torch
+
+    return [torch.load(o, weights_only=False) for o in outs]
+
+
+def dp_compare(name: str, ranks: list, one: dict, cfg: dict) -> dict:
+    """Holds the two ranks to each other (bitwise) and to one process on the
+    global batch (DP_* tolerances); returns the agreement."""
+    import torch
+
+    r0, r1 = ranks
+    for part in ("after", "stats"):
+        for k, v in r0[part].items():
+            if not torch.equal(v, r1[part][k]):
+                raise AssertionError(f"16 {name}: the ranks' {part} {k} differ")
+    if r0["losses"] != r1["losses"]:
+        raise AssertionError(f"16 {name}: the ranks' losses differ: {r0['losses']} {r1['losses']}")
+    losses = np.asarray(r0["losses"])
+    want = np.asarray(one["losses"])
+    if not (np.isfinite(losses).all() and not any(r0["skipped"])):
+        raise AssertionError(f"16 {name}: losses {losses}, skipped {r0['skipped']}")
+    loss_err = float(np.max(np.abs(losses - want) / np.abs(want)))
+    if loss_err > DP_LOSS_RTOL:
+        raise AssertionError(f"16 {name}: losses {losses} against one process's {want}: "
+                             f"relative {loss_err} > {DP_LOSS_RTOL}")
+    d2 = torch.cat([(r0["after"][k] - r0["before"][k]).flatten() for k in r0["after"]])
+    d1 = torch.cat([(one["after"][k] - one["before"][k]).flatten() for k in one["after"]])
+    update_rel_l2 = ((d2 - d1).norm() / d1.norm()).item()
+    update_max = (d2 - d1).abs().max().item()
+    scale = d1.abs().max().item()
+    if not (update_rel_l2 <= DP_UPDATE_RTOL and update_max <= DP_UPDATE_RTOL * scale):
+        raise AssertionError(f"16 {name}: updates against one process's: relative L2 "
+                             f"{update_rel_l2} (tol {DP_UPDATE_RTOL}), max|d| {update_max} (tol "
+                             f"{DP_UPDATE_RTOL * scale})")
+    res = {"losses": r0["losses"], "losses_one_process": one["losses"],
+           "loss_max_rel_err": loss_err, "update_rel_l2": update_rel_l2,
+           "update_max_abs_err": update_max, "update_max_abs": scale,
+           "ms_per_step": [r["ms_per_step"] for r in ranks],
+           "ms_per_step_one_process": one["ms_per_step"],
+           "launches": r0["launches"], "launches_rank1": r1["launches"]}
+    if r0["stats"]:
+        stats_err = max((r0["stats"][k] - v).abs().max().item() for k, v in one["stats"].items())
+        stats_scale = max(v.abs().max().item() for v in one["stats"].values())
+        if stats_err > DP_STATS_RTOL * stats_scale:
+            raise AssertionError(f"16 {name}: BatchNorm statistics max|d| {stats_err} > "
+                                 f"{DP_STATS_RTOL * stats_scale}")
+        res.update(stats_max_abs_err=stats_err, stats_max_abs=stats_scale)
+    return res
+
+
+def dp_launch_world_of_one(work: str) -> dict:
+    """16a: train.main on ViT-B/16 --flash_attn for 1 epoch of 4 steps at
+    batch 64 under torchrun's environment for a world of one, then as a
+    plain launch: "Not using distributed mode", the captured step, and the
+    two runs bitwise equal (every step's loss, every parameter)."""
+    import torch
+
+    from imageclassification_tpu_torch.engine.compiled import CapturedTrainStep
+
+    cfg = DP_LAUNCH
+    images = _train_images(work, cfg["num_classes"], cfg["per_class"], seed=16)
+    flags = ["--model", cfg["model"], "--flash_attn", "true", "--input_size",
+             str(cfg["img"]), "--batch_size", str(cfg["batch"]), "--epochs", "1",
+             "--warmup_epochs", "1", "--device", cfg["device"], "--save_ckpt", "false"]
+    runs = {}
+    for name, env in (("launcher", {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0"}),
+                      ("plain", {})):
+        saved = {k: os.environ.pop(k, None) for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+        os.environ.update(env)
+        try:
+            (state, args, records, wall_s, step), text = _printed_by(
+                lambda: _train_main(os.path.join(work, name), images, flags))
+        finally:
+            for k, v in saved.items():
+                os.environ.pop(k, None)
+                if v is not None:
+                    os.environ[k] = v
+        if "Not using distributed mode" not in text or args.distributed:
+            raise AssertionError(f"16a {name}: not a world of one")
+        if isinstance(step, CapturedTrainStep) != (cfg["device"] == "cuda"):
+            raise AssertionError(f"16a {name}: the train step ran as {type(step).__name__}")
+        runs[name] = {"losses": [r["loss"] for r in records], "wall_s": wall_s,
+                      "params": {k: v.detach().cpu() for k, v in state.model.named_parameters()}}
+        del state, step
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    a, b = runs["launcher"], runs["plain"]
+    same = a["losses"] == b["losses"] and all(torch.equal(v, b["params"][k])
+                                              for k, v in a["params"].items())
+    fingerprint = {n: float(sum(v.double().sum().item() for v in r["params"].values()))
+                   for n, r in runs.items()}
+    if not same:
+        raise AssertionError(f"16a: the launcher's world of one differs from a plain launch: "
+                             f"losses {a['losses']} / {b['losses']}, fingerprints {fingerprint}")
+    return {"losses": a["losses"], "steps": len(a["losses"]), "fingerprint": fingerprint,
+            "wall_s": {n: r["wall_s"] for n, r in runs.items()}}
+
+
+def dp_phase(work: str) -> dict:
+    """Phase 16 (see the constants above); returns its summary."""
+    import torch
+
+    out, seconds = {}, {}
+    cfgs = {"16b": DP_VIT, "16c": DP_RESNET}
+    t0 = time.perf_counter()
+    go, procs, outs = dp_spawn(work, cfgs)
+    try:
+        out["16a"] = dp_launch_world_of_one(work)
+        seconds["16a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        open(go, "w").close()
+        results = dp_collect(procs, outs)
+        seconds["16b+16c ranks"] = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            p.kill()
+    a = out["16a"]
+    log(f"data-parallel (16a): train.main, {DP_LAUNCH['model']} --flash_attn, batch "
+        f"{DP_LAUNCH['batch']}, "
+        f"{a['steps']} steps, under RANK=0 WORLD_SIZE=1: 'Not using distributed mode', the "
+        f"step captured, losses {', '.join(f'{x:.4f}' for x in a['losses'])} and every "
+        f"parameter bitwise those of a plain launch (fingerprint {a['fingerprint']['plain']!r}); "
+        f"{a['wall_s']['launcher']:.1f} / {a['wall_s']['plain']:.1f} s")
+    for name, cfg in cfgs.items():
+        t0 = time.perf_counter()
+        ranks = [r[name] for r in results]
+        one = dp_step_run(cfg, 1, 0)
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+        res = dp_compare(name, ranks, one, cfg)
+        steps = cfg["update_freq"] * cfg["opt_steps"]
+        if cfg["flash"] and cfg["device"] == "cuda":
+            per_step = {k: v / steps for k, v in res["launches"].items()}
+            want = {"fwd": 24, "fwd_lse": 12, "bwd_dkv": 12, "bwd_dq": 12}
+            for r in ranks:
+                got = {k: v / steps for k, v in r["launches"].items()}
+                if got != want:
+                    raise AssertionError(f"16b: K1 launches a step on a rank {got}, want {want}")
+                traced = {k: v / r["traced"]["calls"] for k, v in r["traced"]["kinds"].items()}
+                if traced != {"fwd": 24, "dq": 12, "dkv": 12}:
+                    raise AssertionError(f"16b: K1 kernels a step in a rank's trace {traced}")
+            res["launches_per_step"] = per_step
+            res["traced_per_step"] = [{k: v / r["traced"]["calls"]
+                                       for k, v in r["traced"]["kinds"].items()} for r in ranks]
+        seconds[f"{name} one process"] = time.perf_counter() - t0
+        out[name] = res
+        what = (f"{cfg['model']}{' --flash_attn' if cfg['flash'] else ''}, bf16, local batch "
+                f"{cfg['local_batch']}, mixup + cutmix, --update_freq {cfg['update_freq']}, "
+                f"{cfg['opt_steps']} optimizer steps")
+        log(f"data-parallel ({name}): {what}, SGD lr {cfg['lr']}: the two ranks bitwise equal; "
+            f"against one process on the global batch of {2 * cfg['local_batch']}: losses "
+            f"max rel {res['loss_max_rel_err']:.2e} (tol {DP_LOSS_RTOL:.2e}), updates rel L2 "
+            f"{res['update_rel_l2']:.2e} (tol {DP_UPDATE_RTOL:.2e}), max|d| "
+            f"{res['update_max_abs_err']:.3e} of max|update| {res['update_max_abs']:.3e} (tol "
+            f"{DP_UPDATE_RTOL:.3g} of it)"
+            + (f", BatchNorm statistics max|d| {res['stats_max_abs_err']:.3e} of "
+               f"{res['stats_max_abs']:.3e}" if "stats_max_abs_err" in res else "")
+            + (f"; K1 launches a step on each rank {res['launches_per_step']} (counts), "
+               f"{res['traced_per_step'][0]} (trace)" if "launches_per_step" in res else ""))
+        log(f"data-parallel ({name}) ms a step, {DP_LABEL}: rank 0 "
+            f"{res['ms_per_step'][0]:.1f}, rank 1 {res['ms_per_step'][1]:.1f}; one process on "
+            f"the global batch, eager, alone on the card: {res['ms_per_step_one_process']:.1f}")
+    out["seconds"] = seconds
+    log(f"phase 16 wall seconds: {seconds}")
+    return out
+
+
+def dp_phases(keep: str) -> dict:
+    """Phase 16 in a child process of this script (`--distributed`), with a
+    fresh profiler as phases 10-15; returns its summary through a file."""
+    out = os.path.join(keep, "phase16.json")
+    sys.stdout.flush()
+    rc = subprocess.run([sys.executable, os.path.abspath(__file__), "--distributed", keep, out],
+                        timeout=900).returncode
+    if rc != 0:
+        raise AssertionError(f"phase 16 (a child process) exited with {rc}")
+    with open(out) as f:
+        return json.load(f)
+
+
+def dp_main(keep: str, out: str) -> int:
+    """The child of `dp_phases`: phase 16 on the card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        res = dp_phase(work)
+    res["seconds"]["phase"] = time.perf_counter() - t0
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -4607,6 +5026,12 @@ def main() -> int:
     # 15. UPerNet segmentation at full width in one process (seg_train),
     # whole / slide / ms eval, K3-K5 at its backbone's shapes
     seg = seg_phases(keep.name)
+    stamp('phase 16')
+    # 16. data-parallel training: 16a a world of one through the launcher,
+    # 16b two processes on the card against one (ViT-B/16 --flash_attn),
+    # 16c the same on ResNet-50; the launches counted from 0 over each rank's
+    # steps
+    dp = dp_phases(keep.name)
     keep.cleanup()
 
     stamp('the kernels line')
@@ -4831,6 +5256,21 @@ def main() -> int:
                             "bound_ms": seg_dw0["bound"][part][0]}
     if any(k.get("upernet", {"launches": 1})["launches"] <= 0 for k in kernels):
         raise AssertionError("a K3-K5 kernel was not launched in the UPerNet replay")
+    # the bf16 K1 kernels on the data-parallel path (16b): each rank's
+    # launches over its 8 micro-steps, counted from 0
+    dp_parts = {fa.KERNEL: "fwd", f"{fa.KERNEL_BWD}_dq": "bwd_dq",
+                f"{fa.KERNEL_BWD}_dkv": "bwd_dkv"}
+    for k in kernels:
+        part = dp_parts.get(k["name"])
+        if part is not None:
+            k["data_parallel"] = {
+                "path": ("two processes on one card, each a gloo rank training ViT-B/16 "
+                         "--flash_attn at local batch 32 (chip_smoke.py phase 16b)"),
+                "launches": dp["16b"]["launches"][part],
+                "launches_rank1": dp["16b"]["launches_rank1"][part],
+                "launches_per_step_per_rank": dp["16b"]["launches_per_step"][part]}
+            if min(k["data_parallel"]["launches"], k["data_parallel"]["launches_rank1"]) <= 0:
+                raise AssertionError(f"{k['name']} was not launched on the data-parallel path")
     for k in kernels:
         for path in ("int8_serving", "export", "gradcam"):
             if path in k and k[path]["launches"] <= 0:
@@ -4848,8 +5288,12 @@ def main() -> int:
     seg_summary = {k: seg[k] for k in ("losses", "miou_whole", "miou_slide", "miou_ms",
                                        "aacc_whole", "ms_step", "peak_gib", "seconds")}
     seg_summary["replay_nearest"] = seg["replay"]["nearest"]
+    dp_summary = {"16a": dp["16a"], "seconds": dp["seconds"], "label": DP_LABEL,
+                  **{n: {k: v for k, v in dp[n].items() if not k.startswith("launches")}
+                     for n in ("16b", "16c")}}
     log(json.dumps({"kernels": kernels, "recipes": recipes, "registry": registry,
-                    "lifecycle": lifecycle, "segmentation": seg_summary}))
+                    "lifecycle": lifecycle, "segmentation": seg_summary,
+                    "data_parallel": dp_summary}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
@@ -4961,4 +5405,8 @@ if __name__ == "__main__":
         sys.exit(compare_f32_forward(sys.argv[2]))
     if sys.argv[1:2] == ["--segmentation"]:
         sys.exit(seg_main(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--distributed"]:
+        sys.exit(dp_main(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--dp-worker"]:
+        sys.exit(dp_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main())

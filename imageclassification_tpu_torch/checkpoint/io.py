@@ -20,6 +20,12 @@ save_ckpt_num * save_ckpt_freq; auto-resume from the newest numbered epoch;
 name+shape pruning that prints `Skipping mismatched key:`; optimizer, step
 and start epoch restored only when every parameter key matched. The JAX
 package writes in a background thread; the port writes before it returns.
+
+At a world of several processes rank 0 writes (every rank holds the same
+state); the resume decision is rank 0's, broadcast, and a path missing on a
+rank raises FileNotFoundError; the copies every rank loads are held to one
+another by an all-gathered fingerprint (the finite sum and the count of
+non-finite values), a difference raising RuntimeError.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import torch
 from torch import nn
 
 from ..models.layers import batch_norm_stats
+from ..parallel.dist import all_reduce_host, broadcast_host, get_rank, get_world_size
 from ..optim.ema import init_ema, init_ema_stats
 from .to_jax import carry_for, optimizer_from_jax, optimizer_to_jax
 
@@ -152,13 +159,15 @@ def derive_prune_masks(model: nn.Module) -> Tuple[Dict[str, torch.Tensor], float
 
 def save_model(args, input_shape, epoch, state, num_classes: int,
                model_spec: Dict[str, Any]) -> str:
-    """Write output_dir/checkpoint-{epoch}.pth in the JAX layout; `epoch` is
-    an int or "best"/"best-ema". Returns the path."""
+    """Write output_dir/checkpoint-{epoch}.pth in the JAX layout (rank 0
+    only); `epoch` is an int or "best"/"best-ema". Returns the path."""
     model = state.model
     carry = carry_for(model)
     output_dir = Path(args.output_dir)
-    output_dir.mkdir(parents=True, exist_ok=True)
     path = output_dir / f"checkpoint-{epoch}.pth"
+    if get_rank() != 0:
+        return str(path)
+    output_dir.mkdir(parents=True, exist_ok=True)
     ck = {
         "format_version": FORMAT_VERSION,
         "model_spec": model_spec,
@@ -195,6 +204,52 @@ def find_latest_checkpoint(output_dir: str):
     return None
 
 
+def sync_resume_across_processes(args) -> None:
+    """Rank 0's resume decision (args.resume) on every rank: a rank that
+    decided otherwise adopts it, and one that cannot see the file raises
+    FileNotFoundError (a resume needs the checkpoint on a shared filesystem
+    or on every host), so replicas never start from different weights."""
+    if get_world_size() == 1:
+        return
+    enc = np.zeros(1024, np.uint8)
+    raw = args.resume.encode()
+    if len(raw) > enc.size:
+        raise ValueError(f"resume path too long to broadcast: {args.resume!r}")
+    enc[:len(raw)] = np.frombuffer(raw, np.uint8)
+    resume = bytes(broadcast_host(enc)).rstrip(b"\x00").decode()
+    if resume != args.resume:
+        print(f"process {get_rank()}: adopting process 0 resume decision {resume!r} "
+              f"(local was {args.resume!r})", flush=True)
+        args.resume = resume
+    if resume and not os.path.exists(resume):
+        raise FileNotFoundError(
+            f"process {get_rank()} cannot read {resume!r}: a multi-process resume needs the "
+            "checkpoint on a shared filesystem (or mirrored to every host)")
+
+
+def assert_checkpoint_consistent(ckpt_flat: Dict[str, np.ndarray]) -> None:
+    """Every rank loaded its own copy of the file: hold the copies to one
+    another by a fingerprint (the sum of the finite values, the count of the
+    non-finite ones; a NaN must not make equal copies differ), all-gathered
+    as a sum into zeros; a difference raises RuntimeError."""
+    world = get_world_size()
+    if world == 1:
+        return
+    fp, n_nonfinite = 0.0, 0.0
+    for v in ckpt_flat.values():
+        arr = np.asarray(v, np.float64)
+        finite = np.isfinite(arr)
+        fp += float(arr[finite].sum())
+        n_nonfinite += float(arr.size - finite.sum())
+    fps = np.zeros((world, 2), np.float64)
+    fps[get_rank()] = (fp, n_nonfinite)
+    fps = all_reduce_host(fps)
+    if not np.allclose(fps, fps[0], rtol=1e-5, atol=1e-6):
+        raise RuntimeError(
+            f"checkpoint content differs across processes (fingerprints {fps.tolist()}): "
+            "replicas would diverge; make every host see the same checkpoint file")
+
+
 def auto_load_model(args, state):
     """Resume or transfer-load into `state` with the JAX package's rules.
     Returns (state, the loaded checkpoint or None); sets args.resume and
@@ -204,6 +259,7 @@ def auto_load_model(args, state):
         if latest is not None:
             args.resume = latest
         print("Auto resume checkpoint: %s" % args.resume)
+    sync_resume_across_processes(args)
     if not args.resume:
         return state, None
     if args.resume.startswith("http"):
@@ -212,6 +268,7 @@ def auto_load_model(args, state):
 
     print(args.resume)
     checkpoint = load_checkpoint(args.resume)
+    assert_checkpoint_consistent(checkpoint["model"])
     model = state.model
     missing_nums = load_params_with_pruning(model, checkpoint["model"])
     if checkpoint.get("batch_stats"):

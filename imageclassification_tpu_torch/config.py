@@ -2,9 +2,9 @@
 
 The same dataclass fields, defaults and argparse flags as the JAX package, so
 a command line for the JAX `train.py` parses here unchanged, except that
-`--device` takes `cuda|cpu` and defaults to `cuda`. The flags of features not
-ported yet are parsed as in JAX, and `check_ported` raises
-NotImplementedError naming their ROADMAP item when one is set; none is
+`--device` takes `cuda|cpu` and defaults to `cuda`. The one flag of a
+feature not ported yet (--fsdp) is parsed as in JAX, and `check_ported`
+raises NotImplementedError naming its ROADMAP item when it is set; none is
 silently ignored.
 """
 
@@ -12,7 +12,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import os
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
@@ -191,47 +190,18 @@ def parse_args(argv=None) -> TrainConfig:
     return TrainConfig(**vars(parser.parse_args(argv)))
 
 
-def _mesh_devices(mesh_shape: str) -> int:
-    n = 1
-    for part in filter(None, (p.strip() for p in mesh_shape.split(","))):
-        n *= int(part.split(":")[1])
-    return n
-
-
-def _launcher_processes() -> tuple:
-    """(processes, variable) of the launcher environment that makes the JAX
-    train.py join processes (imageclassification_tpu/parallel/dist.py:40-53):
-    torchrun's RANK and WORLD_SIZE, else SLURM's SLURM_PROCID and
-    SLURM_NTASKS; (1, "") when there is none."""
-    env = os.environ
-    if "RANK" in env and "WORLD_SIZE" in env:
-        return int(env["WORLD_SIZE"]), f"WORLD_SIZE={env['WORLD_SIZE']}"
-    if "SLURM_PROCID" in env:
-        ntasks = env.get("SLURM_NTASKS", "1")
-        return int(ntasks), f"SLURM_NTASKS={ntasks}"
-    return 1, ""
-
-
 def check_ported(args: TrainConfig) -> None:
     """Raise NotImplementedError for a flag whose feature is not ported yet,
-    naming its ROADMAP item; also for a launch of more than one process,
-    which the JAX train.py joins into one training and this one would run as
-    independent trainings writing the same checkpoints. Raise ValueError for
-    adahessian on a ViT with --flash_attn, a pair the JAX package cannot run
-    either."""
-    processes, variable = _launcher_processes()
-    unported = [
-        (args.dist_on_itp, "--dist_on_itp true", "A9 (distributed)"),
-        (processes > 1, f"a launch of {processes} processes ({variable})", "A9 (distributed)"),
-        (args.fsdp, "--fsdp true", "A9 (distributed)"),
-        (_mesh_devices(args.mesh_shape) > 1, f"--mesh_shape {args.mesh_shape}",
-         "A9 (distributed)"),
-    ]
-    for is_set, flag, item in unported:
-        if is_set:
-            raise NotImplementedError(
-                f"{flag} is not ported to imageclassification_tpu_torch yet (ROADMAP {item})"
-            )
+    naming its ROADMAP item (--fsdp, the JAX parameter sharding: A9b).
+    Raise ValueError for adahessian on a ViT with --flash_attn, a pair the
+    JAX package cannot run either. A launch of several processes (torchrun,
+    SLURM, OMPI with --dist_on_itp) and a --mesh_shape over them are ported
+    (`parallel/`); a --mesh_shape whose size is not the world raises
+    ValueError in `train.main`, as JAX's make_mesh does."""
+    if args.fsdp:
+        raise NotImplementedError(
+            "--fsdp true is not ported to imageclassification_tpu_torch yet "
+            "(ROADMAP A9b (--fsdp))")
     if (args.opt.lower().split("_")[-1] == "adahessian" and args.flash_attn
             and args.model.startswith("vit")):
         raise ValueError(

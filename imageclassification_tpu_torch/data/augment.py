@@ -11,7 +11,9 @@ AbelAugment (`data/abel.py`), any other name an AutoAugment table
 Every random function takes its draws as tensors, and `AugmentPipeline.sample`
 makes them from an explicit `torch.Generator`; a test hands both packages the
 same draws. JAX draws them from its keys inside the step; the two generators
-give different numbers, never different semantics.
+give different numbers, never different semantics. At a world of several
+processes the step draws for the global batch and each rank takes its rows
+(`draw_rows`).
 """
 
 from __future__ import annotations
@@ -111,6 +113,24 @@ def random_erasing(images: torch.Tensor, draws: Dict[str, torch.Tensor],
 
 def _uniform(shape, lo, hi, generator):
     return torch.rand(shape, generator=generator, device=generator.device) * (hi - lo) + lo
+
+
+def draw_rows(draws: Dict, rows: slice) -> Dict:
+    """The draws of `AugmentPipeline.sample` for the samples `rows` of the
+    batch they were drawn for (a rank's rows of the global batch): the
+    policy draws ("aa") hold the batch on their last axis, every other draw
+    on its first."""
+    out = {}
+    for k, v in draws.items():
+        if k == "aa":
+            out[k] = {kk: vv[..., rows] for kk, vv in v.items()}
+        elif isinstance(v, dict):
+            out[k] = draw_rows(v, rows)
+        elif isinstance(v, list):
+            out[k] = [t[rows] for t in v]
+        else:
+            out[k] = v[rows]
+    return out
 
 
 class AugmentPipeline:

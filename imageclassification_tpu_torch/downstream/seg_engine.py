@@ -9,9 +9,14 @@ BatchNorm statistics committed. The eval step returns one batch's
 [C, C] confusion counts on the device; the caller accumulates them in
 float64 on the host, where mIoU falls out at the end.
 
-The steps run eager on the card or the CPU, in one process: at a world of
-1 the JAX package's `sharded_whole_eval` is a plain loop over the val set
-(its rank-strided shards and collectives are ROADMAP A9).
+The steps run eager on the card or the CPU. At a world of several processes
+(`parallel/`) the train step is the function of the global batch, as JAX's:
+the loss is the global batch's pixel mean (each rank's sum over the global
+count of valid pixels, the gradients summed over the ranks in one flat
+all-reduce with the loss), and the heads' BatchNorm takes the global
+batch's statistics; `sharded_whole_eval` runs rank-strided shards of the
+val set, every rank the same number of steps, and sums each step's counts
+over the ranks before the float64 host accumulation.
 """
 
 from __future__ import annotations
@@ -29,6 +34,8 @@ from ..data.augment import IMAGENET_MEAN, IMAGENET_STD
 from ..engine.state import TrainState
 from ..models.layers import commit_batch_stats
 from ..optim.factory import Optimizer
+from ..parallel.dist import all_reduce_host, get_rank, get_world_size
+from ..parallel.mesh import sum_across
 
 IGNORE_INDEX = 255  # mmseg convention: 255 = unlabeled, excluded everywhere
 
@@ -43,13 +50,16 @@ def _normalize(images_u8: torch.Tensor) -> torch.Tensor:
 
 
 def seg_loss(main_logits: torch.Tensor, aux_logits: Optional[torch.Tensor],
-             labels: torch.Tensor, aux_weight: float = 0.4) -> torch.Tensor:
+             labels: torch.Tensor, aux_weight: float = 0.4,
+             denom: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-pixel cross-entropy averaged over the pixels not labelled 255, plus
     aux_weight times the same on the aux head's logits. Logits NHWC, labels
-    NHW with ids below the class count or 255."""
+    NHW with ids below the class count or 255. `denom`: the count of valid
+    pixels to divide by (the global batch's), else this batch's."""
     valid = labels != IGNORE_INDEX
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
-    denom = valid.sum().clamp(min=1).to(torch.float32)
+    if denom is None:
+        denom = valid.sum().clamp(min=1).to(torch.float32)
 
     def ce(logits):
         px = F.cross_entropy(logits.float().permute(0, 3, 1, 2), safe, reduction="none")
@@ -100,8 +110,12 @@ def build_seg_train_step(model: nn.Module, lr_schedule, weight_decay: float,
         opt: Optimizer = state.optimizer
         model.train()
         main, aux = model(_normalize(images_u8), generator)
-        loss = seg_loss(main, aux, labels, aux_weight)
+        # the global batch's count of valid pixels (int64, exact)
+        n, = sum_across([(labels != IGNORE_INDEX).sum()], torch.int64)
+        loss = seg_loss(main, aux, labels, aux_weight, n.clamp(min=1).to(torch.float32))
         grads = torch.autograd.grad(loss, opt.params)
+        # each rank's share of the global mean, summed
+        *grads, loss = sum_across([*grads, loss.detach()])
         it = min(state.step, len(lr_schedule) - 1)
         opt.set_hyperparams(float(lr_schedule[it]), weight_decay)
         opt.step(grads)
@@ -128,23 +142,30 @@ def build_seg_eval_step(model: nn.Module, num_classes: int) -> Callable:
 
 def sharded_whole_eval(eval_step: Callable, val_pairs, crop: int, batch: int, num_classes: int,
                        device: torch.device) -> np.ndarray:
-    """Whole-image eval over `val_pairs` at a world of 1 (the JAX function's
-    rank 0 of 1): squash-resized batches of `batch`, the last padded with
-    all-ignore rows to one shape, the counts accumulated in float64 on the
-    host. Returns the [C, C] confusion matrix."""
+    """Whole-image eval over `val_pairs`, `batch` the GLOBAL batch: each rank
+    takes the rank-strided shard val_pairs[rank::world] in squash-resized
+    batches of batch // world, padded with all-ignore rows to one shape, and
+    every rank runs the same number of steps (a rank whose shard has run out
+    feeds an all-ignore batch). Each step's counts are summed over the
+    ranks, then accumulated in float64 on the host. Returns the global
+    [C, C] confusion matrix, the same on every rank."""
     from .seg_data import val_batches
 
-    n_steps = math.ceil(len(val_pairs) / batch)
-    batches = val_batches(val_pairs, crop, batch=batch)
+    world, rank = get_world_size(), get_rank()
+    local_batch = max(1, batch // world)
+    n_steps = math.ceil(math.ceil(len(val_pairs) / world) / local_batch)
+    batches = val_batches(val_pairs[rank::world], crop, batch=local_batch)
     conf = np.zeros((num_classes, num_classes), np.float64)
     for _ in range(n_steps):
-        xs, ys = next(batches)
-        pad = batch - xs.shape[0]
+        xs, ys = next(batches, (np.zeros((0, crop, crop, 3), np.uint8),
+                                np.zeros((0, crop, crop), np.int32)))
+        pad = local_batch - xs.shape[0]
         if pad:
             xs = np.concatenate([xs, np.zeros((pad, crop, crop, 3), np.uint8)])
             ys = np.concatenate([ys, np.full((pad, crop, crop), IGNORE_INDEX, np.int32)])
         counts = eval_step(torch.from_numpy(xs).to(device), torch.from_numpy(ys).to(device))
-        conf += counts.cpu().numpy().astype(np.float64)
+        # int64 counts summed exactly (an fp32 sum would round past 2^24)
+        conf += all_reduce_host(counts.cpu().numpy()).astype(np.float64)
     return conf
 
 

@@ -28,6 +28,13 @@ comes from:
 
 A capture that fails raises; nothing falls back to the eager step. On the
 CPU the same functions run uncaptured.
+
+These run at a world of one process only. At a world of several
+(`parallel/`) `train.main` runs the train and eval steps eagerly, their
+collectives inline (the gradient all-reduce, BatchNorm's statistics, the
+mixup gather, the metrics): no host here can check an NCCL collective
+inside a CUDA graph, and gloo's cannot be captured. Capturing the
+multi-process step is held in ROADMAP.
 """
 
 from __future__ import annotations

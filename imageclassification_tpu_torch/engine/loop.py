@@ -6,6 +6,10 @@ a step's metrics are copied to the host behind its work (`StepMetrics`), and
 reading them waits for that copy alone. `skipped` is read there too, as
 JAX's `_drain` reads it. `evaluate` sums the eval step's counts over the
 whole validation set, reading each batch's one batch late the same way.
+
+At a world of several processes the train step's metrics are already the
+global batch's; `evaluate` sums its counts over the ranks' shards of the
+validation set, and both synchronize their meters (`MetricLogger`).
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from typing import Iterable
 
 import numpy as np
 
+from ..parallel.dist import all_reduce_host
 from ..utils.metrics import MetricLogger, per_class_precision_recall
 
 
@@ -40,6 +45,7 @@ def train_one_epoch(train_step, state, data_loader: Iterable, num_classes: int,
     if pending is not None:
         _drain(pending, metric_logger, counts, log_writer, wandb_logger)
 
+    metric_logger.synchronize_between_processes()
     print(f"Averaged stats:{metric_logger},Time:{time.time() - start_time}")
     precisions, recalls = per_class_precision_recall(counts["tp"], counts["fp"], counts["fn"])
     for i in range(num_classes):
@@ -83,6 +89,8 @@ def evaluate(eval_step, data_loader: Iterable, num_classes: int, header: str = "
     """Whole validation set: loss, acc1, acc5, per-class precision_i /
     recall_i, avg_precision and avg_recall, from the summed counts."""
     metric_logger = MetricLogger(delimiter="  ")
+    for name in ("loss", "acc1"):  # the same meters on every rank, for the sync
+        metric_logger.meters[name]
     totals = None
 
     def add(out):
@@ -102,6 +110,13 @@ def evaluate(eval_step, data_loader: Iterable, num_classes: int, header: str = "
         pending = out
     if pending is not None:
         add(pending)
+    metric_logger.synchronize_between_processes()
+    # the ranks' shards summed (every rank runs the same number of batches)
+    keys = sorted(totals)
+    flat = all_reduce_host(np.concatenate([np.atleast_1d(totals[k]) for k in keys]))
+    sizes = np.cumsum([0] + [np.atleast_1d(totals[k]).size for k in keys])
+    totals = {k: flat[a:b] if totals[k].ndim else flat[a]
+              for k, a, b in zip(keys, sizes[:-1], sizes[1:])}
 
     n = max(float(totals["n"]), 1.0)
     stats = {

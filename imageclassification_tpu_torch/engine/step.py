@@ -71,6 +71,26 @@ device from the step's Hessian generator (registered with the CUDA graphs
 as the others), and z * Hz goes to the optimizer as the Hessian diagonal.
 Every op on the path has a second derivative in plain PyTorch; the flash
 attention has none, and `config.check_ported` refuses that pair.
+
+Several processes (a world of W, `parallel/`): the step is the function of
+the global batch, the rank-major concatenation of the ranks' local batches,
+that the JAX jit step is. Every draw the JAX step makes over the global
+batch is made over it on every rank, from the same seeded generators, and
+each rank takes its rows (the pixel draws, `draw_rows`); mixup mixes the
+global batch, gathered after the augmentation (`all_gather_rows`), since a
+sample's partner B - 1 - i lies on rank W - 1 - r, and each rank keeps its
+rows. The dropout and stochastic-depth masks are drawn per rank from a
+generator seeded by (seed, rank), a departure from JAX's draw over the
+global batch. BatchNorm takes the global batch's statistics
+(`models/layers.py`). After the backward the gradients (and adahessian's
+z * Hz, z the same on every rank) are averaged over the ranks in one flat
+all-reduce with the loss, before the non-finite gate, the gradient norm and
+the update, so every rank takes the same branch; with update_freq > 1 at
+every micro-step, so that the accumulator and the norm it reports are the
+global batch's at every step, as JAX's. The metrics are the global
+batch's: the loss and accuracy averaged, the per-class counts summed. At a
+world of one every `parallel.mesh` helper is the identity (a rank's rows are
+all of them, a view), so the same code is the one-process step.
 """
 
 from __future__ import annotations
@@ -85,12 +105,14 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..data.augment import AugmentPipeline, eval_preprocess
+from ..data.augment import AugmentPipeline, draw_rows, eval_preprocess
 from ..data.mixup import (MixupConfig, mixup_cutmix, one_hot_smooth, pack_draws,
                           sample_mixup, unpack_draws)
 from ..models.layers import clear_batch_stats, commit_batch_stats
 from ..optim.ema import ema_update, warmup_decay
 from ..optim.factory import route
+from ..parallel.dist import get_rank, get_world_size
+from ..parallel.mesh import all_gather_rows, mean_across, rows_of, sum_across
 from .state import TrainState
 
 # the packed metric vectors: scalars first, then the per-class counts
@@ -200,7 +222,9 @@ def build_train_step(model: nn.Module, args, num_classes: int,
     or shape raises ValueError. Its parts are attributes for
     `engine/compiled.py`: `host_inputs`, `device_step`, `is_boundary`,
     `generators` (the CUDA generators the device step draws from) and
-    `num_classes`."""
+    `num_classes`. In a process group of several ranks (built after
+    `parallel.init_distributed_mode`), `draws` and `sample_draws` are those
+    of the global batch, and the step takes this rank's rows."""
     device = next(model.parameters()).device
     params = dict(model.named_parameters())
     pruned = []  # (parameter, where it is held at zero)
@@ -226,9 +250,11 @@ def build_train_step(model: nn.Module, args, num_classes: int,
     wd_table = torch.tensor(np.asarray(wd_schedule, np.float32), device=device)
     # pixel draws on the device; the few mixup scalars on the host; dropout
     # and stochastic depth (ConvNeXt's drop_path) on the device
+    world, rank = get_world_size(), get_rank()
     aug_gen = torch.Generator(device=device).manual_seed(seed)
     mix_gen = torch.Generator().manual_seed(seed + 1)
-    drop_gen = torch.Generator(device=device).manual_seed(seed + 2)
+    # the masks are drawn per rank (the same generator as before at rank 0)
+    drop_gen = torch.Generator(device=device).manual_seed(seed + 2 + 1_000_003 * rank)
     # --remat: the recompute's generator, given drop_gen's state before each
     # step, so that it draws the first run's masks again
     redraw_gen = torch.Generator(device=device) if remat else None
@@ -241,8 +267,11 @@ def build_train_step(model: nn.Module, args, num_classes: int,
             redraw_gen.set_state(drop_gen.get_state())
 
     def sample_draws(B: int, H: int, W: int) -> Dict:
-        return {"augment": augment.sample(B, H, W, aug_gen),
-                "mixup": sample_mixup(mixup_cfg, B, H, W, mix_gen) if mixup_cfg else None}
+        """The draws of a step on a local batch of B: those of the global
+        batch of B * world."""
+        return {"augment": augment.sample(B * world, H, W, aug_gen),
+                "mixup": (sample_mixup(mixup_cfg, B * world, H, W, mix_gen) if mixup_cfg
+                          else None)}
 
     def is_boundary(step: int) -> bool:
         """Whether micro-step `step` ends an accumulation window."""
@@ -250,14 +279,14 @@ def build_train_step(model: nn.Module, args, num_classes: int,
 
     def host_inputs(step: int, B: int, H: int, W: int, mixup_draws=None) -> torch.Tensor:
         """The step's host-side inputs as one float64 CPU vector: the schedule
-        index t = step // update_freq, then the mixup draws (`pack_draws`),
-        drawn here unless given. Gives the recompute's generator the dropout
-        generator's state (`--remat`)."""
+        index t = step // update_freq, then the mixup draws of the global
+        batch (`pack_draws`), drawn here unless given. Gives the recompute's
+        generator the dropout generator's state (`--remat`)."""
         sync_redraw()
         parts = [np.asarray([step // update_freq], np.float64)]
         if mixup_cfg is not None:
             if mixup_draws is None:
-                mixup_draws = sample_mixup(mixup_cfg, B, H, W, mix_gen)
+                mixup_draws = sample_mixup(mixup_cfg, B * world, H, W, mix_gen)
             parts.append(pack_draws(mixup_cfg, mixup_draws))
         return torch.from_numpy(np.concatenate(parts))
 
@@ -290,7 +319,12 @@ def build_train_step(model: nn.Module, args, num_classes: int,
         backward."""
         images = augment(image, aug)
         if mixup_cfg is not None:
-            mixed, targets = mixup_cutmix(images, label, mix, mixup_cfg)
+            # the global batch's mixup (a partner may lie on another rank),
+            # then this rank's rows of it
+            mine = rows_of(image.shape[0] * world)
+            mixed, targets = mixup_cutmix(all_gather_rows(images), all_gather_rows(label), mix,
+                                          mixup_cfg)
+            mixed, targets = mixed[mine], targets[mine]
         elif smoothing > 0:
             mixed, targets = images, one_hot_smooth(label, num_classes, smoothing)
         else:
@@ -317,21 +351,29 @@ def build_train_step(model: nn.Module, args, num_classes: int,
             grads = tuple(g.detach() for g in grads)
         return loss.detach(), logits.detach(), images, grads, diag
 
+    def local_draws(aug: Dict, B: int) -> Dict:
+        """This rank's rows of the global batch's pixel draws."""
+        return draw_rows(aug, rows_of(B * world))
+
     def loss_and_grads(model: nn.Module, batch, draws):
-        """`forward_backward` on `batch` with the draws of `sample_draws`."""
+        """`forward_backward` on `batch` with the draws of `sample_draws`
+        (this rank's loss and gradients, not averaged over the ranks)."""
         sync_redraw()
         image = batch["image"]
+        B = image.shape[0]
         mix = None
         if mixup_cfg is not None:
             flat = to_device(torch.from_numpy(pack_draws(mixup_cfg, draws["mixup"])), device)
-            mix = unpack_draws(mixup_cfg, flat, image.shape[0])
-        return forward_backward(model, image, batch["label"], draws["augment"], mix)[:4]
+            mix = unpack_draws(mixup_cfg, flat, B * world)
+        return forward_backward(model, image, batch["label"], local_draws(draws["augment"], B),
+                                mix)[:4]
 
     def device_step(state: TrainState, image: torch.Tensor, label: torch.Tensor,
                     inputs: torch.Tensor, boundary: bool, aug: Optional[Dict] = None,
                     hessian_z: Optional[Sequence[torch.Tensor]] = None):
         """One step on the device from `host_inputs`' vector on the device;
-        `aug` the pixel draws, drawn from the step's generator when None;
+        `aug` the pixel draws of the global batch, drawn from the step's
+        generator when None;
         `hessian_z` adahessian's Rademacher draws, one tensor a parameter,
         drawn from the step's generator when None.
         Updates the state's tensors in place (not `state.step`) and returns
@@ -341,11 +383,16 @@ def build_train_step(model: nn.Module, args, num_classes: int,
         model.train()
         B, H, W = image.shape[:3]
         t = inputs[0].to(torch.int64)
-        mix = unpack_draws(mixup_cfg, inputs[1:], B) if mixup_cfg is not None else None
+        mix = unpack_draws(mixup_cfg, inputs[1:], B * world) if mixup_cfg is not None else None
         if aug is None:
-            aug = augment.sample(B, H, W, aug_gen)
+            aug = augment.sample(B * world, H, W, aug_gen)
         loss, logits, images, grads, diag = forward_backward(
-            model, image, label, aug, mix, hessian=use_hessian and boundary, z=hessian_z)
+            model, image, label, local_draws(aug, B), mix, hessian=use_hessian and boundary,
+            z=hessian_z)
+        with torch.no_grad():  # the global batch's loss, gradients and z * Hz
+            n = len(grads)
+            parts = mean_across([*grads, *(diag or ()), loss])
+            grads, diag, loss = parts[:n], parts[n:-1] or None, parts[-1]
         finite = torch.isfinite(loss)
         commit_batch_stats(model, finite)
 
@@ -383,7 +430,9 @@ def build_train_step(model: nn.Module, args, num_classes: int,
             preds = acc_logits.argmax(-1)
             tp, fp, fn = _per_class_counts(preds, label, num_classes,
                                            torch.ones_like(preds, dtype=torch.float32))
-            class_acc = (preds == label).float().mean()
+            # the global batch's
+            class_acc, = mean_across([(preds == label).float().mean()])
+            tp, fp, fn = sum_across([tp, fp, fn])
             lo, hi = opt.scale_bounds
             return _pack((loss, class_acc, grad_norm, lr * hi, lr * lo, wd, ~finite), tp, fp, fn)
 

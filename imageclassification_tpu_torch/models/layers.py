@@ -10,7 +10,8 @@ channels-first view of them (`conv2d_nhwc`). BatchNorm (`BatchNorm`) keeps
 flax's semantics: fp32 batch statistics with the biased variance, a running
 average with momentum 0.9, and no buffer update inside the forward (the
 train step commits the statistics, `commit_batch_stats`, gated on the
-device by the loss's finiteness).
+device by the loss's finiteness). At a world of several processes its batch
+statistics are those of the global batch, their gradient all-reduced.
 
 Randomness (dropout, stochastic depth, init) takes an explicit
 `torch.Generator`; a training-mode forward that needs random draws and has
@@ -26,6 +27,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.int8 import Int8Linear
+from ..parallel.dist import get_world_size
+from ..parallel.mesh import sum_across_grad
 
 # flax's truncated_normal(stddev) divides by the std of a unit normal
 # truncated to [-2, 2], so the truncated draw has exactly `stddev`
@@ -132,12 +135,32 @@ class BatchNorm(nn.Module):
             y = F.batch_norm(xc, self.running_mean, self.running_var, self.weight, self.bias,
                              training=False, eps=self.eps)
             return y.permute(0, 2, 3, 1)
+        if get_world_size() > 1:
+            return self._global_batch(x)
         # the statistics of native_batch_norm: the batch mean and the inverse
         # standard deviation of the biased variance, both fp32
         y, mean, invstd = torch.native_batch_norm(xc, self.weight, self.bias, None, None,
                                                   True, 0.0, self.eps)
         self.batch_stats = (mean.detach(), invstd.detach().pow(-2) - self.eps)
         return y.permute(0, 2, 3, 1)
+
+    def _global_batch(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode at a world of several processes: the statistics of the
+        global batch (the JAX BatchNorm over a sharded batch), two-pass in
+        fp32: Σx and the count summed over the ranks, then Σ(x - mean)².
+        Both sums are differentiable all-reduces, so the gradient crosses
+        the ranks as the statistics did (`parallel.mesh.sum_across_grad`),
+        and every rank commits the same statistics."""
+        xf = x.float()
+        dims = tuple(range(x.dim() - 1))
+        n = xf.new_full((1,), float(x.numel() // x.shape[-1]))
+        s = sum_across_grad(torch.cat([xf.sum(dims), n]))
+        count = s[-1]
+        mean = s[:-1] / count
+        d = xf - mean
+        var = sum_across_grad((d * d).sum(dims)) / count
+        self.batch_stats = (mean.detach(), var.detach())
+        return (d * torch.rsqrt(var + self.eps) * self.weight + self.bias).to(x.dtype)
 
 
 def _batch_norms(model: nn.Module):

@@ -1,5 +1,5 @@
 """UPerNet + ConvNeXt semantic-segmentation fine-tuning (port of the root
-seg_train.py), in one process on one device:
+seg_train.py), one process a device:
 
     python -m imageclassification_tpu_torch.seg_train --data_path /data/ade_like \\
         --config upernet_convnext_tiny_512_160k \\
@@ -15,10 +15,18 @@ the highest iteration with the step restored unconditionally) are the JAX
 package's files: either CLI resumes the other's.
 
 The step runs eager on `--device` (cuda by default, which raises without a
-card; `--device cpu` runs on the CPU). A launch of more than one process
-(torchrun's WORLD_SIZE, SLURM_NTASKS), `--dist_on_itp` and a
-`--mesh_shape` over more than one device raise NotImplementedError:
-multi-process training and the rank-strided eval are ROADMAP A9.
+card; `--device cpu` runs on the CPU). A torchrun, SLURM or OMPI
+(`--dist_on_itp`) launch trains data-parallel over torch.distributed
+(`parallel/`), as the JAX CLI over its processes: `--batch_size` is the
+global batch, each rank draws its rows of it (`train_batches(..., rank,
+world)`), the step and the whole eval are the global batch's
+(`downstream/seg_engine.py`), and rank 0 writes TensorBoard, log.txt and
+the checkpoints. The drop-path and dropout masks are drawn per rank from
+(seed, iteration, rank). A `--mesh_shape` whose size is not the world
+raises ValueError, as JAX's make_mesh:
+
+    torchrun --nproc_per_node 8 -m imageclassification_tpu_torch.seg_train \\
+        --data_path /data/ade_like --config upernet_convnext_tiny_512_160k ...
 """
 
 from __future__ import annotations
@@ -35,7 +43,6 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from .config import _launcher_processes, _mesh_devices
 from .device import DEVICES, resolve_device
 from .downstream.configs import SEGMENTATION_CONFIGS
 from .downstream.seg_data import IGNORE, num_classes_from_masks, scan_pairs, train_batches
@@ -45,6 +52,8 @@ from .downstream.seg_engine import (_normalize, build_seg_eval_step, build_seg_t
 from .downstream.upernet import build_upernet
 from .engine.state import TrainState
 from .optim.schedules import poly_scheduler
+from .parallel.dist import init_distributed_mode, is_main_process
+from .parallel.mesh import check_mesh
 
 MS_RATIOS = (0.5, 0.75, 1.0, 1.25, 1.5, 1.75)
 
@@ -83,23 +92,12 @@ def get_args_parser():
     return p
 
 
-def check_single_process(args) -> None:
-    """NotImplementedError naming ROADMAP A9 for what needs more than one
-    process or device."""
-    processes, variable = _launcher_processes()
-    for is_set, what in ((args.dist_on_itp, "--dist_on_itp"),
-                         (processes > 1, f"a launch of {processes} processes ({variable})"),
-                         (_mesh_devices(args.mesh_shape) > 1, f"--mesh_shape {args.mesh_shape}")):
-        if is_set:
-            raise NotImplementedError(
-                f"{what}: multi-process segmentation is not ported to imageclassification_tpu_torch "
-                "yet (ROADMAP A9 (distributed)); the port's seg_train runs one process")
-
-
-def step_generator(seed: int, it: int, device: torch.device) -> torch.Generator:
-    """The generator of iteration `it`'s drop-path and dropout draws, a pure
-    function of (seed, it), so a resumed run draws what the original would."""
-    state = np.random.SeedSequence([seed, it]).generate_state(2, np.uint32)
+def step_generator(seed: int, it: int, device: torch.device, rank: int = 0) -> torch.Generator:
+    """The generator of iteration `it`'s drop-path and dropout draws on
+    `rank`, a pure function of (seed, it, rank), so a resumed run draws what
+    the original would."""
+    state = np.random.SeedSequence([seed, it] + ([rank] if rank else [])).generate_state(
+        2, np.uint32)
     return torch.Generator(device=device).manual_seed(int(state[0]) << 32 | int(state[1]))
 
 
@@ -170,8 +168,10 @@ def evaluate_slide(model, val_pairs, crop: int, stride: int, num_classes: int,
 
 
 def main(args):
-    check_single_process(args)
     device = resolve_device(args.device)
+    init_distributed_mode(args)
+    world, rank = args.world_size, args.rank
+    check_mesh(args.mesh_shape, world)
     cfg = SEGMENTATION_CONFIGS[args.config]
     crop = args.crop_size or cfg.crop_size
     batch = args.batch_size or cfg.batch_per_host
@@ -185,6 +185,8 @@ def main(args):
     num_classes = args.num_classes or num_classes_from_masks(train_pairs)
     print(f"{len(train_pairs)} train / {len(val_pairs)} val pairs, {num_classes} classes, "
           f"crop {crop}, batch {batch}, {total_iters} iters")
+    if batch % world:
+        raise ValueError(f"global batch {batch} must divide across {world} processes")
 
     model, _ = build_upernet(args.config, num_classes, half_precision=args.half_precision,
                              generator=torch.Generator().manual_seed(args.seed))
@@ -211,7 +213,7 @@ def main(args):
     log_path = out_dir.parent / "log.txt"
     from .utils.loggers import TensorboardLogger
 
-    tb = TensorboardLogger(str(out_dir.parent / "log_dir"))
+    tb = TensorboardLogger(str(out_dir.parent / "log_dir")) if is_main_process() else None
     save_args = SimpleNamespace(output_dir=str(out_dir), model_ema=False, save_ckpt_num=3,
                                 save_ckpt_freq=1)
     model_spec = {"task": "segmentation", "config": args.config, "num_classes": num_classes,
@@ -231,9 +233,9 @@ def main(args):
     best_miou = -1.0
     loss_sum, n_since = None, 0
     for it, xs, ys in train_batches(train_pairs, crop, batch, total_iters, args.seed,
-                                    start=start_iter):
+                                    start=start_iter, rank=rank, world=world):
         loss = train_step(state, torch.from_numpy(xs).to(device), torch.from_numpy(ys).to(device),
-                          step_generator(args.seed + 1, it, device))
+                          step_generator(args.seed + 1, it, device, rank))
         loss_sum = loss if loss_sum is None else loss_sum + loss
         n_since += 1
         last = it + 1 == total_iters
@@ -242,24 +244,28 @@ def main(args):
             lr_it = lr_values[min(it, len(lr_values) - 1)]
             print(f"iter {it + 1}/{total_iters} loss {avg:.4f} lr {lr_it:.2e} "
                   f"({(time.time() - t0) / (it + 1 - start_iter):.2f}s/iter)")
-            tb.update(head="loss", step=it + 1, loss=avg)
-            tb.update(head="opt", step=it + 1, lr=float(lr_it))
+            if tb is not None:
+                tb.update(head="loss", step=it + 1, loss=avg)
+                tb.update(head="opt", step=it + 1, lr=float(lr_it))
             loss_sum, n_since = None, 0
         if args.eval_interval and (it + 1) % args.eval_interval == 0 and not last:
             miou, _, acc = evaluate()
             print(f"iter {it + 1}: mIoU {miou * 100:.2f} aAcc {acc * 100:.2f}")
-            tb.update(head="perf", step=it + 1, miou=miou, aacc=acc)
+            if tb is not None:
+                tb.update(head="perf", step=it + 1, miou=miou, aacc=acc)
             if miou > best_miou:
                 _save_best(miou, state, save_args, crop, num_classes, model_spec)
                 best_miou = miou
-            with open(log_path, "a") as f:
-                f.write(json.dumps({"iter": it + 1, "miou": miou, "aacc": acc}) + "\n")
+            if is_main_process():
+                with open(log_path, "a") as f:
+                    f.write(json.dumps({"iter": it + 1, "miou": miou, "aacc": acc}) + "\n")
         if args.save_ckpt_interval and (it + 1) % args.save_ckpt_interval == 0:
             from .checkpoint.io import save_model
 
             save_model(save_args, (1, crop, crop, 3), f"iter{it + 1}", state, num_classes,
                        model_spec)
-            _prune_iter_ckpts(args.output_dir, keep=save_args.save_ckpt_num)
+            if is_main_process():
+                _prune_iter_ckpts(args.output_dir, keep=save_args.save_ckpt_num)
 
     miou, iou, acc = evaluate()
     if miou > best_miou:
@@ -270,10 +276,11 @@ def main(args):
     row = {"iter": total_iters, "miou": miou, "aacc": acc,
            "wall_clock_s": round(time.time() - t0, 1), **per_class}
     print(f"final: mIoU {miou * 100:.2f} aAcc {acc * 100:.2f} (best {best_miou * 100:.2f})")
-    tb.update(head="perf", step=total_iters, miou=miou, aacc=acc)
-    tb.flush()
-    with open(log_path, "a") as f:
-        f.write(json.dumps(row) + "\n")
+    if is_main_process():
+        tb.update(head="perf", step=total_iters, miou=miou, aacc=acc)
+        tb.flush()
+        with open(log_path, "a") as f:
+            f.write(json.dumps(row) + "\n")
     from .checkpoint.io import save_model
 
     save_model(save_args, (1, crop, crop, 3), f"iter{total_iters}", state, num_classes,

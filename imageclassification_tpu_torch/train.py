@@ -33,8 +33,16 @@ torch.profiler trace with --profile_dir, and a checkpoint on SIGTERM/SIGUSR1
 before a clean exit. On a card the train and eval steps run
 as CUDA graphs (`engine/compiled.py`, the counterpart of the JAX step's
 `jax.jit`); on the CPU, and with --check_nans (eager, with NaN checks, as
-JAX's jax_debug_nans), they run eagerly. One process on one device; every
-model of the JAX registry (ViT, ConvNeXt and V2, ResNet, ResNeXt and wide
+JAX's jax_debug_nans), they run eagerly. One process a device: a torchrun,
+SLURM or OMPI (--dist_on_itp) launch trains data-parallel over
+torch.distributed (`parallel/`), the step being the function of the global
+batch, as JAX's; its steps run eagerly there (`engine/compiled.py`), and
+rank 0 writes the checkpoints, log.txt, TensorBoard and W&B:
+
+    torchrun --nproc_per_node 8 -m imageclassification_tpu_torch.train \\
+        --data_path <ImageFolder> --model vit_base_patch16 --flash_attn true ...
+
+Every model of the JAX registry (ViT, ConvNeXt and V2, ResNet, ResNeXt and wide
 ResNet, EfficientViT, MobileNetV3, EfficientNet, Swin, DenseNet),
 --layer_decay, --remat, the whole optimizer table (adahessian with the
 Hutchinson diagonal from a second backward; not with --flash_attn on a
@@ -74,6 +82,8 @@ from .optim.ema import init_ema, init_ema_stats
 from .optim.factory import LEAFWISE, create_optimizer, route
 from .optim.layer_decay import layer_decay_scales
 from .optim.schedules import build_schedules
+from .parallel.dist import any_process, init_distributed_mode, is_main_process
+from .parallel.mesh import check_mesh
 from .utils.loggers import TensorboardLogger, WandbLogger
 from .val import initialize_model as initialize_teacher
 
@@ -145,15 +155,21 @@ def optimizer_layout(args: TrainConfig, model) -> dict:
 def main(args: TrainConfig):
     check_ported(args)
     device = resolve_device(args.device)
+    # the process group before anything touches the device
+    init_distributed_mode(args)
+    world, rank = args.world_size, args.rank
+    check_mesh(args.mesh_shape, world)
     print(args)
     seed = args.seed
 
     dataset_train, dataset_val, num_classes = build_dataset(args)
-    os.makedirs(args.log_dir, exist_ok=True)
-    log_writer = TensorboardLogger(log_dir=args.log_dir)
-    wandb_logger = WandbLogger(args) if args.enable_wandb else None
+    log_writer, wandb_logger = None, None
+    if rank == 0:
+        os.makedirs(args.log_dir, exist_ok=True)
+        log_writer = TensorboardLogger(log_dir=args.log_dir)
+        wandb_logger = WandbLogger(args) if args.enable_wandb else None
 
-    total_batch_size = args.batch_size * args.update_freq
+    total_batch_size = args.batch_size * args.update_freq * world
     num_training_steps_per_epoch = len(dataset_train) // total_batch_size
     if num_training_steps_per_epoch == 0:
         raise ValueError(
@@ -234,13 +250,16 @@ def main(args: TrainConfig):
     eval_step = build_eval_step(model, num_classes)
     if args.check_nans:
         train_step = nan_checked(train_step, model)
-    elif device.type == "cuda":
+    elif device.type == "cuda" and world == 1:
+        # several ranks run eagerly, the collectives inline
         train_step = CapturedTrainStep(train_step, device)
         eval_step = captured_eval_step(eval_step, device)
     eval_bs = int(1.5 * args.batch_size)
+    eval_bs = max(world, (eval_bs // world) * world)
 
     def make_val_loader():
-        idx = np.stack(eval_batches(len(dataset_val), eval_bs))
+        # the val set sharded over the ranks: each sample counted once
+        idx = np.stack(eval_batches(len(dataset_val), eval_bs, rank=rank, world=world))
         return BatchLoader(dataset_val, idx, args.input_size, train=False, device=device,
                            seed=seed, num_workers=args.num_workers)
 
@@ -291,10 +310,11 @@ def _train(args, state, train_step, eval_step, make_val_loader, log_writer, wand
            model_spec, preempted):
     """The epoch loop of `main`."""
     model, device, seed = state.model, next(state.model.parameters()).device, args.seed
+    world, rank = args.world_size, args.rank
     max_accuracy = 0.0
     max_accuracy_ema = 0.0
     profiler = None
-    if args.profile_dir:
+    if args.profile_dir and rank == 0:
         try:
             profiler = _start_profiler(args.profile_dir, device)
         except RuntimeError as e:  # a build or host that cannot trace
@@ -303,12 +323,14 @@ def _train(args, state, train_step, eval_step, make_val_loader, log_writer, wand
     start_time = time.time()
     for epoch in range(args.start_epoch, args.epochs):
         sampler = ra_epoch_batch_indices if args.RASampler else epoch_batch_indices
-        idx = sampler(len(dataset_train), args.batch_size, epoch, seed)
+        idx = sampler(len(dataset_train), args.batch_size * world, epoch, seed, rank=rank,
+                      world=world)
         idx = idx[: num_training_steps_per_epoch * args.update_freq]  # drop_last
         train_loader = BatchLoader(dataset_train, idx, args.input_size, train=True,
                                    device=device, seed=seed + epoch,
                                    num_workers=args.num_workers)
-        log_writer.set_step(epoch * num_training_steps_per_epoch * args.update_freq)
+        if log_writer is not None:
+            log_writer.set_step(epoch * num_training_steps_per_epoch * args.update_freq)
         if wandb_logger:
             wandb_logger.set_steps()
         state, train_stats = train_one_epoch(
@@ -331,8 +353,9 @@ def _train(args, state, train_step, eval_step, make_val_loader, log_writer, wand
             if args.save_ckpt:
                 ckpt_io.save_model(args, input_shape, "best", state, num_classes, model_spec)
         print(f"Max accuracy: {max_accuracy:.3f}%")
-        log_writer.update(test_acc1=test_stats["acc1"], head="perf", step=epoch)
-        log_writer.update(test_loss=test_stats["loss"], head="perf", step=epoch)
+        if log_writer is not None:
+            log_writer.update(test_acc1=test_stats["acc1"], head="perf", step=epoch)
+            log_writer.update(test_loss=test_stats["loss"], head="perf", step=epoch)
 
         log_stats = {
             "current_time": datetime.datetime.now().strftime("%Y-%m-%d %H:%M:%S"),
@@ -352,16 +375,21 @@ def _train(args, state, train_step, eval_step, make_val_loader, log_writer, wand
                     ckpt_io.save_model(args, input_shape, "best-ema", state, num_classes,
                                        model_spec)
                 print(f"Max EMA accuracy: {max_accuracy_ema:.2f}%")
-            log_writer.update(test_acc1_ema=test_stats_ema["acc1"], head="perf", step=epoch)
+            if log_writer is not None:
+                log_writer.update(test_acc1_ema=test_stats_ema["acc1"], head="perf", step=epoch)
             log_stats.update({f"test_{k}_ema": v for k, v in test_stats_ema.items()})
 
-        log_writer.flush()
-        with open(Path(args.output_dir).parent / "log.txt", mode="a", encoding="utf-8") as f:
-            f.write(json.dumps(log_stats) + "\n")
+        if is_main_process():
+            log_writer.flush()
+            with open(Path(args.output_dir).parent / "log.txt", mode="a",
+                      encoding="utf-8") as f:
+                f.write(json.dumps(log_stats) + "\n")
         if wandb_logger:
             wandb_logger.log_epoch_metrics(log_stats)
 
-        if preempted["flag"]:
+        # the signal reaches the ranks with skew, and the save below ends the
+        # loop: every rank takes the decision of all of them
+        if any_process(preempted["flag"]):
             if args.save_ckpt and not saved_this_epoch:
                 ckpt_io.save_model(args, input_shape, epoch, state, num_classes, model_spec)
             print(f"Preemption checkpoint at epoch {epoch}; exiting cleanly for requeue "

@@ -2,7 +2,8 @@
 TensorBoard sink (tensorboardX when it imports, else
 torch.utils.tensorboard, else a no-op writer, so training never needs the
 package) and the W&B logger (`--enable_wandb`; the `wandb` package is
-imported only when one is made)."""
+imported only when one is made). At a world of several processes
+`train.main` and `seg_train.main` make them on rank 0 only, as JAX's."""
 
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
 """Metric meters (port of the JAX package's `utils/metrics.py`: SmoothedValue,
-MetricLogger, per_class_precision_recall). One process, so no cross-process
-reduction yet (ROADMAP A9)."""
+MetricLogger, per_class_precision_recall). At a world of several processes
+`synchronize_between_processes` sums each meter's count and total over the
+ranks (the step's device metrics are already the global batch's)."""
 
 from __future__ import annotations
 
@@ -9,6 +10,8 @@ import time
 from collections import defaultdict, deque
 
 import numpy as np
+
+from ..parallel.dist import all_reduce_host
 
 
 class SmoothedValue:
@@ -25,6 +28,12 @@ class SmoothedValue:
         self.deque.append(value)
         self.count += n
         self.total += value * n
+
+    def synchronize_between_processes(self):
+        """[count, total] summed over the ranks (float64); the window stays
+        this rank's."""
+        count, total = all_reduce_host(np.array([self.count, self.total], np.float64))
+        self.count, self.total = int(count), float(total)
 
     @property
     def median(self):
@@ -75,6 +84,10 @@ class MetricLogger:
 
     def __str__(self):
         return self.delimiter.join(f"{name}: {meter}" for name, meter in self.meters.items())
+
+    def synchronize_between_processes(self):
+        for meter in self.meters.values():
+            meter.synchronize_between_processes()
 
     def log_every(self, iterable, print_freq, header=None):
         """Yield from `iterable`, printing progress, ETA and the meters every

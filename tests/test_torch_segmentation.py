@@ -622,15 +622,25 @@ def test_seg_train_runs_three_iterations_with_auto_resume(tmp_path, capsys):
 
 
 def test_multiprocess_launch_raises_naming_a9(tmp_path, monkeypatch):
+    # multi-process segmentation is ported (ROADMAP A9): a torchrun or OMPI
+    # launch joins a process group before anything else (init_process_group
+    # stops the run here), and a --mesh_shape whose size is not the world
+    # raises the JAX make_mesh's ValueError
     root = _seg_folder(tmp_path / "data", n_train=1, n_val=1)
-    args = seg_train.get_args_parser().parse_args(["--data_path", root, "--device", "cpu"])
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    monkeypatch.setenv("RANK", "0")
-    with pytest.raises(NotImplementedError, match="A9"):
-        seg_train.main(args)
-    monkeypatch.delenv("WORLD_SIZE")
-    monkeypatch.delenv("RANK")
-    for extra in (["--dist_on_itp"], ["--mesh_shape", "data:2"]):
-        with pytest.raises(NotImplementedError, match="A9"):
-            seg_train.main(seg_train.get_args_parser().parse_args(
-                ["--data_path", root, "--device", "cpu", *extra]))
+
+    def init_process_group(backend, **kw):
+        raise RuntimeError(f"joined: {backend} world {kw['world_size']} rank {kw['rank']}")
+
+    monkeypatch.setattr(torch.distributed, "init_process_group", init_process_group)
+    for env, extra in (({"WORLD_SIZE": "2", "RANK": "0"}, []),
+                       ({"OMPI_COMM_WORLD_SIZE": "2", "OMPI_COMM_WORLD_RANK": "0"},
+                        ["--dist_on_itp"])):
+        with monkeypatch.context() as m:
+            for k, v in env.items():
+                m.setenv(k, v)
+            with pytest.raises(RuntimeError, match="joined: gloo world 2 rank 0"):
+                seg_train.main(seg_train.get_args_parser().parse_args(
+                    ["--data_path", root, "--device", "cpu", *extra]))
+    with pytest.raises(ValueError, match="mesh data:2 needs 2 devices, have 1"):
+        seg_train.main(seg_train.get_args_parser().parse_args(
+            ["--data_path", root, "--device", "cpu", "--mesh_shape", "data:2"]))

@@ -73,7 +73,7 @@ def test_flags_and_defaults_match_jax():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--fsdp", "true"], "A9"), (["--mesh_shape", "data:4"], "A9"),
+    (["--fsdp", "true"], "A9"),  # "A9b (--fsdp)"; a --mesh_shape over the world is ported
 ])
 def test_unported_flags_raise(argv, item):
     args = config.parse_args(argv)
@@ -95,31 +95,40 @@ def test_ported_flags_pass():
         config.check_ported(config.parse_args(argv))
 
 
-@pytest.mark.parametrize("argv,env,raises", [
-    (["--dist_on_itp", "true"], {}, True),
+@pytest.mark.parametrize("argv,env,joins", [
+    (["--dist_on_itp", "true"], {"OMPI_COMM_WORLD_RANK": "0", "OMPI_COMM_WORLD_SIZE": "2"}, True),
     ([], {"RANK": "0", "WORLD_SIZE": "2"}, True),
     ([], {"SLURM_PROCID": "0", "SLURM_NTASKS": "2"}, True),
     ([], {"RANK": "0", "WORLD_SIZE": "1"}, False),
     ([], {"SLURM_NTASKS": "1"}, False),
     ([], {}, False),
 ])
-def test_multi_process_launch_raises(monkeypatch, tmp_path, argv, env, raises):
+def test_multi_process_launch_raises(monkeypatch, tmp_path, argv, env, joins):
     # the launcher environments in which the JAX train.py joins processes
-    # (parallel/dist.py:40-53): the port raises before it builds anything or
-    # writes a file, where it would run independent trainings writing the
-    # same checkpoints; a world of one process runs as a single process does
+    # (parallel/dist.py:40-53): the port no longer raises (ROADMAP A9 is
+    # ported) but joins a process group before it builds anything or writes
+    # a file (here init_process_group stops the run); a world of one process
+    # runs as a single process does, with no group
     monkeypatch.chdir(tmp_path)
-    for name in ("RANK", "WORLD_SIZE", "SLURM_PROCID", "SLURM_NTASKS"):
+    for name in ("RANK", "WORLD_SIZE", "SLURM_PROCID", "SLURM_NTASKS", "OMPI_COMM_WORLD_RANK",
+                 "OMPI_COMM_WORLD_SIZE"):
         monkeypatch.delenv(name, raising=False)
     for name, value in env.items():
         monkeypatch.setenv(name, value)
-    args = config.parse_args(argv)
-    if not raises:
-        config.check_ported(args)
+    args = config.parse_args([*argv, "--device", "cpu"])
+    config.check_ported(args)
+
+    def init_process_group(backend, **kw):
+        raise RuntimeError(f"joined: {backend} world {kw['world_size']} rank {kw['rank']}")
+
+    monkeypatch.setattr(torch.distributed, "init_process_group", init_process_group)
+    from imageclassification_tpu_torch.parallel import init_distributed_mode
+
+    if not joins:
+        init_distributed_mode(args)
+        assert not args.distributed and args.world_size == 1
         return
-    with pytest.raises(NotImplementedError, match="A9"):
-        config.check_ported(args)
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(RuntimeError, match="joined: gloo world 2 rank 0"):
         train.main(args)
     assert not any(tmp_path.iterdir())
 
